@@ -4,8 +4,11 @@
 The JAX package stays the reference; this package mirrors its module paths
 and public names, imports neither JAX nor the JAX package, and runs on the
 GPU unless a caller asks for the CPU (``device="cpu"``).  Ported so far: the
-CFG trajectory sweep (config, schedules, U-Net, checkpoint reading, engine
-samplers with the fused Triton update kernel, metric suite, sweep engine).
+CFG trajectory sweep (config, schedules, U-Net, checkpoints, engine samplers
+with the fused Triton update kernel, metric suite, sweep engine) and
+training (forward process, the U-Net's train mode, reference samplers, data
+layer, train steps, epoch loop, checkpoint writing, and the teacher,
+student and resume trainers with their CLIs under ``scripts/``).
 """
 
 __version__ = "0.1.0"

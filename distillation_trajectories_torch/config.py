@@ -55,6 +55,10 @@ class Config:
     ``NotImplementedError``.  ``pallas_cfg_update`` is kept for config
     compatibility only: the port's samplers always send the update tail
     through ``ops.cfg_update.cfg_engine_update``, whatever it says.
+    ``epoch_scan`` and ``vmap_students`` select nothing either: the trainers
+    always run the per-batch loop and train students of one architecture
+    in sequence, the semantics the JAX package holds its epoch scan and
+    vmapped group to.  ``checkpoint_sharded`` makes the trainers raise.
     """
 
     # Dataset
@@ -214,8 +218,7 @@ class Config:
         return os.path.join(self.student_models_dir, f"size_{size_factor}")
 
     def get_test_dataset(self):
-        """Test-split images; the port's data layer has not landed yet."""
-        raise NotImplementedError(
-            "Config.get_test_dataset needs the port's data layer "
-            "(data/datasets.py), which is not ported yet"
-        )
+        """Test-split ``(images, labels)``: NHWC float32 in [-1, 1]."""
+        from .data import load_dataset
+
+        return load_dataset(self, train=False)

@@ -1,10 +1,11 @@
-"""Diffusion schedules and the trajectory-engine samplers."""
+"""Diffusion schedules, the forward process and the samplers."""
 from .schedules import (
     linear_beta_schedule,
     cosine_beta_schedule,
     get_diffusion_params,
     extract,
 )
+from .process import q_sample, p_losses
 from .sampling import (
     engine_update,
     generate_trajectory_scan,
@@ -13,4 +14,7 @@ from .sampling import (
     CFG_COND_PAIRS,
     NOCFG_COND_PAIRS,
     subsampled_timestep_indices,
+    p_sample,
+    p_sample_ancestral,
+    p_sample_loop,
 )

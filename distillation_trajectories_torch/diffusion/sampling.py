@@ -1,5 +1,10 @@
-"""Trajectory-engine samplers (port of ``diffusion/sampling.py:154-392``).
+"""Reverse-process samplers (port of ``diffusion/sampling.py``).
 
+``p_sample`` / ``p_sample_ancestral`` / ``p_sample_loop`` are the reference
+formulation that training-time sample grids use (JAX ``sampling.py:40-151``);
+their starting and per-step noise are injectable, as below.
+
+The trajectory-engine samplers (JAX ``sampling.py:154-392``) follow.
 The engine formulation: a DDIM-like c1/c2/σ update on *per-step* alphas over
 ``t = T-1 … 1``; the t=0 iteration makes no update, so its forward is
 skipped and the final state duplicated, giving ``[T+1, …]`` states with the
@@ -24,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.cfg_update import cfg_engine_update
+from .schedules import extract
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -39,6 +45,93 @@ def subsampled_timestep_indices(sample_steps: int, num_timesteps: int) -> np.nda
     step_size = max(1, sample_steps // num_timesteps)
     idx = {min(i * step_size, sample_steps - 1) for i in range(num_timesteps)}
     return np.array(sorted(idx, reverse=True), dtype=np.int32)
+
+
+def _cfg_output(model_fn, x, t, guidance_scale):
+    """Two-pass CFG: cond=1 against the reference's cond=None (mask 0)."""
+    b = x.shape[0]
+    ones = torch.ones((b, 1), dtype=x.dtype, device=x.device)
+    zeros = torch.zeros((b, 1), dtype=x.dtype, device=x.device)
+    cond_out = model_fn(x, t, ones, ones)
+    uncond_out = model_fn(x, t, zeros, zeros)
+    return uncond_out + guidance_scale * (cond_out - uncond_out)
+
+
+def p_sample(model_fn, x, t, t_index: int, diffusion_params, noise,
+             guidance_scale: float = 1.0) -> torch.Tensor:
+    """One reverse step in the reference's non-standard formulation,
+    ``x ← 1/√α·(x − (1−√(1−ᾱ))·ε̂) + noise·β``; ``noise`` is dropped at
+    ``t_index == 0``."""
+    betas_t = extract(diffusion_params["betas"], t, x.shape)
+    sqrt_omac_t = extract(diffusion_params["sqrt_one_minus_alphas_cumprod"], t, x.shape)
+    sqrt_recip_alphas_t = extract(diffusion_params["sqrt_recip_alphas"], t, x.shape)
+    model_output = _cfg_output(model_fn, x, t, guidance_scale)
+    pred_direction = (1.0 - sqrt_omac_t) * model_output
+    if t_index == 0:
+        noise = torch.zeros_like(x)
+    return sqrt_recip_alphas_t * (x - pred_direction) + noise * betas_t
+
+
+def p_sample_ancestral(model_fn, x, t, t_index: int, diffusion_params, noise,
+                       guidance_scale: float = 1.0) -> torch.Tensor:
+    """Textbook DDPM ancestral step (Ho et al. 2020, Eq. 11):
+    ``1/√α_t·(x_t − β_t/√(1−ᾱ_t)·ε̂) + √β̃_t·z``."""
+    betas_t = extract(diffusion_params["betas"], t, x.shape)
+    sqrt_omac_t = extract(diffusion_params["sqrt_one_minus_alphas_cumprod"], t, x.shape)
+    sqrt_recip_alphas_t = extract(diffusion_params["sqrt_recip_alphas"], t, x.shape)
+    posterior_var_t = extract(diffusion_params["posterior_variance"], t, x.shape)
+    eps = _cfg_output(model_fn, x, t, guidance_scale)
+    mean = sqrt_recip_alphas_t * (x - betas_t / sqrt_omac_t * eps)
+    if t_index == 0:
+        noise = torch.zeros_like(x)
+    return mean + torch.sqrt(posterior_var_t) * noise
+
+
+def p_sample_loop(
+    model_fn: ModelFn,
+    shape: Tuple[int, ...],
+    sample_steps: int,
+    diffusion_params,
+    noise: Optional[torch.Tensor] = None,
+    step_noise: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    num_timesteps: Optional[int] = None,
+    track_trajectory: bool = False,
+    guidance_scale: float = 1.0,
+    mode: str = "reference",
+    device=None,
+):
+    """The full reverse loop over the subsampled timesteps, descending.
+
+    ``noise`` (``shape``) starts the chain and ``step_noise``
+    (``[n_steps, *shape]``) feeds step ``j``; each one missing is drawn
+    from ``generator`` on ``device``.  ``mode="ancestral"`` uses the DDPM
+    update.  Returns ``img`` or ``(img, trajectory)`` with trajectory
+    ``[n_steps + 1, *shape]``.
+    """
+    if num_timesteps is None:
+        num_timesteps = sample_steps
+    indices = subsampled_timestep_indices(sample_steps, num_timesteps)
+    step_fn = p_sample_ancestral if mode == "ancestral" else p_sample
+    if noise is None:
+        noise = torch.randn(shape, generator=generator, device=device)
+    if step_noise is None:
+        step_noise = torch.randn((len(indices), *shape), generator=generator,
+                                 device=noise.device)
+    if tuple(step_noise.shape) != (len(indices), *shape):
+        raise ValueError(f"step_noise has shape {tuple(step_noise.shape)}, "
+                         f"expected {(len(indices), *shape)}")
+    x = noise
+    states = [x]
+    for j, t_index in enumerate(indices):
+        t = torch.full((shape[0],), int(t_index), dtype=torch.int32, device=x.device)
+        x = step_fn(model_fn, x, t, int(t_index), diffusion_params,
+                    step_noise[j].to(x.device), guidance_scale)
+        if track_trajectory:
+            states.append(x)
+    if track_trajectory:
+        return x, torch.stack(states)
+    return x
 
 
 def _engine_scalars(alpha_t, alpha_prev) -> Tuple[np.float32, np.float32, np.float32]:

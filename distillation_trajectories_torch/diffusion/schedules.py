@@ -83,7 +83,20 @@ def get_diffusion_params(
 
 def extract(a, t: torch.Tensor, x_shape) -> torch.Tensor:
     """Gather schedule coefficients at timesteps ``t`` (clamped to bounds),
-    shaped ``[B, 1, ..., 1]`` to broadcast against ``x_shape``."""
-    a = torch.tensor(np.asarray(a), device=t.device)
+    shaped ``[B, 1, ..., 1]`` to broadcast against ``x_shape``.  ``a`` is a
+    host array or a tensor (already on ``t``'s device saves the copy)."""
+    if isinstance(a, torch.Tensor):
+        a = a.to(t.device)
+    else:
+        a = torch.tensor(np.asarray(a), device=t.device)
     t = t.long().clamp(0, a.shape[0] - 1)
     return a[t].reshape(t.shape[0], *((1,) * (len(x_shape) - 1)))
+
+
+def schedule_on(diffusion_params: Dict, device) -> Dict:
+    """The schedule's arrays as float32 tensors on ``device`` (a train step
+    gathers from them every step; host arrays would be copied each time)."""
+    return {
+        k: torch.tensor(np.asarray(v), device=device) if np.ndim(v) else v
+        for k, v in diffusion_params.items()
+    }

@@ -12,6 +12,12 @@ input is viewed as NCHW with channels-last strides (a free permute), which
 is the layout cuDNN's fast convolutions take.  Parameters stay float32; the
 convolutions and matmuls run in ``dtype`` under autocast (bf16 by default,
 float32 is the parity mode), and the output is float32.
+
+Train mode follows flax, not torch, where the two differ: BatchNorm
+normalizes with the biased batch variance and also updates ``running_var``
+with it (torch's ``BatchNorm2d`` would update it with the unbiased one), and
+dropout (``nn.Dropout`` after every block, as at JAX ``unet.py:296-340``)
+draws its masks from an explicit ``torch.Generator`` when one is given.
 """
 
 from __future__ import annotations
@@ -54,13 +60,40 @@ class SinusoidalPositionEmbeddings(nn.Module):
         return sinusoidal_time_embedding(t, self.dim)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with flax's train-mode statistics.
+
+    Eval mode is torch's own.  In train mode the fused kernel normalizes
+    with the batch mean and biased variance (statistics in float32 also for
+    bf16 input); given zeroed buffers and momentum 1 it writes the batch
+    mean and the *unbiased* variance into them, and the running update here
+    scales that back to the biased variance, as flax does (torch momentum
+    0.1 is flax momentum 0.9).
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // self.num_features
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.zeros_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var * ((n - 1) / n), alpha=self.momentum
+            )
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _norm(kind: str, ch: int) -> nn.Module:
     if kind == "group":
         # flax GroupNorm's epsilon is 1e-6 (torch's default is 1e-5).
         return nn.GroupNorm(min(32, ch), ch, eps=1e-6)
     if kind != "batch":
         raise ValueError(f"norm must be 'batch' or 'group', got {kind!r}")
-    return nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
 
 class Block(nn.Module):
@@ -90,9 +123,12 @@ class DiffusionUNet(nn.Module):
     ``forward(x [B,H,W,C], t [B], cond [B,1], cond_mask [B,1])`` returns ε̂
     as float32 ``[B,H,W,C]``, contiguous.  ``cond_mask=0`` reproduces the
     reference's ``cond=None`` pass; the cond MLP is always evaluated.  As in
-    the reference, the enc1 skip is unused unless ``full_res_head``.  This
-    is the eval-mode forward: the reference's train-time dropout after each
-    block comes with the port's training slice.
+    the reference, the enc1 skip is unused unless ``full_res_head``.
+
+    In train mode each block's output goes through dropout with rate
+    ``dropout``; ``generator`` (a ``torch.Generator`` on the input's device)
+    draws the masks, so a train step can be replayed, and without one the
+    global generator does.  Eval mode applies no dropout.
     """
 
     def __init__(
@@ -102,11 +138,13 @@ class DiffusionUNet(nn.Module):
         dtype: torch.dtype = torch.float32,
         norm: str = "batch",
         full_res_head: bool = False,
+        dropout: float = 0.0,
     ):
         super().__init__()
         self.channels = channels
         self.size_factor = size_factor
         self.dtype = dtype
+        self.drop = nn.Dropout(dropout)
         ted = self.time_emb_dim
         d0, d1, d2, d3 = self.dims
 
@@ -138,7 +176,17 @@ class DiffusionUNet(nn.Module):
         base = self.base_channels
         return [max(16, int(base * m)) for m in (1, 2, 2, 2)]
 
-    def forward(self, x, t, cond=None, cond_mask=None):
+    def _dropout(self, h: torch.Tensor, generator) -> torch.Tensor:
+        """flax ``nn.Dropout``: keep with probability 1-p, scale by 1/(1-p)."""
+        if not self.training or self.drop.p == 0.0:
+            return h
+        if generator is None:
+            return self.drop(h)
+        keep = 1.0 - self.drop.p
+        mask = torch.empty_like(h).bernoulli_(keep, generator=generator)
+        return h / keep * mask
+
+    def forward(self, x, t, cond=None, cond_mask=None, generator=None):
         b = x.shape[0]
         if t.ndim > 1:
             t = t.reshape(b, -1)[:, 0]
@@ -156,6 +204,7 @@ class DiffusionUNet(nn.Module):
             h, scale_factor=2, mode="bilinear", align_corners=True
         )
         pool = lambda h: F.max_pool2d(h, 2, 2)
+        drop = lambda h: self._dropout(h, generator)
         with torch.autocast(
             device_type=x.device.type,
             dtype=self.dtype,
@@ -163,17 +212,17 @@ class DiffusionUNet(nn.Module):
         ):
             temb = self.time_mlp(t) + mask * self.cond_emb(cond_in)
             h = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels-last strides
-            x1 = self.enc1(h, temb)
-            x2 = self.enc2(pool(x1), temb)
-            x3 = self.enc3(pool(x2), temb)
-            x4 = self.enc4(pool(x3), temb)
-            h = self.bottleneck(pool(x4), temb)
-            h = self.dec3(torch.cat([up(h), x4], dim=1), temb)
-            h = self.dec2(torch.cat([up(h), x3], dim=1), temb)
-            h = self.dec1(torch.cat([up(h), x2], dim=1), temb)
+            x1 = drop(self.enc1(h, temb))
+            x2 = drop(self.enc2(pool(x1), temb))
+            x3 = drop(self.enc3(pool(x2), temb))
+            x4 = drop(self.enc4(pool(x3), temb))
+            h = drop(self.bottleneck(pool(x4), temb))
+            h = drop(self.dec3(torch.cat([up(h), x4], dim=1), temb))
+            h = drop(self.dec2(torch.cat([up(h), x3], dim=1), temb))
+            h = drop(self.dec1(torch.cat([up(h), x2], dim=1), temb))
             h = up(h)
             if self.dec0 is not None:
-                h = self.dec0(torch.cat([h, x1], dim=1), temb)
+                h = drop(self.dec0(torch.cat([h, x1], dim=1), temb))
             out = self.final(h)
         return out.float().permute(0, 2, 3, 1).contiguous()
 
@@ -194,9 +243,10 @@ def init_unet_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def make_unet(config, size_factor: float = 1.0, device=None, seed: int = 0):
-    """Build a U-Net from a Config, initialised from ``seed`` on the CPU
-    (so the weights do not depend on the device) and moved to ``device``
-    (default ``config.device``) in channels-last layout."""
+    """Build a U-Net from a Config (channels, dropout, compute dtype, norm,
+    head), initialised from ``seed`` on the CPU (so the weights do not
+    depend on the device) and moved to ``device`` (default
+    ``config.device``) in channels-last layout."""
     from ..config import resolve_device
 
     device = resolve_device(config.device if device is None else device)
@@ -208,6 +258,7 @@ def make_unet(config, size_factor: float = 1.0, device=None, seed: int = 0):
             dtype=dtype,
             norm=config.norm,
             full_res_head=bool(config.full_res_head),
+            dropout=config.dropout,
         )
     model.to_empty(device="cpu")
     init_unet_(model, torch.Generator().manual_seed(seed))

@@ -1,10 +1,25 @@
-"""Eval-mode model closure and checkpoint reading (training waits for a
-later slice)."""
-from .state import make_eval_model_fn
+"""Training: train state and steps, the epoch loop, checkpoints, and the
+teacher, distillation and resume trainers."""
+from .state import (
+    StepDraws,
+    TorchDraws,
+    TrainState,
+    create_train_state,
+    make_distill_train_step,
+    make_eval_model_fn,
+    make_optimizer,
+    make_teacher_train_step,
+)
 from .checkpoints import (
+    AsyncCheckpointWriter,
     available_epochs,
     checkpoint_path,
     latest_epoch,
     load_checkpoint,
+    save_checkpoint,
     variables_from_checkpoint,
 )
+from .loop import run_train_epoch
+from .teacher import make_grid_fn, train_teacher
+from .students import distill_diffusion_model, load_teacher, train_students
+from .continue_training import continue_training

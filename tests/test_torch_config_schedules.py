@@ -22,7 +22,7 @@ from distillation_trajectories_torch.diffusion.schedules import (
 torch.set_num_threads(2)
 
 
-def test_config_fields_defaults_and_directories_match_jax(tmp_path):
+def test_config_fields_defaults_and_directories_match_jax(tmp_path, monkeypatch):
     jax_fields = {f.name for f in dataclasses.fields(JaxConfig)}
     port_fields = {f.name for f in dataclasses.fields(Config)}
     assert port_fields - jax_fields == {"device"}
@@ -36,8 +36,12 @@ def test_config_fields_defaults_and_directories_match_jax(tmp_path):
     assert port.student_dir(0.5) == ref.student_dir(0.5)
     # base_dir defaults to the repo root in both packages.
     assert Config().base_dir == JaxConfig().base_dir
-    with pytest.raises(NotImplementedError):
-        port.get_test_dataset()
+    # The test split comes from the port's data layer, as JAX's does.
+    from distillation_trajectories_tpu.data import datasets as jax_datasets
+
+    monkeypatch.setattr(jax_datasets, "_EXTRA_DATA_ROOTS", [])
+    for got, want in zip(port.get_test_dataset(), ref.get_test_dataset()):
+        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("schedule", ["linear", "cosine"])
