@@ -30,9 +30,24 @@ on first use.  Phases, each printing its own lines:
    checkpoint and grid times, peak memory and a profiler breakdown of
    teacher steps (forward, backward, optimizer) printed, and a failure
    when a loss is not finite or does not fall, the checkpoint read back
-   does not reproduce the trained model, or anything ran on the CPU.
+   does not reproduce the trained model, or anything ran on the CPU;
+6. analysis, on phase 5's checkpoints (teacher, students {0.1, 0.5}):
+   (a) the InceptionV3 trunk (299x299, batch 2), its preprocessing,
+   AlexNet-LPIPS (64x64, batch 8), the paired trajectory function (T=10)
+   and the trajectory manager (4 pairs written, read back and scored) on
+   the card against the CPU, in float32 with TF32 off; (b) the CFG-sweep
+   CLI's ``run`` half with the full sweep's two jobs (``heatmaps``: 10
+   guidance scales, 10 samples, T=100; ``trio``: T=50), the kernel's launch
+   count checked and every transformed metric checked in [0, 1], with
+   wall seconds, traj/s, peak memory and a profiled T=100 teacher chain;
+   (c) the FID CLI's ``run`` half (50 samples per model, 100 sampling
+   steps, InceptionV3 at 299x299 in batches of 32), FIDs checked finite
+   and stamped ``seeded-random``, with sampling, feature and Fréchet
+   seconds, images/s, peak memory and the device time of one batch-32
+   trunk forward against its FLOP bound.  Nothing here imports matplotlib.
 
-The last lines are the per-kernel JSON record and
+The kernel record counts the launches of phases 4 and 6(b).  The last
+lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
 """
@@ -79,12 +94,12 @@ def device_time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def compare(name, got, want, rtol, atol):
+def compare(name, got, want, rtol, atol, card=None):
     diff = (got.float() - want.float()).abs()
     max_abs = float(diff.max())
     max_rel = float((diff / want.float().abs().clamp_min(1e-30)).max())
     print(f"{name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
-          f"(rtol={rtol:g}, atol={atol:g})")
+          f"(rtol={rtol:g}, atol={atol:g})" + (f" [{card}]" if card else ""))
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     return max_abs
 
@@ -226,14 +241,16 @@ def _busy_and_window(kernels):
     return busy, spans[-1][1] - spans[0][0]
 
 
-def profile_breakdown(run, chain_s, card):
+def profile_breakdown(run, chain_s, card, label="one teacher CFG chain"):
     """Device time of one ``run()`` by kernel kind (torch.profiler, CUPTI),
     the device's idle share between its first and last kernel with the
     profiler on, and the idle share that busy time implies for the
-    unprofiled call of ``chain_s`` seconds."""
+    unprofiled call of ``chain_s`` seconds.  Device activity only: the
+    host operator events (about 150,000 for a T=100 CFG chain) would make
+    the profiled run and the reading of its events several times slower."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events()
@@ -252,7 +269,7 @@ def profile_breakdown(run, chain_s, card):
         n, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t + us)
     total = sum(t for _, t in by_kind.values())
-    print(f"profile (one teacher CFG chain, profiler on): {len(kernels)} kernels, "
+    print(f"profile ({label}, profiler on): {len(kernels)} kernels, "
           f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window, "
           f"idle share {1 - busy / window:.3f}; against the unprofiled "
           f"{chain_s * 1e3:.3f} ms call, idle share {1 - busy / 1e6 / chain_s:.3f} [{card}]")
@@ -649,6 +666,309 @@ def phase_train_main(card, workdir):
     print(f"train_students {list(STUDENTS)}: {students_s:.3f} s in all [{card}]")
 
 
+TF32_FLOPS_PER_S = 495e12  # H100 SXM TF32 tensor cores (dense)
+SWEEP_JOBS = (  # the two jobs of the full sweep's CFG stage, cut to the trained sizes
+    {"output_dir": "analysis/heatmaps", "size_factors": "0.1,0.5"},
+    {"size_factors": "0.1,0.5", "timesteps": 50, "output_dir": "analysis/trio"},
+)
+FID_SIZES = "0.1,0.5"
+
+
+def _tf32_off():
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return saved
+
+
+def phase_analysis_check(card, workdir):
+    """Phase 6(a): the analysis modules on the card against the CPU."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion.sampling import draw_step_noise, seeded_normal
+    from distillation_trajectories_torch.metrics.lpips import create_lpips
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.models.inception import (
+        create_inception,
+        preprocess_for_inception,
+    )
+    from distillation_trajectories_torch.trajectories import (
+        TrajectoryManager,
+        make_paired_trajectory_fn,
+    )
+
+    saved = _tf32_off()
+    gen = torch.Generator().manual_seed(0)
+    images = torch.rand((2, 32, 32, 3), generator=gen) * 2 - 1
+    pre = preprocess_for_inception(images)
+    compare("preprocess_for_inception card vs CPU ([2,32,32,3] -> [2,299,299,3])",
+            preprocess_for_inception(images.cuda()).cpu(), pre, 0, 1e-5, card)
+    feats = {}
+    for device in ("cpu", "cuda"):
+        model, pretrained = create_inception(device=device)
+        with torch.no_grad():
+            feats[device] = model(pre.to(device)).cpu()
+    scale = float(feats["cpu"].abs().max())
+    err = float((feats["cuda"] - feats["cpu"]).abs().max()) / scale
+    print(f"InceptionV3 trunk card vs CPU (299x299, batch 2, f32, TF32 off, "
+          f"{'pretrained' if pretrained else 'seeded'} weights): max abs err "
+          f"{err * scale:.3e} = {err:.3e} of the largest feature {scale:.4f} "
+          f"(tolerance 1e-4 of it) [{card}]")
+    if not (torch.isfinite(feats["cuda"]).all() and err <= 1e-4):
+        raise RuntimeError("the Inception trunk on the card disagrees with the CPU")
+
+    x, y = (torch.rand((8, 64, 64, 3), generator=gen) * 2 - 1 for _ in range(2))
+    dist = {}
+    for device in ("cpu", "cuda"):
+        scorer, _ = create_lpips(device=device)
+        with torch.no_grad():
+            dist[device] = scorer(x.to(device), y.to(device)).cpu()
+    compare("LPIPSAlex card vs CPU (seeded weights, 64x64, batch 8)", dist["cuda"], dist["cpu"],
+            1e-4, 0, card)
+
+    kw = dict(image_size=16, channels=1, timesteps=10, sample_steps=10, compute_dtype="float32")
+    seeds = [0, 1, 2, 3]
+    noises = seeded_normal([(s, 0) for s in seeds], (16, 16, 1), "cpu")
+    step_noise = draw_step_noise(seeds, 10, (16, 16, 1), "cpu")
+    trajs, models = {}, {}
+    for device in ("cpu", "cuda"):
+        cfg = Config(device=device, **kw)
+        models[device] = (make_unet(cfg, size_factor=0.2, seed=0),
+                          make_unet(cfg, size_factor=0.1, seed=1))
+        fn = make_paired_trajectory_fn(*models[device], 10, cfg)
+        trajs[device] = [t.cpu() for t in fn(noises, seeds, 3.0, step_noise=step_noise)]
+    for role, got, want in zip(("teacher", "student"), trajs["cuda"], trajs["cpu"]):
+        compare(f"make_paired_trajectory_fn {role} card vs CPU (sf 0.2/0.1, 16x16x1, T=10, "
+                f"4 samples, gs 3.0, f32, TF32 off)", got, want, 1e-4, 1e-4, card)
+
+    cfg = Config(device="cuda", base_dir=os.path.join(workdir, "manager"), **kw)
+    manager = TrajectoryManager(*models["cuda"], cfg, size_factor=0.1)
+    paths = manager.generate_and_save_trajectories(4)
+    pairs = manager.load_trajectories()
+    if len(paths) != 4 or len(pairs) != 4 or any(
+            t.dtype != np.float32 or t.shape != (11, 16, 16, 1) or not np.isfinite(t).all()
+            for pair in pairs for t in pair):
+        raise RuntimeError("the trajectory manager did not write 4 finite float32 pairs")
+    on_card = manager.compute_trajectory_metrics_batch()
+    on_cpu = TrajectoryManager(None, None, cfg, size_factor=0.1,
+                               device="cpu").compute_trajectory_metrics_batch()
+    averages = [k for k in on_cpu if k.endswith("_avg")]
+    for k in averages:
+        np.testing.assert_allclose(on_card[k], on_cpu[k], rtol=1e-4, atol=1e-6, err_msg=k)
+    print(f"TrajectoryManager on the card: 4 pairs written and read back "
+          f"({', '.join(os.path.basename(p) for p in paths[:2])}, ...); its {len(averages)} "
+          f"averaged metrics equal the CPU's scoring of the same files within rtol 1e-4 "
+          f"[{card}]")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def phase_analysis_sweep(card, workdir):
+    """Phase 6(b): the CFG-sweep CLI's ``run`` half at full width on the
+    checkpoints phase 5 wrote."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts import analyze_trajectory_metrics as cli
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+    from distillation_trajectories_torch.trajectories import make_sweep_trajectory_fn
+    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
+
+    args = cli.parse_args(["--base_dir", workdir, "--jobs", json.dumps(SWEEP_JOBS),
+                           "--device", "cuda"])
+    config = cli.make_config(args)
+    specs = cli.job_specs(args, config)
+    teacher_chains = {(s["timesteps"], gs) for s in specs for gs in s["guidance_scales"]}
+    student_chains = [(s["timesteps"], gs) for s in specs for gs in s["guidance_scales"]
+                      for _ in s["size_factors"]]
+    expected = sum(t - 1 for t, _ in teacher_chains) + sum(t - 1 for t, _ in student_chains)
+    chains = len(teacher_chains) + len(student_chains)
+    trajectories = sum(s["num_samples"] * len(s["guidance_scales"]) * (1 + len(s["size_factors"]))
+                       for s in specs)
+    shown = [(os.path.basename(s["output_dir"]), s["size_factors"], len(s["guidance_scales"]),
+              s["num_samples"], s["timesteps"]) for s in specs]
+    print(f"CFG-sweep CLI: jobs (name, sizes, scales, samples, T) {shown}, scales "
+          f"{specs[0]['guidance_scales']}, compute {config.compute_dtype}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_engine_update.launches = 0
+    t0 = time.perf_counter()
+    results = cli.run(args, config, specs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cfg_engine_update.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"CFG-sweep CLI kernel launches: {launches} (expected {expected}: T-1 per chain over "
+          f"{len(teacher_chains)} teacher chains, each (T, scale) once, and "
+          f"{len(student_chains)} student chains) [{card}]")
+    if launches != expected:
+        raise RuntimeError("the CFG-sweep CLI did not launch the kernel once per step")
+
+    for spec, metrics_by_size in zip(specs, results):
+        if sorted(metrics_by_size) != sorted(spec["size_factors"]):
+            raise RuntimeError(f"job {spec['output_dir']} lacks sizes: {sorted(metrics_by_size)}")
+        for key, _ in cli.METRICS_TO_ANALYZE:
+            m = cli.transformed_matrix(metrics_by_size, spec["guidance_scales"], key)
+            defined = m[~np.isnan(m)] if key == "trajectory_mse" else m
+            if not (np.isfinite(defined).all() and ((defined >= 0) & (defined <= 1)).all()):
+                raise RuntimeError(f"{spec['output_dir']} {key}: transformed values {m}")
+            print(f"  {os.path.basename(spec['output_dir'])} {key}: {m.shape} in "
+                  f"[{np.nanmin(m) if defined.size else float('nan'):.4f}, "
+                  f"{np.nanmax(m) if defined.size else float('nan'):.4f}], "
+                  f"{int(np.isnan(m).sum())} NaN [{card}]")
+    print(f"CFG-sweep CLI run (checkpoint loading, draws, {chains} chains, scoring): "
+          f"{wall:.3f} s, {trajectories} trajectories = {trajectories / wall:.2f} traj/s at "
+          f"batch {specs[0]['num_samples']}; peak device memory {peak} bytes = "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+
+    teacher = load_teacher_from_arg(config)
+    chain = make_sweep_trajectory_fn(teacher, 100, config)
+    draws = _sweep_inputs(config, 10, 42, 100, "cuda")
+    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+
+    run = lambda: chain(draws.noises, np.arange(42, 52), CFG_COND_PAIRS, 3.0,
+                        step_noise=draws.step_noise)
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"CLI teacher chain (sf 1.0, T=100, batch 10, gs 3.0): best of "
+          f"{[round(t, 4) for t in times]} s = {10 / min(times):.2f} traj/s [{card}]")
+    profile_breakdown(run, min(times), card, label="one CLI teacher chain, T=100, batch 10")
+    return launches
+
+
+def _conv_flops(model, x):
+    """2 x multiply-adds of every convolution of one forward of ``x``."""
+    total = [0]
+
+    def hook(module, inputs, output):
+        k = module.weight[0].numel()  # in_channels / groups x kernel area
+        total[0] += 2 * output.numel() * k
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    with torch.no_grad():
+        model(x)
+    for h in handles:
+        h.remove()
+    return total[0]
+
+
+def phase_analysis_fid(card, workdir):
+    """Phase 6(c): the FID CLI's ``run`` half at full width."""
+    from distillation_trajectories_torch.metrics.fid import (
+        InceptionModel,
+        default_draw,
+        generate_samples,
+    )
+    from distillation_trajectories_torch.models.inception import preprocess_for_inception
+    from distillation_trajectories_torch.scripts import analyze_fid
+    from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
+
+    args = analyze_fid.parse_args(["--base_dir", workdir, "--size_factors", FID_SIZES,
+                                   "--device", "cuda"])
+    config = analyze_fid.make_config(args)
+    t0 = time.perf_counter()
+    inception = InceptionModel(device="cuda")
+    build_s = time.perf_counter() - t0
+    print(f"FID: teacher + students {FID_SIZES}, {args.num_samples} samples each of "
+          f"{config.image_size}x{config.image_size}x{config.channels}, p_sample_loop over "
+          f"sample_steps={config.sample_steps}, InceptionV3 at 299x299 in batches of "
+          f"{inception.batch_size}, f32 (cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), "
+          f"features {'pretrained' if inception.pretrained else 'seeded-random'}; "
+          f"featurizer built in {build_s:.3f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timings = {}
+    t0 = time.perf_counter()
+    fid_by_size = analyze_fid.run(args, config, inception=inception, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    with open(os.path.join(config.fid_dir, "fid_summary.json")) as f:
+        summary = json.load(f)
+    wanted = sorted(float(s) for s in FID_SIZES.split(","))
+    if (sorted(fid_by_size) != wanted
+            or not all(np.isfinite(v) and v >= 0 for v in fid_by_size.values())
+            or summary["features"] != "seeded-random"
+            or summary["imagenet_fid_comparable"] is not False):
+        raise RuntimeError(f"FID run: {fid_by_size}, summary {summary}")
+    images = (1 + len(fid_by_size)) * args.num_samples
+    print("FID " + ", ".join(f"sf {sf}: {v:.6f}" for sf, v in sorted(fid_by_size.items()))
+          + f" (fid_summary.json features={summary['features']}) [{card}]")
+    print(f"FID run {wall:.3f} s (checkpoint loading included): sampling "
+          f"{timings['sampling_s']:.3f} s ({timings['samplers']} samplers), features "
+          f"{timings['features_s']:.3f} s ({images} images = "
+          f"{images / timings['features_s']:.1f} images/s, preprocessing included), "
+          f"transfer {timings['transfer_s']:.4f} s, Frechet math {timings['frechet_s']:.4f} s, "
+          f"artifacts {timings['artifacts_s']:.4f} s; peak device memory {peak} bytes = "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+
+    # The run's samples again (the default draws: teacher stream 1, the
+    # students' shared stream 2), for their range and a warm feature pass.
+    teacher = load_teacher_from_arg(config)
+    sets = {"teacher": generate_samples(teacher, config, args.num_samples,
+                                        default_draw(config, args.num_samples, 0, 1, "cuda"))}
+    for sf in wanted:
+        sets[f"sf {sf}"] = generate_samples(
+            load_student(config, sf), config, args.num_samples,
+            default_draw(config, args.num_samples, 0, 2, "cuda"))
+    print("FID samples (range, std): " + ", ".join(
+        f"{k} [{float(v.min()):.4g}, {float(v.max()):.4g}] std {float(v.std()):.4g}"
+        for k, v in sets.items()) + f" [{card}]")
+    every = torch.cat(list(sets.values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    inception.features_device(every)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"features again, warm ({every.shape[0]} images, preprocessing included): "
+          f"{warm_s:.4f} s = {every.shape[0] / warm_s:.1f} images/s [{card}]")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = preprocess_for_inception(
+        torch.rand((inception.batch_size, 32, 32, 3), device="cuda", generator=gen) * 2 - 1)
+    flops = _conv_flops(inception.model, batch)
+    with torch.no_grad():
+        # Three forwards (~1,000 launches) stay inside the sleep kernel's
+        # hold on the stream, so the events time the device, not the host.
+        ms = device_time_ms(lambda: inception.model(batch), 3)
+        forward_s = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inception.model(batch)
+            torch.cuda.synchronize()
+            forward_s.append(time.perf_counter() - t0)
+        profile_breakdown(lambda: inception.model(batch), min(forward_s), card,
+                          label=f"one batch-{inception.batch_size} InceptionV3 forward")
+    tf32 = torch.backends.cudnn.allow_tf32
+    rate = TF32_FLOPS_PER_S if tf32 else F32_FLOPS_PER_S
+    bound_ms = flops / rate * 1e3
+    print(f"InceptionV3 trunk, one batch-{inception.batch_size} forward at 299x299: device "
+          f"{ms:.4f} ms = {inception.batch_size / ms * 1e3:.1f} images/s (host-timed best of "
+          f"{[round(t * 1e3, 3) for t in forward_s]} ms); convolutions "
+          f"{flops / 1e9:.2f} GFLOP ({flops / inception.batch_size / 1e9:.3f} per image), "
+          f"bound {bound_ms:.4f} ms at {rate / 1e12:.0f} TFLOP/s "
+          f"({'TF32' if tf32 else 'f32'}), share of bound {bound_ms / ms:.3f} [{card}]")
+
+
+def phase_analysis(card, workdir):
+    t0 = time.perf_counter()
+    phase_analysis_check(card, workdir)
+    print(f"phase analysis (a) card vs CPU: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches = phase_analysis_sweep(card, workdir)
+    print(f"phase analysis (b) CFG-sweep CLI: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    phase_analysis_fid(card, workdir)
+    print(f"phase analysis (c) FID: {time.perf_counter() - t0:.1f} s [{card}]")
+    if "matplotlib" in sys.modules:
+        raise RuntimeError("the analysis path imported matplotlib")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -678,7 +998,12 @@ def main():
     phase_train_check()
     with tempfile.TemporaryDirectory() as workdir:
         phase_train_main(card, workdir)
-    print(f"phase training: {time.perf_counter() - t0:.1f} s")
+        print(f"phase training: {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        cli_launches = phase_analysis(card, workdir)
+        print(f"phase analysis: {time.perf_counter() - t0:.1f} s [{card}]")
+    print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
+          f"(CFG-sweep CLI, phase 6) = {launches + cli_launches}")
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -686,7 +1011,7 @@ def main():
         "route": "triton",
         "source": "distillation_trajectories_torch/ops/cfg_update_triton.py",
         "replaces": "distillation_trajectories_tpu/ops/cfg_update.py:30",
-        "launches": launches,
+        "launches": launches + cli_launches,
         **record,
         "library_ms": None,
     }]}))

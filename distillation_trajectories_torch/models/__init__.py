@@ -1,5 +1,6 @@
-"""The unified teacher/student diffusion U-Net and weight/Adam-state
-conversion to and from the JAX package's layout."""
+"""The unified teacher/student diffusion U-Net, weight/Adam-state
+conversion to and from the JAX package's layout, and the InceptionV3
+feature trunk of FID (``models.inception``)."""
 from .unet import (
     DiffusionUNet,
     make_unet,
@@ -7,6 +8,8 @@ from .unet import (
     sinusoidal_time_embedding,
 )
 from .convert import (
+    alexnet_lpips_state_dict_from_variables,
+    inception_state_dict_from_variables,
     load_optax_adam_state,
     load_unet_variables,
     optax_adam_state,

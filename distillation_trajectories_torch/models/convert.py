@@ -194,3 +194,50 @@ def load_optax_adam_state(
             "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).contiguous(),
             "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).contiguous(),
         }
+
+
+_INCEPTION_LEAVES = {
+    ("params", "kernel"): "weight",
+    ("params", "scale"): "weight",
+    ("params", "bias"): "bias",
+    ("batch_stats", "mean"): "running_mean",
+    ("batch_stats", "var"): "running_var",
+}
+
+
+def inception_state_dict_from_variables(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``InceptionV3Features`` variables (nested numpy dicts) -> the
+    port's (torchvision-named) state dict: ``…/conv/kernel`` HWIO -> OIHW
+    ``conv.weight``, ``…/bn/{scale,bias}`` -> ``bn.{weight,bias}``,
+    ``batch_stats/…/bn/{mean,var}`` -> ``bn.running_{mean,var}``, and a zero
+    ``num_batches_tracked`` per BatchNorm."""
+    state: Dict[str, torch.Tensor] = {}
+    for (col, *path, leaf), val in _flatten(variables):
+        if (col, leaf) not in _INCEPTION_LEAVES:
+            raise ValueError(f"no torch mapping for variable {(col, *path, leaf)}")
+        arr = np.asarray(val, dtype=np.float32)
+        if leaf == "kernel":
+            arr = arr.transpose(3, 2, 0, 1)
+        module = ".".join(path)
+        state[f"{module}.{_INCEPTION_LEAVES[(col, leaf)]}"] = _tensor(arr)
+        if path[-1] == "bn":
+            state[f"{module}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    return state
+
+
+def alexnet_lpips_state_dict_from_variables(variables: Dict[str, Any],
+                                            lin_weights) -> Dict[str, torch.Tensor]:
+    """JAX ``AlexFeatures`` variables (``params/conv{i}/{kernel,bias}``) and
+    the five ``[C]`` LPIPS head weights -> the port's ``LPIPSAlex`` state
+    dict (``net.features.{0,3,6,8,10}.*``, ``lin{i}.model.1.weight``)."""
+    from ..metrics.lpips import _ALEX_CONVS
+
+    state: Dict[str, torch.Tensor] = {}
+    for i, (*_, index) in enumerate(_ALEX_CONVS):
+        conv = variables["params"][f"conv{i}"]
+        state[f"net.features.{index}.weight"] = _tensor(
+            np.asarray(conv["kernel"], dtype=np.float32).transpose(3, 2, 0, 1))
+        state[f"net.features.{index}.bias"] = _tensor(conv["bias"])
+        w = np.asarray(lin_weights[i], dtype=np.float32).reshape(1, -1, 1, 1)
+        state[f"lin{i}.model.1.weight"] = _tensor(w)
+    return state

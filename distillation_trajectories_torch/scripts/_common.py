@@ -1,4 +1,4 @@
-"""Flags shared by the port's training CLIs."""
+"""Flags and checkpoint loaders shared by the port's CLIs."""
 
 from __future__ import annotations
 
@@ -59,3 +59,35 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                         help="Use the enc1-skip full-resolution decoder head")
     parser.add_argument("--sample_mode", type=str, default=None,
                         choices=["reference", "ancestral"])
+
+
+def load_teacher_from_arg(config, teacher_model_arg=None):
+    """The sf-1.0 teacher on ``config.device``, in eval mode, from the
+    checkpoint a ``--teacher_model`` name gives (``model_epoch_N``, with any
+    extension), or the latest one."""
+    import re
+
+    from ..training.students import load_teacher
+
+    epoch = None
+    if teacher_model_arg:
+        m = re.search(r"model_epoch_(\d+)", teacher_model_arg)
+        if m:
+            epoch = int(m.group(1))
+    return load_teacher(config, epoch)
+
+
+def load_student(config, size_factor, epoch=None):
+    """The student of ``size_factor`` on ``config.device``, in eval mode,
+    from its latest (or given-epoch) checkpoint; ``FileNotFoundError``
+    when it has none."""
+    from ..models import load_unet_variables, make_unet
+    from ..training.checkpoints import load_checkpoint, variables_from_checkpoint
+
+    payload = load_checkpoint(config.student_dir(size_factor), epoch)
+    model = make_unet(config, size_factor=size_factor)
+    return load_unet_variables(model, variables_from_checkpoint(payload)).eval()
+
+
+def parse_float_list(s):
+    return [float(x) for x in s.split(",") if x.strip()]

@@ -129,6 +129,53 @@ def generate_trajectory(
     )
 
 
+def make_batch_trajectory_fn(model, timesteps: int, config=None, use_cfg: bool = True,
+                             device=None):
+    """``fn(noises [S,H,W,C], seeds [S], gs, step_noise=None) -> trajs
+    [S, T+1, H, W, C]`` for one model at a runtime guidance scale.
+
+    Samples ride the U-Net's batch axis.  ``use_cfg`` selects the two CFG
+    forwards (cond 0 and cond 1, both with mask 1) combined at ``gs``, or
+    one cond-0 mask-0 forward.  The default step noise draws sample ``i``
+    at step ``t`` from the generator of ``(seeds[i], t)``."""
+    _check_supported(config)
+    device = _entry_device(config, device)
+    _check_model_device(model, device)
+    sweep = make_sweep_trajectory_fn(model, timesteps, config)
+    pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
+
+    def fn(noises, seeds, gs, step_noise=None):
+        noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
+        if step_noise is None:
+            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+        return sweep(noises, seeds, pairs, float(gs) if use_cfg else 1.0,
+                     step_noise=step_noise)
+
+    return fn
+
+
+def make_paired_trajectory_fn(teacher_model, student_model, timesteps: int, config=None,
+                              use_cfg: bool = True, device=None):
+    """``fn(noises [S,H,W,C], seeds [S], gs, step_noise=None) ->
+    (teacher_trajs, student_trajs)``, each ``[S, T+1, H, W, C]``.
+
+    Both chains start from the same noises and take the same per-step
+    noise (drawn once, by default paired in ``(seed, t)``), as the
+    reference reseeds both chains alike."""
+    teacher = make_batch_trajectory_fn(teacher_model, timesteps, config, use_cfg, device)
+    student = make_batch_trajectory_fn(student_model, timesteps, config, use_cfg, device)
+    device = _entry_device(config, device)
+
+    def fn(noises, seeds, gs, step_noise=None):
+        noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
+        if step_noise is None:
+            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+        return (teacher(noises, seeds, gs, step_noise=step_noise),
+                student(noises, seeds, gs, step_noise=step_noise))
+
+    return fn
+
+
 def make_sweep_trajectory_fn(model, timesteps: int, config=None):
     """``fn(noises [S,H,W,C], seeds [S], cond_pairs [2,2], gs, step_noise=None)
     -> trajs [S, T+1, H, W, C]`` for one model; CFG or not is the runtime

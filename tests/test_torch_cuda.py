@@ -1,4 +1,6 @@
-"""The port's Triton kernel on a CUDA GPU (skipped without one).
+"""The port on a CUDA GPU (skipped without one): the Triton kernel against
+its plain version, and a train step, the InceptionV3 trunk and
+AlexNet-LPIPS on the card against the CPU.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -105,3 +107,50 @@ def test_teacher_step_on_card_matches_cpu(cuda):
     for k, v in states.items():
         if "running" in k:
             torch.testing.assert_close(v, want_s[k], rtol=1e-5, atol=1e-6, msg=k)
+
+
+def _no_tf32():
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return saved
+
+
+def test_inception_on_card_matches_cpu(cuda):
+    """The seeded InceptionV3 trunk at 299x299 (preprocessing included),
+    float32 with TF32 off, on the card against the CPU: within 1e-4 of
+    the largest feature, as the CPU tests hold the trunk to JAX."""
+    from distillation_trajectories_torch.models.inception import (
+        create_inception,
+        preprocess_for_inception,
+    )
+
+    saved = _no_tf32()
+    try:
+        images = torch.rand((2, 32, 32, 3), generator=torch.Generator().manual_seed(0)) * 2 - 1
+        out = {}
+        for device in ("cpu", cuda):
+            model, _ = create_inception(weights_path="/nonexistent.npz", device=device)
+            with torch.no_grad():
+                out[str(device)] = model(preprocess_for_inception(images.to(device))).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    want, got = out["cpu"], out["cuda"]
+    assert got.shape == (2, 2048) and torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_lpips_on_card_matches_cpu(cuda):
+    from distillation_trajectories_torch.metrics.lpips import create_lpips
+
+    saved = _no_tf32()
+    try:
+        gen = torch.Generator().manual_seed(1)
+        x, y = (torch.rand((8, 64, 64, 3), generator=gen) * 2 - 1 for _ in range(2))
+        out = {}
+        for device in ("cpu", cuda):
+            scorer, _ = create_lpips(weights_path="/nonexistent.npz", device=device)
+            with torch.no_grad():
+                out[str(device)] = scorer(x.to(device), y.to(device)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=0)
