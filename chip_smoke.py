@@ -44,9 +44,23 @@ on first use.  Phases, each printing its own lines:
    steps, InceptionV3 at 299x299 in batches of 32), FIDs checked finite
    and stamped ``seeded-random``, with sampling, feature and Fréchet
    seconds, images/s, peak memory and the device time of one batch-32
-   trunk forward against its FLOP bound.  Nothing here imports matplotlib.
+   trunk forward against its FLOP bound.  Nothing here imports matplotlib;
+7. the other analysis CLIs, on phase 5's checkpoints: (a) the
+   noise-prediction compute half (teacher vs sf-0.5 student, 10 images),
+   the sweep function's averaged chains at T=10, the consecutive-step
+   distances and the effectiveness cosine / Euclid on the card against the
+   CPU, in float32 with TF32 off; (b) the ``run`` halves of
+   ``analyze_trajectories``, ``analyze_effectiveness``,
+   ``analyze_dimensionality``, ``analyze_noise_prediction`` and
+   ``analyze_time_dependent`` at the JAX CLIs' defaults with the size
+   lists cut to {0.1, 0.5} (bf16), the kernel's launches checked against
+   the count derived from each CLI's arguments, wall seconds, traj/s and
+   peak memory printed, and the outputs checked (finite chains, distances
+   and metrics, cosines in [-1, 1], variance ratios in [0, 1], the text
+   and npz files written); (c) one batch-1 T=100 paired call timed and
+   profiled.  Nothing here imports matplotlib either.
 
-The kernel record counts the launches of phases 4 and 6(b).  The last
+The kernel record counts the launches of phases 4, 6(b) and 7(b).  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -969,6 +983,250 @@ def phase_analysis(card, workdir):
     return launches
 
 
+CLI_SIZES = "0.1,0.5"  # phase 5's students: the analysis CLIs' size lists, cut
+
+
+def phase_cli_check(card, workdir):
+    """Phase 7(a): the analysis CLIs' device pieces on the card against the
+    CPU, in float32 with TF32 off, on phase 5's teacher and sf-0.5 student
+    with shared images and draws."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.analysis.noise_prediction import noise_prediction_metrics
+    from distillation_trajectories_torch.data import get_real_images
+    from distillation_trajectories_torch.diffusion.sampling import (
+        CFG_COND_PAIRS,
+        draw_step_noise,
+        seeded_normal,
+    )
+    from distillation_trajectories_torch.metrics.time_dependent import consecutive_distances
+    from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
+    from distillation_trajectories_torch.scripts.analyze_effectiveness import _pair_metrics
+    from distillation_trajectories_torch.trajectories import make_sweep_trajectory_fn
+
+    saved = _tf32_off()
+    cfgs = {d: Config(base_dir=workdir, device=d, compute_dtype="float32") for d in ("cpu", "cuda")}
+    models = {d: (load_teacher_from_arg(c), load_student(c, 0.5)) for d, c in cfgs.items()}
+    images = get_real_images(cfgs["cpu"], 10)
+    gen = torch.Generator().manual_seed(7)
+    noise = torch.randn((10, *images.shape), generator=gen)
+    metrics = {d: noise_prediction_metrics(*models[d], cfgs[d], images=images, noise=noise)[0]
+               for d in cfgs}
+    worst = 0.0
+    for t, want in metrics["cpu"]["metrics_by_timestep"].items():
+        for k, w in want.items():
+            got = metrics["cuda"]["metrics_by_timestep"][t][k]
+            np.testing.assert_allclose(got, w, rtol=1e-4, err_msg=f"noise prediction t={t} {k}")
+            worst = max(worst, abs(got - w) / max(abs(w), 1e-30))
+    print(f"noise prediction card vs CPU (sf 1.0 vs sf 0.5, 10 images 32x32x3, 10 timesteps of "
+          f"T={cfgs['cpu'].timesteps}, f32, TF32 off): every MSE / MAE / cosine within rtol "
+          f"1e-4, max rel diff {worst:.3e} [{card}]")
+
+    seeds = list(range(5))
+    noises = seeded_normal([(s, 0) for s in seeds], (32, 32, 3), "cpu")
+    step_noise = draw_step_noise(seeds, 10, (32, 32, 3), "cpu")
+    chains = {}
+    for d, cfg in cfgs.items():
+        chains[d] = [make_sweep_trajectory_fn(m, 10, cfg)(
+            noises.to(d), seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise.to(d)).cpu()
+            for m in models[d]]
+    for role, got, want in zip(("teacher", "student"), chains["cuda"], chains["cpu"]):
+        compare(f"sweep fn {role} chains averaged over 5 samples card vs CPU (T=10, gs 3.0, "
+                f"f32, TF32 off)", got.mean(0), want.mean(0), 2e-5, 1e-5, card)
+    t_cpu, s_cpu = chains["cpu"]
+    compare("consecutive_distances card vs CPU (teacher [5, 11, 32, 32, 3] chains)",
+            consecutive_distances(t_cpu, "cuda").cpu(), consecutive_distances(t_cpu, "cpu"),
+            1e-5, 0, card)
+    compare("effectiveness cosine / Euclid card vs CPU (same chains)",
+            _pair_metrics(t_cpu.cuda(), s_cpu.cuda()).cpu(), _pair_metrics(t_cpu, s_cpu),
+            1e-5, 0, card)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _chain_plan(name, args, config):
+    """``(chains, batch, steps)`` that a CLI's ``run`` samples, from its
+    arguments and the config it builds; each chain launches the kernel
+    ``steps - 1`` times."""
+    from distillation_trajectories_torch.scripts._common import parse_float_list
+
+    if name == "analyze_trajectories":  # per scale, a teacher and a student chain
+        return 2 * len(parse_float_list(args.guidance_scales)), args.num_samples, config.timesteps
+    if name == "analyze_noise_prediction":  # forwards only
+        return 0, 0, 0
+    sizes = len(parse_float_list(args.size_factors))
+    if name == "analyze_effectiveness":  # a teacher chain per scale, shared by the sizes
+        scales = len(parse_float_list(args.guidance_scales))
+        return scales * (1 + sizes), args.num_samples, config.timesteps
+    if name == "analyze_dimensionality":  # a batch-1 pair per sample, on teacher_steps
+        return 2 * sizes * args.num_samples, 1, config.teacher_steps
+    return 2 * sizes, args.num_samples, config.teacher_steps  # one batch of pairs per size
+
+
+def _cli_runs(workdir):
+    """The five ``run`` halves at the JAX CLIs' defaults, the size lists cut
+    to phase 5's students: ``(name, module, args, config, expected
+    launches, trajectories, steps)``."""
+    from distillation_trajectories_torch.scripts import (
+        analyze_dimensionality,
+        analyze_effectiveness,
+        analyze_noise_prediction,
+        analyze_time_dependent,
+        analyze_trajectories,
+    )
+
+    base = ["--base_dir", workdir, "--device", "cuda"]
+    sizes = ["--size_factors", CLI_SIZES]
+    runs = []
+    for cli, extra in ((analyze_trajectories, []), (analyze_effectiveness, sizes),
+                       (analyze_dimensionality, sizes), (analyze_noise_prediction, sizes),
+                       (analyze_time_dependent, sizes)):
+        name = cli.__name__.rsplit(".", 1)[1]
+        args = cli.parse_args(base + extra)
+        config = cli.make_config(args)
+        chains, batch, steps = _chain_plan(name, args, config)
+        runs.append((name, cli, args, config, chains * max(steps - 1, 0), chains * batch, steps))
+    return runs
+
+
+def _check_cli_outputs(name, out, config, card):
+    """Finite chains, distances and metrics; cosines in [-1, 1]; variance
+    ratios in [0, 1]; the text and npz files written."""
+    sizes = sorted(float(s) for s in CLI_SIZES.split(","))
+    if name == "analyze_trajectories":
+        teacher, student = out
+        bad = [gs for d in (teacher, student) for gs, v in d.items()
+               if v.shape != (config.timesteps + 1, 32, 32, 3) or not np.isfinite(v).all()]
+        if bad or sorted(teacher) != [1.0, 2.0, 5.0, 10.0, 20.0, 50.0, 100.0]:
+            raise RuntimeError(f"{name}: averaged chains not finite or misshapen at {bad}")
+        return (f"{len(teacher)} scales, averaged chains [{config.timesteps + 1}, 32, 32, 3] "
+                f"finite; teacher final-state std at gs 1 / 100: "
+                f"{teacher[1.0][-1].std():.4g} / {teacher[100.0][-1].std():.4g}")
+    if name == "analyze_effectiveness":
+        cosine, euclid, source = out
+        values = [c for row in cosine.values() for c in row]
+        if (source != "real" or sorted(cosine) != sizes or not all(-1 <= c <= 1 for c in values)
+                or not np.isfinite([e for row in euclid.values() for e in row]).all()):
+            raise RuntimeError(f"{name}: {source} {cosine} {euclid}")
+        return "cosine " + "; ".join(f"sf {sf}: {[round(c, 4) for c in cosine[sf]]}" for sf in sizes)
+    if name == "analyze_dimensionality":
+        if sorted(out) != sizes:
+            raise RuntimeError(f"{name}: sizes {sorted(out)}")
+        ratios = []
+        for r in out.values():
+            for entry in r["embeddings"]:
+                ratios += list(entry["pca_ratio"])
+                if not all(np.isfinite(entry[k]).all() for k in ("pca", "umap")):
+                    raise RuntimeError(f"{name}: an embedding is not finite")
+            ratios += list(r["latent"]["ratio"])
+        if not all(0 <= x <= 1 for x in ratios) or len(r["pairs"][0][0]) != config.teacher_steps + 1:
+            raise RuntimeError(f"{name}: variance ratios {ratios}")
+        tsne = out[sizes[0]]["embeddings"][0]["tsne_skipped"] or "run"
+        return (f"{len(ratios)} explained-variance ratios in [0, 1]; UMAP by "
+                f"{out[sizes[0]]['embeddings'][0]['umap_method']}; t-SNE: {tsne}")
+    if name == "analyze_noise_prediction":
+        for sf in sizes:
+            results = out[sf][0]
+            path = os.path.join(config.analysis_dir, "noise_prediction", f"size_{sf}",
+                                f"noise_metrics_size_{sf}.txt")
+            if not (os.path.getsize(path) > 0 and all(
+                    np.isfinite(m["mse"]) and np.isfinite(m["mae"])
+                    and -1 <= m["cosine_similarity"] <= 1
+                    for m in results["metrics_by_timestep"].values())):
+                raise RuntimeError(f"{name}: sf {sf} {results}")
+        return "; ".join(f"sf {sf}: avg MSE {out[sf][0]['avg_mse']:.6g}, cosine "
+                         f"{out[sf][0]['avg_cosine_similarity']:.4f}" for sf in sizes)
+    distances, all_metrics = out
+    files = [f for f in os.listdir(config.trajectory_dir) if f.endswith(".npz")]
+    averages = {k: v for m in all_metrics.values() for k, v in m.items() if k.endswith("_avg")}
+    if (sorted(distances) != sizes or len(files) != 5 * len(sizes)
+            or not all(np.isfinite(d["teacher_avg_per_timestep"]).all()
+                       and np.isfinite(d["student_avg_per_timestep"]).all()
+                       for d in distances.values())
+            or not np.isfinite(list(averages.values())).all()):
+        raise RuntimeError(f"{name}: {len(files)} npz files, distances or metrics not finite")
+    return (f"{len(files)} npz files; avg step distance " + "; ".join(
+        f"sf {sf}: teacher {distances[sf]['teacher_avg_distance']:.4f} student "
+        f"{distances[sf]['student_avg_distance']:.4f}" for sf in sizes))
+
+
+def phase_cli_runs(card, workdir):
+    """Phase 7(b): the five ``run`` halves at full width, the kernel's
+    launches counted over all five."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+
+    runs = _cli_runs(workdir)
+    expected = sum(r[4] for r in runs)
+    print("analysis CLIs (run halves, bf16, phase 5's checkpoints): " + "; ".join(
+        f"{name} {n_traj} trajectories of T={steps}, {launches} launches" if n_traj else
+        f"{name} forwards only, no chain" for name, _, _, _, launches, n_traj, steps in runs)
+        + f"; expected {expected} launches")
+    torch.cuda.synchronize()
+    cfg_engine_update.launches = 0
+    for name, cli, args, config, launches, n_traj, steps in runs:
+        before = cfg_engine_update.launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = cli.run(args, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        made = cfg_engine_update.launches - before
+        summary = _check_cli_outputs(name, out, config, card)
+        rate = f", {n_traj / wall:.2f} traj/s" if n_traj else ""
+        print(f"{name}.run: {wall:.3f} s{rate}, {made} launches (expected {launches}), peak "
+              f"device memory {peak} bytes = {peak / 2**30:.3f} GiB; {summary} [{card}]")
+        if made != launches:
+            raise RuntimeError(f"{name} launched the kernel {made} times, expected {launches}")
+    total = cfg_engine_update.launches
+    print(f"analysis CLIs kernel launches: {total} (expected {expected}) [{card}]")
+    if total != expected:
+        raise RuntimeError("the analysis CLIs did not launch the kernel once per step")
+    return total
+
+
+def phase_cli_profile(card, workdir):
+    """Phase 7(c): one batch-1 T=100 paired call, the dimensionality CLI's
+    unit, timed and profiled."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion.sampling import draw_step_noise, seeded_normal
+    from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
+    from distillation_trajectories_torch.trajectories import make_paired_trajectory_fn
+
+    cfg = Config(base_dir=workdir)  # bf16, cuda, teacher_steps 100
+    fn = make_paired_trajectory_fn(load_teacher_from_arg(cfg), load_student(cfg, 0.5),
+                                   cfg.teacher_steps, cfg, use_cfg=False)
+    noise = seeded_normal([(0, 0)], (32, 32, 3), "cuda")
+    step_noise = draw_step_noise([0], cfg.teacher_steps, (32, 32, 3), "cuda")
+    run = lambda: fn(noise, [0], 1.0, step_noise=step_noise)
+    run()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"paired call (teacher sf 1.0 + student sf 0.5, batch 1, T={cfg.teacher_steps}, "
+          f"no CFG, {2 * (cfg.teacher_steps - 1)} forwards): best of "
+          f"{[round(t, 4) for t in times]} s [{card}]")
+    profile_breakdown(run, min(times), card,
+                      label=f"one batch-1 T={cfg.teacher_steps} paired call")
+
+
+def phase_clis(card, workdir):
+    t0 = time.perf_counter()
+    phase_cli_check(card, workdir)
+    print(f"phase CLIs (a) card vs CPU: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches = phase_cli_runs(card, workdir)
+    print(f"phase CLIs (b) five run halves: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    phase_cli_profile(card, workdir)
+    print(f"phase CLIs (c) profiled paired call: {time.perf_counter() - t0:.1f} s [{card}]")
+    if "matplotlib" in sys.modules:
+        raise RuntimeError("the analysis CLIs imported matplotlib")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -1002,8 +1260,12 @@ def main():
         t0 = time.perf_counter()
         cli_launches = phase_analysis(card, workdir)
         print(f"phase analysis: {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        clis_launches = phase_clis(card, workdir)
+        print(f"phase CLIs: {time.perf_counter() - t0:.1f} s [{card}]")
+    total = launches + cli_launches + clis_launches
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
-          f"(CFG-sweep CLI, phase 6) = {launches + cli_launches}")
+          f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) = {total}")
 
     print(card)
     print(json.dumps({"kernels": [{
@@ -1011,7 +1273,7 @@ def main():
         "route": "triton",
         "source": "distillation_trajectories_torch/ops/cfg_update_triton.py",
         "replaces": "distillation_trajectories_tpu/ops/cfg_update.py:30",
-        "launches": launches + cli_launches,
+        "launches": total,
         **record,
         "library_ms": None,
     }]}))

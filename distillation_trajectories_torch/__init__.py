@@ -8,7 +8,10 @@ CFG trajectory sweep (config, schedules, U-Net, checkpoints, engine samplers
 with the fused Triton update kernel, metric suite, sweep engine) and
 training (forward process, the U-Net's train mode, reference samplers, data
 layer, train steps, epoch loop, checkpoint writing, and the teacher,
-student and resume trainers with their CLIs under ``scripts/``).
+student and resume trainers with their CLIs under ``scripts/``), and
+analysis (the trajectory manager, FID, LPIPS, ``analysis/*``, the metric
+plots, and the seven analysis CLIs with their orchestrator
+``scripts/run_analysis.py``).
 """
 
 __version__ = "0.1.0"

@@ -5,6 +5,7 @@ from .unet import (
     DiffusionUNet,
     make_unet,
     param_count,
+    resize_bilinear_align_corners,
     sinusoidal_time_embedding,
 )
 from .convert import (

@@ -49,6 +49,34 @@ def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
     return emb
 
 
+def _align_corners_matrix(in_size: int, out_size: int) -> torch.Tensor:
+    """``[out, in]`` linear-interpolation weights of the align_corners=True
+    map, computed in double precision and stored as float32.  (``F.interpolate``
+    computes the source positions in float32, which moves the result by up
+    to a few ulps of the input's range.)"""
+    m = torch.zeros((out_size, in_size), dtype=torch.float64)
+    if in_size == 1:
+        m[:, 0] = 1.0
+        return m.float()
+    for i in range(out_size):
+        src = i * (in_size - 1) / (out_size - 1) if out_size > 1 else 0.0
+        lo = int(math.floor(src))
+        hi = min(lo + 1, in_size - 1)
+        m[i, lo] += 1.0 - (src - lo)
+        m[i, hi] += src - lo
+    return m.float()
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, size) -> torch.Tensor:
+    """Bilinear resize of NHWC ``x`` to ``size = (h, w)`` with
+    ``align_corners=True``, as two interpolation-matrix products (rows, then
+    columns), the JAX package's formulation."""
+    mh = _align_corners_matrix(x.shape[1], int(size[0])).to(x.device, x.dtype)
+    mw = _align_corners_matrix(x.shape[2], int(size[1])).to(x.device, x.dtype)
+    x = torch.einsum("oh,bhwc->bowc", mh, x)
+    return torch.einsum("ow,bhwc->bhoc", mw, x).contiguous()
+
+
 class SinusoidalPositionEmbeddings(nn.Module):
     """``time_mlp.0`` of the reference layout (no parameters)."""
 

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:
@@ -59,6 +60,51 @@ def add_model_flags(parser: argparse.ArgumentParser) -> None:
                         help="Use the enc1-skip full-resolution decoder head")
     parser.add_argument("--sample_mode", type=str, default=None,
                         choices=["reference", "ancestral"])
+
+
+def add_analysis_flags(parser: argparse.ArgumentParser) -> None:
+    """The port's flags of every analysis CLI, beside the JAX CLI's own."""
+    parser.add_argument("--dataset", type=str, default=None, choices=["MNIST", "CIFAR10"])
+    parser.add_argument("--image_size", type=int, default=None)
+    parser.add_argument("--num_channels", type=int, default=None)
+    parser.add_argument("--base_dir", type=str, default=None,
+                        help="Override the output root directory "
+                        "(checkpoints are read from <base_dir>/output/models)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="Device to run on (default: the config's, cuda)")
+
+
+def analysis_config(args, timesteps=None):
+    """The Config of an analysis CLI, its directories created, on the
+    resolved device (raises when that is CUDA and no GPU exists).
+
+    As in the JAX CLIs, ``timesteps`` sets ``config.timesteps`` alone:
+    ``teacher_steps`` and ``student_steps`` keep the value the Config was
+    built with (100 by default), and the trajectory manager's chains run
+    on ``teacher_steps``."""
+    from ..config import Config, resolve_device
+
+    config = Config(base_dir=args.base_dir) if args.base_dir else Config()
+    if args.device is not None:
+        config.device = args.device
+    if args.dataset:
+        config.dataset = args.dataset
+    if args.image_size:
+        config.image_size = args.image_size
+    if args.num_channels:
+        config.channels = args.num_channels
+    if timesteps:
+        config.timesteps = timesteps
+    resolve_device(config.device)
+    return config.create_directories()
+
+
+def resolve_output_dir(config, output_dir: str) -> str:
+    """``output_dir``, a relative one taken against the config's
+    ``base_dir`` (the checkout root unless ``--base_dir`` is given)."""
+    if os.path.isabs(output_dir):
+        return output_dir
+    return os.path.join(config.base_dir, output_dir)
 
 
 def load_teacher_from_arg(config, teacher_model_arg=None):

@@ -27,7 +27,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..metrics.transformations import transform_metrics
-from ._common import load_student, load_teacher_from_arg, parse_float_list
+from ._common import load_student, load_teacher_from_arg, parse_float_list, resolve_output_dir
 
 # Poster teal→purple colormap of the reference plots.
 POSTER_COLORS = [
@@ -122,8 +122,7 @@ def job_specs(args, config) -> List[dict]:
             v = spec[key]
             spec[key] = ([float(x) for x in v] if isinstance(v, (list, tuple))
                          else parse_float_list(v))
-        if not os.path.isabs(spec["output_dir"]):
-            spec["output_dir"] = os.path.join(config.base_dir, spec["output_dir"])
+        spec["output_dir"] = resolve_output_dir(config, spec["output_dir"])
         os.makedirs(spec["output_dir"], exist_ok=True)
     return specs
 

@@ -1,6 +1,7 @@
 """The port on a CUDA GPU (skipped without one): the Triton kernel against
-its plain version, and a train step, the InceptionV3 trunk and
-AlexNet-LPIPS on the card against the CPU.
+its plain version, and a train step, the InceptionV3 trunk, AlexNet-LPIPS,
+the noise-prediction compute half and the sweep function's averaged chains
+on the card against the CPU.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -154,3 +155,69 @@ def test_lpips_on_card_matches_cpu(cuda):
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
     torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=0)
+
+
+def test_noise_prediction_on_card_matches_cpu(cuda):
+    """The noise-prediction compute half (sf 0.2 against sf 0.1, 16x16x1,
+    10 images, 10 timesteps, float32, TF32 off, shared weights, images and
+    noise) on the card against the CPU: per-timestep metrics within rtol
+    1e-4."""
+    import numpy as np
+
+    from distillation_trajectories_torch.analysis.noise_prediction import noise_prediction_metrics
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.models import make_unet
+
+    saved = _no_tf32()
+    try:
+        gen = torch.Generator().manual_seed(2)
+        images = torch.rand((10, 16, 16, 1), generator=gen) * 2 - 1
+        noise = torch.randn((10, 10, 16, 16, 1), generator=gen)
+        out = {}
+        for device in ("cpu", cuda):
+            cfg = Config(device=str(device), image_size=16, channels=1, timesteps=10,
+                         compute_dtype="float32")
+            out[str(device)], _ = noise_prediction_metrics(
+                make_unet(cfg, size_factor=0.2, seed=0), make_unet(cfg, size_factor=0.1, seed=1),
+                cfg, images=images, noise=noise)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for t, want in out["cpu"]["metrics_by_timestep"].items():
+        for k, w in want.items():
+            np.testing.assert_allclose(out["cuda"]["metrics_by_timestep"][t][k], w, rtol=1e-4,
+                                       err_msg=f"t={t} {k}")
+
+
+def test_averaged_sweep_chains_on_card_match_cpu(cuda):
+    """The trajectories CLI's unit, the sweep function's chains averaged
+    over 4 samples (sf 0.1, 16x16x1, T=10, CFG at 3.0, float32, TF32 off,
+    shared draws), on the card against the CPU at the sampler tolerance
+    (rtol 2e-5 / atol 1e-5); every step launches the kernel once."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion.sampling import (
+        CFG_COND_PAIRS,
+        draw_step_noise,
+        seeded_normal,
+    )
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.trajectories import make_sweep_trajectory_fn
+
+    saved = _no_tf32()
+    try:
+        seeds = [0, 1, 2, 3]
+        noises = seeded_normal([(s, 0) for s in seeds], (16, 16, 1), "cpu")
+        step_noise = draw_step_noise(seeds, 10, (16, 16, 1), "cpu")
+        out = {}
+        for device in ("cpu", cuda):
+            cfg = Config(device=str(device), image_size=16, channels=1, timesteps=10,
+                         compute_dtype="float32")
+            fn = make_sweep_trajectory_fn(make_unet(cfg, size_factor=0.1, seed=3), 10, cfg)
+            before = cfg_engine_update.launches
+            trajs = fn(noises.to(device), seeds, CFG_COND_PAIRS, 3.0,
+                       step_noise=step_noise.to(device))
+            out[str(device)] = (trajs.mean(dim=0).cpu(), cfg_engine_update.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (want, cpu_launches), (got, launches) = out["cpu"], out["cuda"]
+    assert (cpu_launches, launches) == (0, 9)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)

@@ -2,6 +2,9 @@
 variables carried into port models, and a draw source that replays the JAX
 trainers' PRNG key stream into the port's trainers."""
 
+import contextlib
+from unittest import mock
+
 import jax
 import numpy as np
 import torch
@@ -68,6 +71,103 @@ def sample_draws(key, shape, n_steps):
         key, sk = jax.random.split(key)
         steps.append(np.asarray(jax.random.normal(sk, shape)))
     return as_torch(noise), as_torch(np.stack(steps))
+
+
+def jax_noises(seeds, shape):
+    """``[S, *shape]`` starting noises ``normal(PRNGKey(seed), shape)``."""
+    return np.stack([np.asarray(jax.random.normal(jax.random.PRNGKey(int(s)), shape))
+                     for s in seeds])
+
+
+def jax_step_noise(seeds, timesteps, shape):
+    """The JAX engine samplers' per-step noise ``fold_in(PRNGKey(seed), t)``
+    as ``[T-1, S, *shape]`` (row ``j`` is step ``T-1-j``); the draw shape
+    does not change the bits, so this serves batch and per-sample chains."""
+    return np.stack([
+        np.stack([np.asarray(jax.random.normal(
+            jax.random.fold_in(jax.random.PRNGKey(int(s)), t), shape)) for s in seeds])
+        for t in range(timesteps - 1, 0, -1)
+    ])
+
+
+def jax_chain_draws(seeds, timesteps, shape):
+    """A port ``SweepDraws`` holding the JAX chains' starting and step noise."""
+    from distillation_trajectories_torch.trajectories import SweepDraws
+
+    return SweepDraws(torch.from_numpy(jax_noises(seeds, shape)),
+                      torch.from_numpy(jax_step_noise(seeds, timesteps, shape)))
+
+
+def train_small(root):
+    """A teacher and students {0.1, 0.2} trained by the port's trainers
+    (one batch each) into ``root``; returns the two packages' configs."""
+    from distillation_trajectories_torch.training import train_students, train_teacher
+
+    jcfg, tcfg = configs(root, limit_batches_per_epoch=1, num_samples_to_generate=0)
+    train_teacher(tcfg, seed=0)
+    train_students(tcfg, custom_size_factors=[0.1, 0.2], seed=0)
+    return jcfg, tcfg
+
+
+def jax_checkpoint_models(jcfg, size_factors=(1.0, 0.1, 0.2)):
+    """``{sf: (model, variables)}`` of the JAX package, read from the
+    checkpoints in ``jcfg``'s tree (1.0 is the teacher)."""
+    from distillation_trajectories_tpu.training import load_checkpoint, variables_from_checkpoint
+
+    out = {}
+    for sf in size_factors:
+        path = jcfg.teacher_models_dir if sf == 1.0 else jcfg.student_dir(sf)
+        out[sf] = (jax_make_unet(jcfg, size_factor=sf),
+                   variables_from_checkpoint(load_checkpoint(path)))
+    return out
+
+
+def names_only_savefig(figure, path, *args, **kwargs):
+    """A stand-in for ``Figure.savefig`` that writes an empty file: the
+    JAX plot functions' file names without their rendering cost."""
+    open(path, "wb").close()
+
+
+def _no_layout(figure, *args, **kwargs):
+    """A stand-in for ``Figure.tight_layout`` on a figure never drawn."""
+
+
+# The JAX plot functions under this patch write each PNG as an empty file
+# and lay out no text: only their file names are compared.
+NAMES_ONLY = mock.patch.multiple("matplotlib.figure.Figure", savefig=names_only_savefig,
+                                 tight_layout=_no_layout)
+
+
+def _no_redraw(canvas, *args, **kwargs):
+    """A stand-in for ``FigureCanvasBase.draw_idle``."""
+
+
+@contextlib.contextmanager
+def quick_plots():
+    """Plot functions under this context render each PNG at 30 dpi whatever
+    they ask for: real PNGs (the tests check they are over 1 KB) at a
+    hundredth of the pixels of 300 dpi.  ``pyplot.savefig``'s redraw of the
+    figure after saving, which only an interactive window shows, is
+    skipped."""
+    from matplotlib.backend_bases import FigureCanvasBase
+    from matplotlib.figure import Figure
+
+    savefig = Figure.savefig
+
+    def low_dpi(figure, path, *args, **kwargs):
+        return savefig(figure, path, *args, **{**kwargs, "dpi": 30})
+
+    with mock.patch.object(Figure, "savefig", low_dpi), \
+            mock.patch.object(FigureCanvasBase, "draw_idle", _no_redraw):
+        yield
+
+
+def file_set(root):
+    """Relative paths of every file under ``root``."""
+    import os
+
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files}
 
 
 class JaxDraws:
