@@ -58,9 +58,23 @@ on first use.  Phases, each printing its own lines:
    peak memory printed, and the outputs checked (finite chains, distances
    and metrics, cosines in [-1, 1], variance ratios in [0, 1], the text
    and npz files written); (c) one batch-1 T=100 paired call timed and
-   profiled.  Nothing here imports matplotlib either.
+   profiled.  Nothing here imports matplotlib either;
+8. editing and progressive distillation: (a) the editing chain (engine
+   mode, inpainting ``post_step``) and the plain, guided and
+   ``teacher_guided`` progressive steps on the card against the CPU, in
+   float32 with TF32 off; (b) the editing demo CLI's ``run`` half at its
+   defaults on phase 5's teacher (T=50, 32 direction samples, bf16), its
+   270 launches checked against the count its arguments give, its images,
+   trajectories and directions checked, each stage's wall seconds printed;
+   (c) ``progressive_distill`` from phase 5's teacher (batch 128,
+   teacher_steps 100, bf16, dropout 0.3): two plain rounds (100 → 50 → 25)
+   and one guided round (w ~ U[1, 5], 100 → 50) of 10 batches, with step
+   times, images/s and peak memory per round and every checkpoint read
+   back, then the students' chains at 256 x 32x32x3 (the plain steps_25
+   student, the guided steps_50 student at w=3 in one forward a step; 73
+   launches) beside phase 4's teacher CFG chain.
 
-The kernel record counts the launches of phases 4, 6(b) and 7(b).  The last
+The kernel record counts the launches of phases 4, 6(b), 7(b) and 8.  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -373,7 +387,7 @@ def phase_main_path(card):
           f"first call {first_s:.3f} s = {pairs / first_s:.2f} pairs/s; "
           f"second call {second_s:.3f} s = {pairs / second_s:.2f} pairs/s [{card}]")
     print(f"peak device memory (first sweep): {peak} bytes = {peak / 2**30:.3f} GiB [{card}]")
-    return launches
+    return launches, SAMPLES / chain_s
 
 
 def _close_grads(label, got_model, want_model):
@@ -410,9 +424,7 @@ def phase_train_check():
     from distillation_trajectories_torch.diffusion import get_diffusion_params
     from distillation_trajectories_torch.models import make_unet
     from distillation_trajectories_torch.training.state import (
-        StepDraws,
         TorchDraws,
-        create_train_state,
         make_distill_train_step,
         make_teacher_train_step,
     )
@@ -432,23 +444,34 @@ def phase_train_check():
              make_unet(cfg, size_factor=0.2, device=device, seed=9), dp, 10, 5)),
     )
     for label, draws, make_step in cases:
-        runs = {}
-        for device in ("cpu", "cuda"):
-            model = make_unet(cfg, size_factor=0.1, device=device, seed=0)
-            moved = StepDraws(draws.t.to(device), tuple(n.to(device) for n in draws.noises))
-            _, loss = make_step(device)(create_train_state(model, cfg, draws=None),
-                                        images.to(device), moved)
-            runs[device] = (float(loss), model)
-        (want, cpu_model), (got, card_model) = runs["cpu"], runs["cuda"]
-        if not abs(got - want) <= 1e-5 * abs(want):
-            raise RuntimeError(f"{label}: card loss {got!r} vs CPU {want!r}")
-        grad_err = _close_grads(label, card_model, cpu_model)
-        stats_err = _close_batch_stats(label, card_model, cpu_model)
-        print(f"{label} card vs CPU (f32, TF32 off, sf 0.1, 16x16x1, batch 8, T=10): "
-              f"loss {got:.7f} vs {want:.7f} (rtol 1e-5); gradients within rtol 1e-4 / "
-              f"atol 5e-5 of each tensor's max, worst {grad_err:.3e} of it; batch_stats "
-              f"within rtol 1e-5 / atol 1e-6, worst abs {stats_err:.3e}")
+        _hold_step_card_vs_cpu(label, cfg, images, draws, make_step)
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def _hold_step_card_vs_cpu(label, cfg, images, draws, make_step):
+    """One train step of a seeded sf-0.1 student on the CPU and on the card
+    from the same draws: the loss at rtol 1e-5, the gradients and the
+    BatchNorm statistics at the CPU tests' tolerances."""
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training.state import StepDraws, create_train_state
+
+    runs = {}
+    for device in ("cpu", "cuda"):
+        model = make_unet(cfg, size_factor=0.1, device=device, seed=0)
+        moved = StepDraws(draws.t.to(device), tuple(n.to(device) for n in draws.noises),
+                          w=None if draws.w is None else draws.w.to(device))
+        _, loss = make_step(device)(create_train_state(model, cfg, draws=None),
+                                    images.to(device), moved)
+        runs[device] = (float(loss), model)
+    (want, cpu_model), (got, card_model) = runs["cpu"], runs["cuda"]
+    if not abs(got - want) <= 1e-5 * abs(want):
+        raise RuntimeError(f"{label}: card loss {got!r} vs CPU {want!r}")
+    grad_err = _close_grads(label, card_model, cpu_model)
+    stats_err = _close_batch_stats(label, card_model, cpu_model)
+    print(f"{label} card vs CPU (f32, TF32 off, sf 0.1, 16x16x1, batch 8, T=10): "
+          f"loss {got:.7f} vs {want:.7f} (rtol 1e-5); gradients within rtol 1e-4 / "
+          f"atol 5e-5 of each tensor's max, worst {grad_err:.3e} of it; batch_stats "
+          f"within rtol 1e-5 / atol 1e-6, worst abs {stats_err:.3e}")
 
 
 _TRAIN_KINDS = (  # first match wins
@@ -1227,6 +1250,284 @@ def phase_clis(card, workdir):
     return launches
 
 
+PROG_BATCHES = 10  # batches per progressive round (one epoch)
+PROG_GUIDANCE = (1.0, 5.0)
+PROG_W = 3.0
+
+
+def phase_edit_check():
+    """Phase 8(a): the editing chain and the three forms of the progressive
+    step on the card against the CPU, in float32 with TF32 off."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.editing import EditingDraws, denoise_with_trajectory
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.training import make_eval_model_fn
+    from distillation_trajectories_torch.training.progressive import make_progressive_distill_step
+    from distillation_trajectories_torch.training.state import TorchDraws
+
+    saved = _tf32_off()
+    cfg = Config(device="cpu", image_size=16, channels=1, timesteps=10, sample_steps=10,
+                 compute_dtype="float32", dropout=0.0)
+    dp = get_diffusion_params(10)
+    gen = torch.Generator().manual_seed(3)
+    original = torch.rand((2, 16, 16, 1), generator=gen) * 2 - 1
+    mask = (torch.rand((1, 16, 16, 1), generator=gen) > 0.5).float()
+    noise, step_noise = EditingDraws("cpu").chain(0, (2, 16, 16, 1), 9)
+    trajs = {}
+    for device in ("cpu", "cuda"):
+        m, o = mask.to(device), original.to(device)
+        model_fn = make_eval_model_fn(make_unet(cfg, size_factor=0.1, device=device, seed=4))
+        before = cfg_engine_update.launches
+        _, traj = denoise_with_trajectory(
+            model_fn, m * noise.to(device) + (1 - m) * o, dp["alphas"], 9,
+            step_noise=step_noise.to(device), post_step=lambda z: m * z + (1 - m) * o,
+            diffusion_params=dp)
+        trajs[device] = (traj.cpu(), cfg_engine_update.launches - before)
+    if (trajs["cpu"][1], trajs["cuda"][1]) != (0, 9):
+        raise RuntimeError(f"editing chain launches (CPU, card): {trajs['cpu'][1]}, {trajs['cuda'][1]}")
+    compare("editing chain (engine mode, inpainting post_step, 9 kernel launches) card vs CPU "
+            "(sf 0.1, 16x16x1, batch 2, T=10, f32, TF32 off)", trajs["cuda"][0], trajs["cpu"][0],
+            2e-5, 1e-5)
+
+    images = torch.rand((8, 16, 16, 1), generator=torch.Generator().manual_seed(0)) * 2 - 1
+    dpt, dps = get_diffusion_params(10), get_diffusion_params(5)
+    for label, guidance_range, teacher_guided in (
+            ("progressive step (plain)", None, False),
+            ("progressive step (guided)", PROG_GUIDANCE, False),
+            ("progressive step (teacher_guided)", PROG_GUIDANCE, True)):
+        _hold_step_card_vs_cpu(
+            label, cfg, images, TorchDraws(2, "cpu").progressive_step(images, 5, guidance_range),
+            lambda device: make_progressive_distill_step(
+                make_unet(cfg, size_factor=0.1, device=device, seed=9), dpt["alphas"],
+                dps["alphas"], 10, dpt, guidance_range=guidance_range,
+                teacher_guided=teacher_guided))
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _finite_in_unit(name, a):
+    if not (np.isfinite(a).all() and a.min() >= 0 and a.max() <= 1):
+        raise RuntimeError(f"{name}: not finite or outside [0, 1]: [{a.min()}, {a.max()}]")
+
+
+def phase_edit_demo(card, workdir):
+    """Phase 8(b): the editing demo CLI's ``run`` half at its defaults on
+    phase 5's teacher, with the kernel's launches checked against the
+    count its arguments give."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts import run_editing_demo as cli
+
+    args = cli.parse_args(["--base_dir", workdir, "--device", "cuda"])
+    config = cli.make_config(args)
+    t = config.timesteps
+    # Chains of T-1 steps: inpainting, the batched directions, the latent's
+    # generation, prompt editing's two; the re-denoise from T//2.
+    expected = 5 * (t - 1) + t // 2
+    print(f"editing demo: teacher sf 1.0, {config.image_size}x{config.image_size}x"
+          f"{config.channels}, T={t}, {cli.DIRECTION_SAMPLES} direction samples, strength "
+          f"{args.strength}, seed {args.seed}, {args.sample_mode} mode, compute "
+          f"{config.compute_dtype}; expected launches {expected}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cfg_engine_update.launches = 0
+    timings = {}
+    t0 = time.perf_counter()
+    out = cli.run(args, config, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cfg_engine_update.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"editing demo kernel launches: {launches} (expected {expected}) [{card}]")
+    if launches != expected:
+        raise RuntimeError("the editing demo did not launch the kernel once per step")
+
+    inpaint, latent, prompt = out["inpainting"], out["latent_manipulation"], out["prompt_editing"]
+    for name, a in (("inpainted", inpaint["inpainted_image"]),
+                    ("latent original", latent["original_image"]),
+                    ("latent manipulated", latent["manipulated_image"]),
+                    ("prompt original", prompt["original_image"]),
+                    ("prompt edited", prompt["edited_image"])):
+        _finite_in_unit(name, a)
+    outside = inpaint["mask"] == 0
+    kept = float(np.abs(inpaint["inpainted_image"][outside] - inpaint["original_image"][outside]).max())
+    if kept > 1e-6:
+        raise RuntimeError(f"the inpainted image differs from the original outside the mask: {kept}")
+    rows = {k: v.shape[0] for k, v in (("inpainting", inpaint["trajectory"]),
+                                       ("latent", latent["trajectory"]),
+                                       ("prompt original", prompt["original_trajectory"]),
+                                       ("prompt edited", prompt["edited_trajectory"]))}
+    if rows != {"inpainting": t + 1, "latent": t // 2 + 2, "prompt original": t + 1,
+                "prompt edited": t + 1}:
+        raise RuntimeError(f"trajectory rows {rows}")
+    directions = np.stack([out["directions"][f"pca_{i}"] for i in range(10)])
+    if len(out["directions"]) != 10 or not np.isfinite(directions).all():
+        raise RuntimeError("the directions are not 10 finite vectors")
+    print(f"editing outputs: images finite in [0, 1]; inpainted = original outside the mask "
+          f"(max diff {kept:.2e}, {int(outside.sum())} pixels kept); trajectory rows {rows}; "
+          f"10 finite PCA directions of {directions.shape[1]} (norms "
+          f"{np.linalg.norm(directions, axis=1).min():.6f}-"
+          f"{np.linalg.norm(directions, axis=1).max():.6f}) [{card}]")
+    print(f"editing demo run {wall:.3f} s: teacher load {timings['teacher_load_s']:.3f} s, "
+          f"inpainting {timings['inpainting_s']:.3f} s, latent manipulation (directions + "
+          f"generation + re-denoise) {timings['latent_manipulation_s']:.3f} s, prompt editing "
+          f"{timings['prompt_editing_s']:.3f} s; peak device memory {peak} bytes = "
+          f"{peak / 2**30:.3f} GiB [{card}]")
+    return launches
+
+
+class _RoundSteps(_TimedSteps):
+    """``_TimedSteps`` that also keeps, for each step it makes (one per
+    progressive round), the model that round trains and the peak device
+    memory of its steps."""
+
+    def __init__(self, factory):
+        super().__init__(factory)
+        self.models, self.peaks = [], []
+
+    def __call__(self, *args, **kwargs):
+        timed = super().__call__(*args, **kwargs)
+        i = len(self.models)
+        self.models.append(None)
+        self.peaks.append(0)
+        torch.cuda.reset_peak_memory_stats()
+
+        def step(state, images, draws=None):
+            out = timed(state, images, draws)
+            self.models[i] = state.model
+            self.peaks[i] = torch.cuda.max_memory_allocated()
+            return out
+
+        return step
+
+
+def _chain_rate(run, n):
+    """Best of three host-timed calls of ``run`` (already warm), as traj/s."""
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return n / min(times), times
+
+
+def phase_progressive(card, workdir, teacher_tps):
+    """Phase 8(c): ``progressive_distill`` at full width from phase 5's
+    teacher, two plain rounds and one guided round, then the students'
+    chains at the main path's shape."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.diffusion.sampling import (
+        draw_step_noise,
+        generate_trajectory_scan,
+        seeded_normal,
+    )
+    from distillation_trajectories_torch.models import load_unet_variables, make_unet
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+    from distillation_trajectories_torch.training import make_eval_model_fn, progressive
+    from distillation_trajectories_torch.training.checkpoints import (
+        load_checkpoint,
+        variables_from_checkpoint,
+    )
+
+    cfg = Config(base_dir=workdir, dataset="CIFAR10", epochs=1, timesteps=TRAIN_T,
+                 sample_steps=TRAIN_T, limit_batches_per_epoch=PROG_BATCHES)
+    teacher = load_teacher_from_arg(cfg)
+    print(f"progressive: from phase 5's teacher (sf 1.0), {cfg.dataset} shapes "
+          f"{cfg.image_size}x{cfg.image_size}x{cfg.channels} (synthetic stand-in), batch "
+          f"{cfg.batch_size}, teacher_steps {cfg.teacher_steps}, compute {cfg.compute_dtype}, "
+          f"dropout {cfg.dropout}; rounds of one epoch of {PROG_BATCHES} batches: plain "
+          f"{cfg.teacher_steps} -> {cfg.teacher_steps // 2} -> {cfg.teacher_steps // 4}, guided "
+          f"w ~ U{list(PROG_GUIDANCE)} {cfg.teacher_steps} -> {cfg.teacher_steps // 2}")
+    timed = _RoundSteps(progressive.make_progressive_distill_step)
+    with mock.patch.object(progressive, "make_progressive_distill_step", timed):
+        t0 = time.perf_counter()
+        plain, plain_steps = progressive.progressive_distill(cfg, teacher, rounds=2, seed=0)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        guided, guided_steps = progressive.progressive_distill(
+            cfg, teacher, rounds=1, seed=0, guidance_range=PROG_GUIDANCE)
+        torch.cuda.synchronize()
+        guided_s = time.perf_counter() - t0
+    if (plain_steps, guided_steps) != (cfg.teacher_steps // 4, cfg.teacher_steps // 2):
+        raise RuntimeError(f"progressive rounds ended at {plain_steps} / {guided_steps} steps")
+    rounds = (("plain", cfg.teacher_steps // 2, "2 teacher forwards"),
+              ("plain", cfg.teacher_steps // 4, "2 teacher forwards"),
+              ("guided", cfg.teacher_steps // 2, "4 teacher forwards (CFG pair x 2 updates)"))
+    for (kind, n, forwards), record, model, peak in zip(rounds, timed.runs, timed.models,
+                                                          timed.peaks):
+        _step_summary(f"progressive step {kind} -> {n} steps ({forwards} + student forward "
+                      f"and backward)", record, cfg.batch_size, card)
+        print(f"  peak device memory of the round's steps: {peak} bytes = "
+              f"{peak / 2**30:.3f} GiB [{card}]")
+        family = "progressive" if kind == "plain" else "progressive_cfg"
+        ckpt_dir = os.path.join(cfg.models_dir, family, f"steps_{n}")
+        restored = load_unet_variables(make_unet(cfg, size_factor=1.0),
+                                       variables_from_checkpoint(load_checkpoint(ckpt_dir, 1)))
+        trained = model.state_dict()
+        for k, v in restored.state_dict().items():
+            if not k.endswith("num_batches_tracked") and not torch.equal(v, trained[k]):
+                raise RuntimeError(f"{ckpt_dir}: checkpoint entry {k} differs from the trained model")
+        print(f"  {family}/steps_{n}/model_epoch_1.msgpack read back equal to the trained model")
+    if timed.models[1] is not plain or timed.models[2] is not guided:
+        raise RuntimeError("progressive_distill did not return the last round's student")
+    print(f"progressive_distill wall: plain 2 rounds {plain_s:.3f} s, guided 1 round "
+          f"{guided_s:.3f} s (datasets, steps and async checkpoints included) [{card}]")
+
+    seeds = list(range(42, 42 + SAMPLES))
+    noises = seeded_normal([(s, 0) for s in seeds], MAIN_SHAPE[1:], "cuda")
+    chains = (
+        (f"plain steps_{plain_steps} student", make_eval_model_fn(plain), plain_steps),
+        (f"guided steps_{guided_steps} student at w={PROG_W} (make_guided_eval_fn, 1 forward "
+         f"a step)", progressive.make_guided_eval_fn(guided, PROG_W), guided_steps),
+    )
+    step_noise = {t: draw_step_noise(seeds, t, MAIN_SHAPE[1:], "cuda") for _, _, t in chains}
+    runs = [lambda fn=fn, t=t: generate_trajectory_scan(
+        fn, noises, t, get_diffusion_params(t, cfg)["alphas"], seed=0, step_noise=step_noise[t])
+        for _, fn, t in chains]
+    torch.cuda.synchronize()
+    cfg_engine_update.launches = 0
+    outs = [run() for run in runs]
+    torch.cuda.synchronize()
+    launches = cfg_engine_update.launches
+    expected = sum(t - 1 for _, _, t in chains)
+    print(f"progressive students' chains kernel launches: {launches} (expected {expected}) [{card}]")
+    if launches != expected:
+        raise RuntimeError("the students' chains did not launch the kernel once per step")
+    for (label, _, t), out in zip(chains, outs):
+        if tuple(out.shape) != (t + 1, *MAIN_SHAPE) or not torch.isfinite(out).all():
+            raise RuntimeError(f"{label}: chain not finite or misshapen")
+    for (label, _, t), run in zip(chains, runs):
+        tps, times = _chain_rate(run, SAMPLES)
+        print(f"{label}, T={t}, {SAMPLES} x 32x32x3: {tps:.2f} traj/s (best of "
+              f"{[round(x, 4) for x in times]} s, {min(times) / (t - 1) * 1e3:.3f} ms a step) "
+              f"against phase 4's two-forward teacher CFG chain at T={MAIN_T}: "
+              f"{teacher_tps:.2f} traj/s ({SAMPLES / teacher_tps / (MAIN_T - 1) * 1e3:.3f} ms a "
+              f"step), x{tps / teacher_tps:.2f} [{card}]")
+        profile_breakdown(run, min(times), card, label=f"one {label} chain, T={t}")
+    return launches
+
+
+def phase_edit(card, workdir, teacher_tps):
+    t0 = time.perf_counter()
+    phase_edit_check()
+    print(f"phase editing/progressive (a) card vs CPU: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches = phase_edit_demo(card, workdir)
+    print(f"phase editing/progressive (b) editing demo: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches += phase_progressive(card, workdir, teacher_tps)
+    print(f"phase editing/progressive (c) progressive distillation: "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    if "matplotlib" in sys.modules:
+        raise RuntimeError("the editing and progressive paths imported matplotlib")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -1250,7 +1551,7 @@ def main():
     phase_sampler()
     print(f"phase sampler: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = phase_main_path(card)
+    launches, teacher_tps = phase_main_path(card)
     print(f"phase main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_train_check()
@@ -1263,9 +1564,13 @@ def main():
         t0 = time.perf_counter()
         clis_launches = phase_clis(card, workdir)
         print(f"phase CLIs: {time.perf_counter() - t0:.1f} s [{card}]")
-    total = launches + cli_launches + clis_launches
+        t0 = time.perf_counter()
+        edit_launches = phase_edit(card, workdir, teacher_tps)
+        print(f"phase editing/progressive: {time.perf_counter() - t0:.1f} s [{card}]")
+    total = launches + cli_launches + clis_launches + edit_launches
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
-          f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) = {total}")
+          f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) + "
+          f"{edit_launches} (editing demo and progressive students, phase 8) = {total}")
 
     print(card)
     print(json.dumps({"kernels": [{

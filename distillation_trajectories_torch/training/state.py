@@ -27,9 +27,11 @@ from ..diffusion.schedules import schedule_on
 class StepDraws:
     """The random inputs of one train step."""
 
-    t: torch.Tensor  # [B] integer timesteps (the teacher's, for distillation)
+    t: torch.Tensor  # [B] integer timesteps (the teacher's, for distillation;
+    # the student's index j for progressive distillation)
     noises: Tuple[torch.Tensor, ...]  # two for the teacher step, one for distillation
     generator: Optional[torch.Generator] = None  # dropout masks; None: global generator
+    w: Optional[torch.Tensor] = None  # [B, 1] guidance scales of guided progressive steps
 
 
 class TorchDraws:
@@ -39,7 +41,7 @@ class TorchDraws:
     :func:`..models.make_unet`); the step and sample draws come, in call
     order, from one ``torch.Generator`` on ``device`` seeded from ``seed``,
     which also draws the dropout masks.  A source that replays another
-    stream implements the same four methods.
+    stream implements the same methods.
     """
 
     def __init__(self, seed: int, device):
@@ -67,6 +69,19 @@ class TorchDraws:
     def distill_step(self, images: torch.Tensor, timesteps: int) -> StepDraws:
         t = self._t(images.shape[0], timesteps)
         return StepDraws(t, (self._normal(images.shape, images.dtype),), self.generator)
+
+    def progressive_step(self, images: torch.Tensor, student_steps: int,
+                         guidance_range: Optional[Tuple[float, float]] = None) -> StepDraws:
+        """``j ~ U[1, S)``, the noise and, for a guided step, ``w ~ U[lo, hi]``."""
+        b = images.shape[0]
+        j = torch.randint(1, student_steps, (b,), generator=self.generator, device=self.device)
+        noise = self._normal(images.shape, images.dtype)
+        w = None
+        if guidance_range is not None:
+            lo, hi = guidance_range
+            u = torch.rand((b, 1), generator=self.generator, device=self.device, dtype=images.dtype)
+            w = lo + (hi - lo) * u
+        return StepDraws(j, (noise,), self.generator, w)
 
     def sample(self, shape, n_steps: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Starting noise ``shape`` and per-step noise ``[n_steps, *shape]``
@@ -113,6 +128,18 @@ def make_eval_model_fn(model: torch.nn.Module, params: Optional[Dict[str, torch.
                 model, params, (x, t), dict(cond=cond, cond_mask=cond_mask), strict=False)
 
     return model_fn
+
+
+def make_eval_fn_from_config(model: torch.nn.Module, config) -> Callable:
+    """The config-aware eval forward every editing flow goes through (JAX
+    ``training/state.py::make_eval_fn_from_config``): the plain eval
+    forward.  The int8 forward (``sampler_quant="int8"``) and the spatially
+    partitioned one (``spatial_shape``) are not ported and raise."""
+    if config is not None and getattr(config, "sampler_quant", "none") == "int8":
+        raise NotImplementedError("sampler_quant='int8': the int8 lane is not ported")
+    if config is not None and getattr(config, "spatial_shape", None):
+        raise NotImplementedError("spatial_shape (spatial partitioning) is not ported")
+    return make_eval_model_fn(model)
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

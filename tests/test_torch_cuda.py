@@ -1,7 +1,7 @@
 """The port on a CUDA GPU (skipped without one): the Triton kernel against
 its plain version, and a train step, the InceptionV3 trunk, AlexNet-LPIPS,
-the noise-prediction compute half and the sweep function's averaged chains
-on the card against the CPU.
+the noise-prediction compute half, the sweep function's averaged chains,
+the editing chain and the progressive steps on the card against the CPU.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -221,3 +221,88 @@ def test_averaged_sweep_chains_on_card_match_cpu(cuda):
     (want, cpu_launches), (got, launches) = out["cpu"], out["cuda"]
     assert (cpu_launches, launches) == (0, 9)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+
+
+def test_editing_chain_on_card_matches_cpu(cuda):
+    """``denoise_with_trajectory`` in engine mode with the inpainting
+    ``post_step`` (sf 0.1, 16x16x1, batch 2, T=10, float32, TF32 off,
+    shared weights and draws) on the card against the CPU at the sampler
+    tolerance (rtol 2e-5 / atol 1e-5); every update launches the kernel."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.editing import EditingDraws, denoise_with_trajectory
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training import make_eval_model_fn
+
+    saved = _no_tf32()
+    try:
+        cfg = Config(device="cpu", image_size=16, channels=1, timesteps=10,
+                     compute_dtype="float32")
+        dp = get_diffusion_params(10)
+        gen = torch.Generator().manual_seed(3)
+        original = torch.rand((2, 16, 16, 1), generator=gen) * 2 - 1
+        mask = (torch.rand((1, 16, 16, 1), generator=gen) > 0.5).float()
+        noise, step_noise = EditingDraws("cpu").chain(0, (2, 16, 16, 1), 9)
+        out = {}
+        for device in ("cpu", cuda):
+            m, o = mask.to(device), original.to(device)
+            model_fn = make_eval_model_fn(make_unet(cfg, size_factor=0.1, device=device, seed=4))
+            before = cfg_engine_update.launches
+            _, traj = denoise_with_trajectory(
+                model_fn, m * noise.to(device) + (1 - m) * o, dp["alphas"], 9,
+                step_noise=step_noise.to(device), post_step=lambda z: m * z + (1 - m) * o,
+                diffusion_params=dp)
+            out[str(device)] = (traj.cpu(), cfg_engine_update.launches - before)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (want, cpu_launches), (got, launches) = out["cpu"], out["cuda"]
+    assert (cpu_launches, launches) == (0, 9) and got.shape == (11, 2, 16, 16, 1)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("guidance_range, teacher_guided",
+                         [(None, False), ((1.0, 5.0), False), ((1.0, 5.0), True)],
+                         ids=["plain", "guided", "teacher_guided"])
+def test_progressive_step_on_card_matches_cpu(cuda, guidance_range, teacher_guided):
+    """One progressive step (teacher T=10 → S=5, sf 0.1, 16x16x1, batch 8,
+    float32, TF32 off, dropout 0, shared weights and draws) on the card
+    against the CPU: the loss at rtol 1e-5, the gradients at rtol 1e-4 with
+    an atol of 5e-5 of each tensor's largest |g|."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training.progressive import make_progressive_distill_step
+    from distillation_trajectories_torch.training.state import (
+        StepDraws,
+        TorchDraws,
+        create_train_state,
+    )
+
+    saved = _no_tf32()
+    try:
+        cfg = Config(device="cpu", image_size=16, channels=1, timesteps=10,
+                     compute_dtype="float32", dropout=0.0)
+        images = torch.rand((8, 16, 16, 1), generator=torch.Generator().manual_seed(0)) * 2 - 1
+        draws = TorchDraws(2, "cpu").progressive_step(images, 5, guidance_range)
+        dpt, dps = get_diffusion_params(10), get_diffusion_params(5)
+        out = {}
+        for device in ("cpu", cuda):
+            step = make_progressive_distill_step(
+                make_unet(cfg, size_factor=0.1, device=device, seed=9), dpt["alphas"],
+                dps["alphas"], 10, dpt, guidance_range=guidance_range,
+                teacher_guided=teacher_guided)
+            model = make_unet(cfg, size_factor=0.1, device=device, seed=0)
+            moved = StepDraws(draws.t.to(device), (draws.noises[0].to(device),),
+                              w=None if draws.w is None else draws.w.to(device))
+            _, loss = step(create_train_state(model, cfg, draws=None), images.to(device), moved)
+            out[str(device)] = (float(loss), {k: p.grad.cpu() for k, p in model.named_parameters()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    (want_loss, want_g), (loss, grads) = out["cpu"], out["cuda"]
+    assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+    for k, g in grads.items():
+        if _bias_feeds_batch_norm(k):
+            assert g.abs().max() < 1e-6 and want_g[k].abs().max() < 1e-6, k
+        else:
+            atol = max(1e-7, 5e-5 * float(want_g[k].abs().max()))
+            torch.testing.assert_close(g, want_g[k], rtol=1e-4, atol=atol, msg=k)

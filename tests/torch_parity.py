@@ -199,3 +199,44 @@ class JaxDraws:
 
     def sample(self, shape, n_steps):
         return sample_draws(self._next(), shape, n_steps)
+
+    def progressive_step(self, images, student_steps, guidance_range=None):
+        """The JAX progressive step's draws: ``split(sk, 4)`` into
+        ``kj, kn, kd, kw`` of the batch key ``sk``."""
+        return progressive_draws(self._next(), tuple(images.shape), student_steps, guidance_range)
+
+
+def progressive_draws(key, images_shape, student_steps, guidance_range=None):
+    """``j``, the noise and ``w`` of the JAX progressive step from its key."""
+    kj, kn, _, kw = jax.random.split(key, 4)
+    j = jax.random.randint(kj, (images_shape[0],), 1, student_steps)
+    noise = as_torch(jax.random.normal(kn, images_shape))
+    w = None
+    if guidance_range is not None:
+        lo, hi = guidance_range
+        w = as_torch(jax.random.uniform(kw, (images_shape[0], 1), minval=lo, maxval=hi))
+    return StepDraws(as_torch(j, torch.int64), (noise,), w=w)
+
+
+class JaxEditingDraws:
+    """The editing flows' draws made the JAX way, for the port's
+    ``draws=`` arguments: a generation of ``seed`` splits ``PRNGKey(seed)``
+    into ``key, nk``, starts from ``normal(nk)`` and takes
+    ``normal(fold_in(key, t))`` at step t; a re-denoise keyed on ``seed``
+    takes ``normal(fold_in(PRNGKey(seed), t))``; a direction is
+    ``normal(PRNGKey(seed))``."""
+
+    @staticmethod
+    def _steps(key, shape, start_t):
+        return as_torch(np.stack([np.asarray(jax.random.normal(jax.random.fold_in(key, t), shape))
+                                  for t in range(start_t, 0, -1)]).reshape(start_t, *shape))
+
+    def chain(self, seed, shape, start_t):
+        key, nk = jax.random.split(jax.random.PRNGKey(seed))
+        return as_torch(jax.random.normal(nk, shape)), self._steps(key, shape, start_t)
+
+    def redenoise(self, seed, shape, start_t):
+        return self._steps(jax.random.PRNGKey(seed), shape, start_t)
+
+    def direction(self, seed, shape):
+        return as_torch(jax.random.normal(jax.random.PRNGKey(seed), shape))
