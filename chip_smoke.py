@@ -72,9 +72,23 @@ on first use.  Phases, each printing its own lines:
    times, images/s and peak memory per round and every checkpoint read
    back, then the students' chains at 256 x 32x32x3 (the plain steps_25
    student, the guided steps_50 student at w=3 in one forward a step; 73
-   launches) beside phase 4's teacher CFG chain.
+   launches) beside phase 4's teacher CFG chain;
+9. the sampler's opt-in lanes, migration and the orchestrator, on phase 5's
+   checkpoints: (a) ``int8_matmul`` (``torch._int_mm``, zero-padded) on the
+   card against the exact product, ``_qconv`` card vs CPU bit for bit and
+   the int8 forward card vs CPU (float32, TF32 off); then the arms of
+   ``scripts/bench_quant.py`` (float, fold, int8, int8_static,
+   int8_static_mixed) as T=50 CFG chains of 256 x 32x32x3 from the sf-1.0
+   teacher in bf16, with traj/s, peak memory and the endpoint's relative L2
+   against float (49 launches a chain), and each Block conv's int8 time
+   beside the bf16 cuDNN conv of the same layer; (b) sliding-window
+   ParaDiGMS at B=1, T=50, W=8 through ``generate_trajectory`` at tol 0 and
+   1e-3 against the sequential chain (sweeps, latency, the gap); (c) the
+   teacher exported to a reference ``.pt`` and imported back through the
+   CLI, read back equal; (d) ``run_full_sweep --skip-training`` as a
+   subprocess, each stage's seconds and ``ok`` from ``SWEEP_torch_chip.json``.
 
-The kernel record counts the launches of phases 4, 6(b), 7(b) and 8.  The last
+The kernel record counts the launches of phases 4, 6(b), 7(b), 8 and 9.  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -83,6 +97,7 @@ phase fails.
 import itertools
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -1528,6 +1543,383 @@ def phase_edit(card, workdir, teacher_tps):
     return launches
 
 
+INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores (dense)
+QUANT_ARMS = ("float", "fold", "int8", "int8_static", "int8_static_mixed")
+LEVEL_HW = {"enc1": 32, "enc2": 16, "enc3": 8, "enc4": 4, "bottleneck": 2,
+            "dec3": 4, "dec2": 8, "dec1": 16}  # each Block's spatial size at 32x32
+# scripts/bench_quant.py's mixed set: int8 only where a Block works at 8x8 or more.
+MIXED_BLOCKS = {name for name, hw in LEVEL_HW.items() if hw >= 8}
+PARADIGMS_W = 8
+
+
+def phase_int8_check(card, workdir):
+    """9(a), first: the int8 pieces on the card against the CPU."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.models.quantized import (
+        _qconv,
+        int8_matmul,
+        make_quantized_eval_fn,
+    )
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+
+    saved = _tf32_off()
+    gen = torch.Generator().manual_seed(0)
+    shapes = ((4, 27, 32), (512, 27, 128), (17, 2304, 256), (4096, 4608, 256), (48, 144, 20),
+              (262144, 3, 128))
+    for m, k, n in shapes:
+        a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+        b = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen)
+        got = int8_matmul(a.cuda(), b.cuda())
+        if got.dtype != torch.int32 or not torch.equal(got.cpu().long(), a.long() @ b.long()):
+            raise RuntimeError(f"int8_matmul on the card differs from the exact product at {m, k, n}")
+    print(f"int8_matmul (torch._int_mm, column-major b, zero-padded to M >= 32 and M, K, N multiples of 8) on the "
+          f"card equals the exact int64 product at (M, K, N) {list(shapes)} [{card}]")
+    q = {"w_int8": torch.randint(-127, 128, (3, 3, 64, 24), dtype=torch.int8, generator=gen),
+         "scale": torch.rand(24, generator=gen) * 1e-2, "bias": torch.randn(24, generator=gen)}
+    xq = torch.randint(-127, 128, (2, 8, 8, 64), dtype=torch.int8, generator=gen)
+    want = _qconv(q, xq, torch.tensor(0.05), 1)
+    got = _qconv({k: v.cuda() for k, v in q.items()}, xq.cuda(), torch.tensor(0.05).cuda(), 1)
+    if not torch.equal(got.cpu(), want):
+        raise RuntimeError("_qconv on the card is not bit for bit the CPU's")
+    print(f"_qconv (3x3, 64 -> 24, int8 operands) card vs CPU: bit for bit [{card}]")
+
+    rel = lambda a, b: float((a - b).norm() / b.norm())
+    # A small input (seeded sf-0.1 U-Net, 2 x 16x16x1): no activation code
+    # sits near a rounding tie, so the two devices agree to float rounding.
+    small = {}
+    x = torch.randn((2, 16, 16, 1), generator=gen)
+    t, c = torch.tensor([2.0, 7.0]), torch.ones((2, 1))
+    for d in ("cpu", "cuda"):
+        cfg = Config(device=d, image_size=16, channels=1, compute_dtype="float32")
+        fn = make_quantized_eval_fn(make_unet(cfg, size_factor=0.1, seed=3))
+        small[d] = fn(x.to(d), t.to(d), c.to(d), c.to(d)).cpu()
+    small_rel = rel(small["cuda"], small["cpu"])
+    print(f"int8 forward card vs CPU (seeded sf 0.1, f32, TF32 off, 2 x 16x16x1): relative L2 "
+          f"{small_rel:.3e} (tolerance 1e-4) [{card}]")
+    if not (torch.isfinite(small["cuda"]).all() and small_rel <= 1e-4):
+        raise RuntimeError("the int8 forward on the card disagrees with the CPU's")
+    # Phase 5's teacher at 4 x 32x32x3: the dynamic per-tensor scales make
+    # the forward jump at rounding ties (an ulp upstream flips a code, which
+    # moves later scales), so the card is held to the CPU's own jump under a
+    # 1e-7 relative change of the input, with a factor 2.
+    models = {d: load_teacher_from_arg(Config(base_dir=workdir, device=d, compute_dtype="float32"))
+              for d in ("cpu", "cuda")}
+    x = torch.randn((4, 32, 32, 3), generator=gen)
+    t = torch.tensor([3.0, 17.0, 41.0, 99.0])
+    c = torch.tensor([[0.0], [1.0], [0.0], [1.0]])
+    m = torch.ones((4, 1))
+    fns = {d: make_quantized_eval_fn(models[d]) for d in models}
+    outs = {d: fns[d](*(v.to(d) for v in (x, t, c, m))).cpu() for d in models}
+    jump = rel(fns["cpu"](x * (1 + 1e-7), t, c, m), outs["cpu"])
+    with torch.no_grad():
+        float_out = models["cpu"].eval()(x, t, c, m)
+    gap, drift = rel(outs["cuda"], outs["cpu"]), rel(outs["cpu"], float_out)
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    print(f"int8 forward card vs CPU (phase 5's sf-1.0 teacher, f32, TF32 off, 4 x 32x32x3): "
+          f"relative L2 {gap:.3e}, max abs {err:.3e}; "
+          f"the CPU's own jump under a 1e-7 input change {jump:.3e} (tolerance 2x that, at least "
+          f"2e-4); int8 vs float on the CPU {drift:.3e} [{card}]")
+    if not (torch.isfinite(outs["cuda"]).all() and gap <= 2 * max(jump, 1e-4) and drift < 0.15):
+        raise RuntimeError("the int8 forward on the card disagrees with the CPU's")
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def _arm_fn(arm, teacher, scales):
+    from distillation_trajectories_torch.models.quantized import make_quantized_eval_fn
+    from distillation_trajectories_torch.training import make_eval_model_fn
+
+    if arm == "float":
+        return make_eval_model_fn(teacher)
+    if arm == "fold":
+        return make_quantized_eval_fn(teacher, nbits=None)
+    if arm == "int8":
+        return make_quantized_eval_fn(teacher)
+    if arm == "int8_static":
+        return make_quantized_eval_fn(teacher, act_scales=scales)
+    return make_quantized_eval_fn(teacher, act_scales=scales, quant_blocks=MIXED_BLOCKS)
+
+
+def phase_int8_arms(card, workdir):
+    """9(a): the arms of scripts/bench_quant.py on phase 5's teacher at the
+    main path's shape; returns the kernel's launches."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.diffusion.sampling import (
+        CFG_COND_PAIRS,
+        draw_step_noise,
+        generate_trajectory_scan,
+        seeded_normal,
+    )
+    from distillation_trajectories_torch.models.quantized import calibrate_activation_scales
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+
+    cfg = Config(base_dir=workdir, timesteps=MAIN_T, sample_steps=MAIN_T)  # bf16, cuda
+    teacher = load_teacher_from_arg(cfg)
+    alphas = get_diffusion_params(MAIN_T, cfg)["alphas"]
+    seeds = list(range(42, 42 + SAMPLES))
+    noises = seeded_normal([(s, 0) for s in seeds], MAIN_SHAPE[1:], "cuda")
+    step_noise = draw_step_noise(seeds, MAIN_T, MAIN_SHAPE[1:], "cuda")
+    chain = lambda fn: generate_trajectory_scan(fn, noises, MAIN_T, alphas, seed=0,
+                                                guidance_scale=3.0, step_noise=step_noise)
+    print(f"int8 lane: phase 5's teacher sf 1.0, {SAMPLES} x 32x32x3, T={MAIN_T}, gs 3.0, compute "
+          f"{cfg.compute_dtype}; arms {list(QUANT_ARMS)}; mixed blocks {sorted(MIXED_BLOCKS)}")
+    results, f_chain, scales, launches = {}, None, None, 0
+    for arm in QUANT_ARMS:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if arm.startswith("int8_static") and scales is None:
+            # Calibration states along the float chain (activations grow
+            # toward the noisy end) with the sampler's two (cond, mask) rows.
+            cb = min(32, SAMPLES)
+            idxs = sorted({0, MAIN_T // 4, MAIN_T // 2, (3 * MAIN_T) // 4, MAIN_T - 1})
+            rows = [(f_chain[i][:cb], float(MAIN_T - 1 - i), c, mk)
+                    for i in idxs for c, mk in np.unique(CFG_COND_PAIRS, axis=0)]
+            scales = calibrate_activation_scales(
+                teacher, torch.stack([r[0] for r in rows]),
+                torch.tensor([[r[1]] * cb for r in rows], device="cuda"),
+                torch.tensor([[[r[2]]] * cb for r in rows], device="cuda"),
+                torch.tensor([[[r[3]]] * cb for r in rows], device="cuda"))
+            print(f"  calibrated {sum(len(v) for v in scales.values())} static scales on "
+                  f"{len(rows)} batches of {cb} in {time.perf_counter() - t0:.3f} s")
+        fn = _arm_fn(arm, teacher, scales)
+        before = cfg_engine_update.launches
+        first = chain(fn)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        tps, times = _chain_rate(lambda: chain(fn), SAMPLES)
+        made = cfg_engine_update.launches - before
+        peak = torch.cuda.max_memory_allocated()
+        if made != 4 * (MAIN_T - 1) or not torch.isfinite(first).all():
+            raise RuntimeError(f"{arm}: {made} launches for 4 chains, or a chain not finite")
+        launches += made
+        if arm == "float":
+            f_chain = first
+        end, f_end = first[-1], f_chain[-1]
+        rel = float((end - f_end).norm() / f_end.norm())
+        results[arm] = dict(tps=tps, rel=rel, peak=peak)
+        print(f"  arm {arm}: {tps:.2f} traj/s (best of {[round(x, 4) for x in times]} s; first "
+              f"call {first_s:.3f} s with setup), x{tps / results['float']['tps']:.3f} float; "
+              f"endpoint relative L2 vs float {rel:.5f}; peak device memory {peak} bytes = "
+              f"{peak / 2**30:.3f} GiB [{card}]")
+    best = max((a for a in results if a.startswith("int8")), key=lambda a: results[a]["tps"])
+    print(f"int8 lane best arm: {best} at {results[best]['tps']:.2f} traj/s = "
+          f"x{results[best]['tps'] / results['float']['tps']:.3f} the bf16 float chain, endpoint "
+          f"relative L2 {results[best]['rel']:.5f} [{card}]")
+    _int8_layer_times(teacher, card)
+    return launches
+
+
+def _int8_layer_times(teacher, card):
+    """Each Block conv at the main path's batch: the int8 conv (im2col +
+    torch._int_mm + dequantization), its product alone, and the bf16 cuDNN
+    conv of the same layer, device times by CUDA events."""
+    import torch.nn.functional as F
+
+    from distillation_trajectories_torch.models.quantized import (
+        _aquant,
+        _im2col,
+        _qconv,
+        int8_matmul,
+        quantize_unet_variables,
+    )
+
+    qvars = quantize_unet_variables(teacher)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    sums = [0.0, 0.0, 0.0]
+    print(f"int8 conv per layer at batch {SAMPLES} (device ms; product bound at 1979 TOP/s int8 and "
+          f"3.35 TB/s):")
+    with torch.no_grad():
+        for name, hw in LEVEL_HW.items():
+            block = getattr(teacher, name)
+            for conv_name, key, pad in (("conv1", "conv1", 1), ("conv2", "conv2", 1),
+                                        ("residual_conv", "residual", 0)):
+                if key not in qvars["blocks"][name]:
+                    continue
+                conv, q = getattr(block, conv_name), qvars["blocks"][name][key]
+                k, cin, cout = conv.kernel_size[0], conv.in_channels, conv.out_channels
+                x = torch.randn((SAMPLES, hw, hw, cin), device="cuda", generator=gen)
+                xq, s = _aquant(x)
+                a, wmat = _im2col(xq, k, k, pad), q["w_int8"].reshape(-1, cout)
+                xb = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+                wb, bb = conv.weight.to(torch.bfloat16), conv.bias.to(torch.bfloat16)
+                times = (device_time_ms(lambda: _qconv(q, xq, s, pad), 10),
+                         device_time_ms(lambda: int8_matmul(a, wmat), 10),
+                         device_time_ms(lambda: F.conv2d(xb, wb, bb, padding=pad), 10))
+                m_, k_ = a.shape
+                ops_ms = 2 * m_ * k_ * cout / INT8_OPS_PER_S * 1e3
+                bytes_ms = (m_ * k_ + k_ * cout + 4 * m_ * cout) / HBM_BYTES_PER_S * 1e3
+                sums = [u + v for u, v in zip(sums, times)]
+                print(f"  {name}.{conv_name} {hw}x{hw} {cin}->{cout} k{k} (M {m_}, K {k_}, N "
+                      f"{cout}): int8 conv {times[0]:.4f} ms (product {times[1]:.4f} ms, bound "
+                      f"{max(ops_ms, bytes_ms):.4f} ms by {'operations' if ops_ms > bytes_ms else 'bytes'}) "
+                      f"vs bf16 cuDNN {times[2]:.4f} ms")
+                del x, xq, a, xb
+    print(f"  all Block convs of one forward: int8 {sums[0]:.3f} ms (products {sums[1]:.3f} ms) vs "
+          f"bf16 cuDNN {sums[2]:.3f} ms [{card}]")
+
+
+def phase_paradigms(card, workdir):
+    """9(b): sliding-window ParaDiGMS through generate_trajectory against
+    the sequential chain; returns the kernel's launches (the sequential
+    chains'; the window path launches none)."""
+    import dataclasses
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import parallel_sampling
+    from distillation_trajectories_torch.diffusion.sampling import seeded_normal
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+    from distillation_trajectories_torch.trajectories import generate_trajectory
+
+    sweeps = []
+    window = parallel_sampling.sliding_window_trajectory
+
+    def recorded(*args, **kwargs):
+        traj, n = window(*args, **kwargs)
+        sweeps.append(n)
+        return traj, n
+
+    noise = seeded_normal([(7, 0)], MAIN_SHAPE[1:], "cuda")
+    launches = 0
+    for dtype in ("float32", "bfloat16"):
+        saved = _tf32_off() if dtype == "float32" else None
+        cfg = Config(base_dir=workdir, timesteps=MAIN_T, sample_steps=MAIN_T, compute_dtype=dtype)
+        teacher = load_teacher_from_arg(cfg)
+        runs = {"sequential": (cfg, 0)}
+        for tol in (0.0, 1e-3):
+            runs[f"window tol={tol:g}"] = (dataclasses.replace(
+                cfg, parallel_sampling="window", paradigms_window=PARADIGMS_W,
+                paradigms_tol=tol), tol)
+        outs = {}
+        with mock.patch.object(parallel_sampling, "sliding_window_trajectory", recorded):
+            for label, (rcfg, _) in runs.items():
+                run = lambda: generate_trajectory(teacher, noise, MAIN_T, seed=7,
+                                                  guidance_scale=3.0, config=rcfg)
+                before = cfg_engine_update.launches
+                sweeps.clear()
+                outs[label] = run()
+                _, times = _chain_rate(run, 1)
+                made = cfg_engine_update.launches - before
+                expected = 4 * (MAIN_T - 1) if label == "sequential" else 0
+                if made != expected or not torch.isfinite(outs[label]).all():
+                    raise RuntimeError(f"{label}: {made} launches (expected {expected}) or not finite")
+                launches += made
+                gap = float((outs[label] - outs["sequential"]).abs().max())
+                print(f"ParaDiGMS {dtype} {label} (B=1, T={MAIN_T}, W={PARADIGMS_W}, gs 3.0): "
+                      f"{'sweeps ' + str(sweeps[-1]) + ', ' if sweeps else ''}best of "
+                      f"{[round(x * 1e3, 2) for x in times]} ms, {made} kernel launches in 4 "
+                      f"calls, max abs gap to the sequential chain {gap:.3e} [{card}]")
+        if saved is not None:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return launches
+
+
+def phase_migration(card, workdir):
+    """9(c): phase 5's teacher to a reference .pt and back through the CLIs."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.models import load_unet_variables, make_unet
+    from distillation_trajectories_torch.models.torch_port import export_reference_unet_state_dict
+    from distillation_trajectories_torch.scripts import (
+        export_reference_checkpoint,
+        import_reference_checkpoint,
+    )
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+    from distillation_trajectories_torch.training.checkpoints import (
+        load_checkpoint,
+        variables_from_checkpoint,
+    )
+
+    cfg = Config(base_dir=workdir)
+    teacher = load_teacher_from_arg(cfg)
+    exported = export_reference_unet_state_dict(teacher)
+    pt = os.path.join(workdir, "teacher_reference.pt")
+    t0 = time.perf_counter()
+    torch.save(exported, pt)
+    moved = os.path.join(workdir, "migrated")
+    path = import_reference_checkpoint.main([pt, "--base_dir", moved, "--epoch", "1"])
+    import_s = time.perf_counter() - t0
+    mcfg = Config(base_dir=moved)
+    restored = load_unet_variables(make_unet(mcfg, size_factor=1.0),
+                                   variables_from_checkpoint(load_checkpoint(mcfg.teacher_models_dir, 1)))
+    t0 = time.perf_counter()
+    pt2 = export_reference_checkpoint.main([os.path.join(workdir, "again.pt"), "--base_dir", workdir])
+    export_s = time.perf_counter() - t0
+    again = torch.load(pt2, map_location="cpu", weights_only=True)
+    state = restored.state_dict()
+    for k, v in exported.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if not (torch.equal(state[k].cpu(), v) and torch.equal(again[k], v)):
+            raise RuntimeError(f"migration changed {k}")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((8, 32, 32, 3), device="cuda", generator=gen)
+    t = torch.arange(8, device="cuda") * 12
+    c = (torch.arange(8, device="cuda") % 2).float()[:, None]
+    with torch.no_grad():
+        diff = float((restored.eval()(x, t, c, torch.ones_like(c))
+                      - teacher.eval()(x, t, c, torch.ones_like(c))).abs().max())
+    if diff != 0.0:
+        raise RuntimeError(f"the migrated teacher's forward differs: {diff}")
+    print(f"migration: teacher -> {os.path.basename(pt)} ({os.path.getsize(pt)} bytes, "
+          f"{len(exported)} entries) -> import CLI -> {os.path.relpath(path, workdir)} "
+          f"({import_s:.3f} s with the save); export CLI from phase 5's checkpoint "
+          f"{export_s:.3f} s; every weight and statistic equal bit for bit, the eval forward "
+          f"identical (max abs diff {diff}, bf16, 8 images) [{card}]")
+
+
+def phase_orchestrator(card, workdir):
+    """9(d): the full-sweep orchestrator with --skip-training on phase 5's
+    checkpoints, as a subprocess (each stage a subprocess of its own)."""
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "distillation_trajectories_torch.scripts.run_full_sweep",
+           "--skip-training", "--tag", "chip", "--base_dir", workdir, "--size_factors", CLI_SIZES]
+    t0 = time.perf_counter()
+    # Its own session, so that a timeout stops the stages it started too.
+    proc = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=400)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise RuntimeError("run_full_sweep did not finish in 400 s")
+    wall = time.perf_counter() - t0
+    print("\n".join("  " + line for line in stdout.splitlines()
+                    if line.startswith("[sweep]") and "log:" not in line))
+    with open(os.path.join(workdir, "SWEEP_torch_chip.json")) as f:
+        payload = json.load(f)
+    stages = payload["stages"]
+    print(f"run_full_sweep --skip-training (sizes {CLI_SIZES}, cuda): exit {proc.returncode}, "
+          f"{wall:.3f} s; SWEEP_torch_chip.json ok={payload['ok']}, device "
+          f"{payload['preflight_probe'].get('name')}, stages " + ", ".join(
+              f"{k} {v['seconds']} s ok={v['ok']}" for k, v in stages.items()) + f" [{card}]")
+    if proc.returncode != 0 or not payload["ok"] or set(stages) != {"cfg_sweep", "trio", "fid"}:
+        print(stdout[-3000:], stderr[-3000:])
+        raise RuntimeError("the orchestrator's stages did not all pass")
+
+
+def phase_lanes(card, workdir):
+    t0 = time.perf_counter()
+    phase_int8_check(card, workdir)
+    launches = phase_int8_arms(card, workdir)
+    print(f"phase lanes (a) int8: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches += phase_paradigms(card, workdir)
+    print(f"phase lanes (b) ParaDiGMS: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    phase_migration(card, workdir)
+    print(f"phase lanes (c) migration: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    phase_orchestrator(card, workdir)
+    print(f"phase lanes (d) orchestrator: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -1567,10 +1959,14 @@ def main():
         t0 = time.perf_counter()
         edit_launches = phase_edit(card, workdir, teacher_tps)
         print(f"phase editing/progressive: {time.perf_counter() - t0:.1f} s [{card}]")
-    total = launches + cli_launches + clis_launches + edit_launches
+        t0 = time.perf_counter()
+        lane_launches = phase_lanes(card, workdir)
+        print(f"phase lanes: {time.perf_counter() - t0:.1f} s [{card}]")
+    total = launches + cli_launches + clis_launches + edit_launches + lane_launches
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
           f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) + "
-          f"{edit_launches} (editing demo and progressive students, phase 8) = {total}")
+          f"{edit_launches} (editing demo and progressive students, phase 8) + "
+          f"{lane_launches} (int8 arms' and sequential chains, phase 9) = {total}")
 
     print(card)
     print(json.dumps({"kernels": [{

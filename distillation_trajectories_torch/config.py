@@ -48,11 +48,15 @@ def resolve_device(device) -> torch.device:
 class Config:
     """All hyperparameters plus the output directory contract.
 
-    Mirrors the JAX package's ``Config`` field for field.  Fields that
-    select lanes this port does not have yet (``mesh_shape != (1, 1)``,
-    ``spatial_shape``, ``sampler_quant="int8"``,
-    ``parallel_sampling="window"``) make the trajectory entry points raise
-    ``NotImplementedError``.  ``pallas_cfg_update`` is kept for config
+    Mirrors the JAX package's ``Config`` field for field.  The fields that
+    select the multi-device lanes, which this port does not have yet
+    (``mesh_shape != (1, 1)``, ``spatial_shape``), make the trajectory
+    entry points raise ``NotImplementedError``.  ``sampler_quant="int8"``
+    selects the int8 forward (``models/quantized.py``) and
+    ``parallel_sampling="window"`` the sliding-window sampler of
+    ``generate_trajectory`` (``paradigms_window``, ``paradigms_tol``);
+    ``remat`` recomputes each U-Net block in the backward pass
+    (``torch.utils.checkpoint``).  ``pallas_cfg_update`` is kept for config
     compatibility only: the port's samplers always send the update tail
     through ``ops.cfg_update.cfg_engine_update``, whatever it says.
     ``epoch_scan`` and ``vmap_students`` select nothing either: the trainers

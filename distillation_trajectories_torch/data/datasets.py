@@ -1,8 +1,9 @@
 """Data layer (port of ``distillation_trajectories_tpu/data/datasets.py``).
 
 numpy readers of the raw MNIST idx files and CIFAR-10 python batches under
-``config.data_dir``, a bilinear resize to ``config.image_size``, scaling to
-[−1, 1], NHWC float32 batches.  When the dataset files are absent a
+``config.data_dir`` and then under each root of ``_EXTRA_DATA_ROOTS`` (the
+JAX package's search order), a bilinear resize to ``config.image_size``,
+scaling to [−1, 1], NHWC float32 batches.  When the dataset files are absent a
 deterministic procedural stand-in is used (logged), bit-identical to the
 JAX package's.  The loader's shuffle stream is the JAX loader's:
 ``shuffle_indices(n, seed * 1_000_003 + epoch)``.
@@ -21,6 +22,12 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from .native import gather_f32, shuffle_indices
+
+# Roots searched for the raw dataset files after ``config.data_dir``, in
+# order, as the JAX package searches its ``_EXTRA_DATA_ROOTS`` (a read-only
+# data mount).  Taken from ``DTT_EXTRA_DATA_ROOTS`` (paths joined by
+# ``os.pathsep``); empty when it is unset.
+_EXTRA_DATA_ROOTS = [r for r in os.environ.get("DTT_EXTRA_DATA_ROOTS", "").split(os.pathsep) if r]
 
 
 def _read_idx_images(path: str) -> np.ndarray:
@@ -42,12 +49,18 @@ def _read_idx_labels(path: str) -> np.ndarray:
         return np.frombuffer(f.read(n), dtype=np.uint8).astype(np.int32)
 
 
-def _find(*relpaths: str, root: str) -> Optional[str]:
-    for rel in relpaths:
-        p = os.path.join(root, rel)
-        if os.path.exists(p):
-            return p
+def _find(*relpaths: str, roots) -> Optional[str]:
+    for root in roots:
+        for rel in relpaths:
+            p = os.path.join(root, rel)
+            if os.path.exists(p):
+                return p
     return None
+
+
+def _roots(data_dir: str, sub: str):
+    """``data_dir/sub``, then ``sub`` under each extra root."""
+    return [os.path.join(r, sub) for r in [data_dir, *_EXTRA_DATA_ROOTS]]
 
 
 def _resize_weights(in_size: int, out_size: int) -> np.ndarray:
@@ -101,15 +114,16 @@ def _synthetic_dataset(
 
 
 def load_mnist(data_dir: str, train: bool) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """MNIST from ``data_dir/MNIST/raw`` (plain or gzipped idx files); the
-    test split stands in for absent train images, as in the JAX package."""
-    root = os.path.join(data_dir, "MNIST", "raw")
+    """MNIST from ``MNIST/raw`` (plain or gzipped idx files) under
+    ``data_dir`` or an extra root; the test split stands in for absent train
+    images, as in the JAX package."""
+    roots = _roots(data_dir, os.path.join("MNIST", "raw"))
     prefix = "train" if train else "t10k"
-    img_path = _find(f"{prefix}-images-idx3-ubyte", f"{prefix}-images-idx3-ubyte.gz", root=root)
-    lbl_path = _find(f"{prefix}-labels-idx1-ubyte", f"{prefix}-labels-idx1-ubyte.gz", root=root)
+    img_path = _find(f"{prefix}-images-idx3-ubyte", f"{prefix}-images-idx3-ubyte.gz", roots=roots)
+    lbl_path = _find(f"{prefix}-labels-idx1-ubyte", f"{prefix}-labels-idx1-ubyte.gz", roots=roots)
     if img_path is None and train:
-        img_path = _find("t10k-images-idx3-ubyte", "t10k-images-idx3-ubyte.gz", root=root)
-        lbl_path = _find("t10k-labels-idx1-ubyte", "t10k-labels-idx1-ubyte.gz", root=root)
+        img_path = _find("t10k-images-idx3-ubyte", "t10k-images-idx3-ubyte.gz", roots=roots)
+        lbl_path = _find("t10k-labels-idx1-ubyte", "t10k-labels-idx1-ubyte.gz", roots=roots)
         if img_path is not None:
             print("[data] MNIST train images unavailable; using test split as "
                   "training data")
@@ -119,12 +133,13 @@ def load_mnist(data_dir: str, train: bool) -> Optional[Tuple[np.ndarray, np.ndar
 
 
 def load_cifar10(data_dir: str, train: bool) -> Optional[Tuple[np.ndarray, np.ndarray]]:
-    """CIFAR-10 from ``data_dir/cifar-10-batches-py`` (python pickles)."""
-    root = os.path.join(data_dir, "cifar-10-batches-py")
+    """CIFAR-10 from ``cifar-10-batches-py`` (python pickles) under
+    ``data_dir`` or an extra root."""
+    roots = _roots(data_dir, "cifar-10-batches-py")
     names = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
     images, labels = [], []
     for name in names:
-        path = _find(name, root=root)
+        path = _find(name, roots=roots)
         if path is None:
             return None
         with open(path, "rb") as f:

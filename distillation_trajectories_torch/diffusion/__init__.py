@@ -18,3 +18,4 @@ from .sampling import (
     p_sample_ancestral,
     p_sample_loop,
 )
+from .parallel_sampling import parallel_generate_trajectory, sliding_window_trajectory

@@ -18,6 +18,8 @@ normalizes with the biased batch variance and also updates ``running_var``
 with it (torch's ``BatchNorm2d`` would update it with the unbiased one), and
 dropout (``nn.Dropout`` after every block, as at JAX ``unet.py:296-340``)
 draws its masks from an explicit ``torch.Generator`` when one is given.
+``remat`` recomputes each block's activations in the backward pass
+(``torch.utils.checkpoint``), as JAX wraps each ``Block`` in ``nn.remat``.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -99,19 +102,30 @@ class BatchNorm2d(nn.BatchNorm2d):
     0.1 is flax momentum 0.9).
     """
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        n = x.numel() // self.num_features
+    def batch_stats(self, x: torch.Tensor):
+        """Train-mode normalization with the batch statistics alone:
+        ``(y, batch mean, unbiased batch variance)``; the running buffers
+        are left as they are."""
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        return y, mean, var
+
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
+        """The flax running update from :meth:`batch_stats` of ``n`` values
+        per channel."""
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
             self.running_var.mul_(1.0 - self.momentum).add_(
                 var * ((n - 1) / n), alpha=self.momentum
             )
             self.num_batches_tracked.add_(1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, var = self.batch_stats(x)
+        self.update_running(mean, var, x.numel() // self.num_features)
         return y
 
 
@@ -126,10 +140,18 @@ def _norm(kind: str, ch: int) -> nn.Module:
 
 class Block(nn.Module):
     """conv3x3 → norm → ReLU → (+ ReLU'd time bias) → conv3x3 → norm → ReLU,
-    plus the identity or 1×1-conv residual."""
+    plus the identity or 1×1-conv residual.
 
-    def __init__(self, in_ch: int, out_ch: int, time_emb_dim: int, norm: str):
+    With ``remat`` a train-mode forward that records gradients keeps only
+    the block's inputs and recomputes the rest in the backward pass.  The
+    recomputation runs train-mode BatchNorm again, so inside it the norms
+    use the batch statistics alone; the running buffers take the first
+    pass's statistics once, outside."""
+
+    def __init__(self, in_ch: int, out_ch: int, time_emb_dim: int, norm: str,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
         self.norm1 = _norm(norm, out_ch)
         self.time_mlp = nn.Linear(time_emb_dim, out_ch)
@@ -137,12 +159,39 @@ class Block(nn.Module):
         self.norm2 = _norm(norm, out_ch)
         self.residual_conv = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+    def _body(self, x: torch.Tensor, temb: torch.Tensor, stats=None) -> torch.Tensor:
+        """The block; with a ``stats`` list, BatchNorm normalizes with the
+        batch statistics and appends them to it instead of updating its
+        running buffers."""
+
+        def norm(layer, h):
+            if stats is None:
+                return layer(h)
+            y, mean, var = layer.batch_stats(h)
+            stats.extend((mean, var))
+            return y
+
         residual = x if self.residual_conv is None else self.residual_conv(x)
-        h = F.relu(self.norm1(self.conv1(x)))
+        h = F.relu(norm(self.norm1, self.conv1(x)))
         h = h + F.relu(self.time_mlp(temb))[:, :, None, None]
-        h = F.relu(self.norm2(self.conv2(h)))
+        h = F.relu(norm(self.norm2, self.conv2(h)))
         return h + residual
+
+    def _body_with_stats(self, x: torch.Tensor, temb: torch.Tensor):
+        stats = []
+        return (self._body(x, temb, stats), *stats)
+
+    def forward(self, x: torch.Tensor, temb: torch.Tensor) -> torch.Tensor:
+        if not (self.remat and self.training and torch.is_grad_enabled()):
+            return self._body(x, temb)
+        if not isinstance(self.norm1, BatchNorm2d):
+            return checkpoint(self._body, x, temb, use_reentrant=False)
+        out, mean1, var1, mean2, var2 = checkpoint(
+            self._body_with_stats, x, temb, use_reentrant=False)
+        n = out.numel() // out.shape[1]
+        self.norm1.update_running(mean1, var1, n)
+        self.norm2.update_running(mean2, var2, n)
+        return out
 
 
 class DiffusionUNet(nn.Module):
@@ -156,7 +205,9 @@ class DiffusionUNet(nn.Module):
     In train mode each block's output goes through dropout with rate
     ``dropout``; ``generator`` (a ``torch.Generator`` on the input's device)
     draws the masks, so a train step can be replayed, and without one the
-    global generator does.  Eval mode applies no dropout.
+    global generator does.  Eval mode applies no dropout.  ``remat``
+    recomputes each block in the backward pass (see :class:`Block`); the
+    numbers do not change.
     """
 
     def __init__(
@@ -167,6 +218,7 @@ class DiffusionUNet(nn.Module):
         norm: str = "batch",
         full_res_head: bool = False,
         dropout: float = 0.0,
+        remat: bool = False,
     ):
         super().__init__()
         self.channels = channels
@@ -180,15 +232,16 @@ class DiffusionUNet(nn.Module):
             SinusoidalPositionEmbeddings(ted), nn.Linear(ted, ted), nn.ReLU()
         )
         self.cond_emb = nn.Sequential(nn.Linear(1, ted), nn.ReLU(), nn.Linear(ted, ted))
-        self.enc1 = Block(channels, d0, ted, norm)
-        self.enc2 = Block(d0, d1, ted, norm)
-        self.enc3 = Block(d1, d2, ted, norm)
-        self.enc4 = Block(d2, d3, ted, norm)
-        self.bottleneck = Block(d3, d3, ted, norm)
-        self.dec3 = Block(2 * d3, d2, ted, norm)
-        self.dec2 = Block(2 * d2, d1, ted, norm)
-        self.dec1 = Block(2 * d1, d0, ted, norm)
-        self.dec0 = Block(2 * d0, d0, ted, norm) if full_res_head else None
+        block = lambda i, o: Block(i, o, ted, norm, remat)
+        self.enc1 = block(channels, d0)
+        self.enc2 = block(d0, d1)
+        self.enc3 = block(d1, d2)
+        self.enc4 = block(d2, d3)
+        self.bottleneck = block(d3, d3)
+        self.dec3 = block(2 * d3, d2)
+        self.dec2 = block(2 * d2, d1)
+        self.dec1 = block(2 * d1, d0)
+        self.dec0 = block(2 * d0, d0) if full_res_head else None
         self.final = nn.Conv2d(d0, channels, 1)
 
     @property
@@ -272,7 +325,7 @@ def init_unet_(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def make_unet(config, size_factor: float = 1.0, device=None, seed: int = 0):
     """Build a U-Net from a Config (channels, dropout, compute dtype, norm,
-    head), initialised from ``seed`` on the CPU (so the weights do not
+    head, remat), initialised from ``seed`` on the CPU (so the weights do not
     depend on the device) and moved to ``device`` (default
     ``config.device``) in channels-last layout."""
     from ..config import resolve_device
@@ -287,6 +340,7 @@ def make_unet(config, size_factor: float = 1.0, device=None, seed: int = 0):
             norm=config.norm,
             full_res_head=bool(config.full_res_head),
             dropout=config.dropout,
+            remat=bool(getattr(config, "remat", False)),
         )
     model.to_empty(device="cpu")
     init_unet_(model, torch.Generator().manual_seed(seed))
@@ -295,3 +349,19 @@ def make_unet(config, size_factor: float = 1.0, device=None, seed: int = 0):
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+def param_size_mb(model: nn.Module) -> float:
+    """Model size in MB at float32 storage."""
+    return param_count(model) * 4 / (1024 * 1024)
+
+
+def SimpleUNet(config, **kwargs) -> DiffusionUNet:
+    """The reference's teacher name: ``make_unet`` at size_factor 1.0."""
+    return make_unet(config, size_factor=1.0, **kwargs)
+
+
+def StudentUNet(config, size_factor: float = 1.0, architecture_type=None, **kwargs) -> DiffusionUNet:
+    """The reference's student name; ``architecture_type`` is ignored, as
+    in the JAX package."""
+    return make_unet(config, size_factor=size_factor, **kwargs)

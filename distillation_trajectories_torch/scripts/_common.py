@@ -137,3 +137,15 @@ def load_student(config, size_factor, epoch=None):
 
 def parse_float_list(s):
     return [float(x) for x in s.split(",") if x.strip()]
+
+
+def plots_available() -> bool:
+    """Whether matplotlib imports.  Where it does not (the GPU machine has
+    none), a CLI's ``main`` says so and skips its plots; what ``run``
+    computed and wrote stands."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("[plots] matplotlib cannot be imported: plots skipped")
+        return False
+    return True

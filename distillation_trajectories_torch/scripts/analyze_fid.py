@@ -18,7 +18,7 @@ import json
 import os
 from typing import Dict, Optional
 
-from ._common import load_student, load_teacher_from_arg, parse_float_list
+from ._common import load_student, load_teacher_from_arg, parse_float_list, plots_available
 
 
 def parse_args(argv=None):
@@ -123,7 +123,7 @@ def main(argv=None):
     args = parse_args(argv)
     config = make_config(args)
     fid_by_size = run(args, config)
-    if fid_by_size:
+    if fid_by_size and plots_available():
         plot_fid_vs_size(fid_by_size, config.fid_dir)
     return fid_by_size
 

@@ -27,7 +27,13 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..metrics.transformations import transform_metrics
-from ._common import load_student, load_teacher_from_arg, parse_float_list, resolve_output_dir
+from ._common import (
+    load_student,
+    load_teacher_from_arg,
+    parse_float_list,
+    plots_available,
+    resolve_output_dir,
+)
 
 # Poster teal→purple colormap of the reference plots.
 POSTER_COLORS = [
@@ -345,14 +351,16 @@ def main(argv=None):
     results = run(args, config, specs)
     shared_s = time.perf_counter() - t_start
     live = [(spec, m) for spec, m in zip(specs, results) if m]
+    plots = plots_available()
     for i, (spec, metrics_by_size) in enumerate(live):
         t_job = time.perf_counter()
         output_dir, guidance_scales = spec["output_dir"], spec["guidance_scales"]
-        print("\nVisualizing CFG heatmaps...")
-        visualize_cfg_heatmap(metrics_by_size, output_dir, guidance_scales)
-        print("\nCreating radar plots...")
-        create_radar_plot_grid(metrics_by_size, output_dir, guidance_scales)
-        create_composite_radar_plot(metrics_by_size, output_dir, guidance_scales)
+        if plots:
+            print("\nVisualizing CFG heatmaps...")
+            visualize_cfg_heatmap(metrics_by_size, output_dir, guidance_scales)
+            print("\nCreating radar plots...")
+            create_radar_plot_grid(metrics_by_size, output_dir, guidance_scales)
+            create_composite_radar_plot(metrics_by_size, output_dir, guidance_scales)
         print("\nCFG analysis completed")
         print(f"Results saved in {output_dir}")
         # Per-job marginal seconds (plots only; loading and the sweep are

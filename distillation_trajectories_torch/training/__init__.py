@@ -21,8 +21,13 @@ from .checkpoints import (
     variables_from_checkpoint,
 )
 from .loop import run_train_epoch
-from .teacher import make_grid_fn, train_teacher
-from .students import distill_diffusion_model, load_teacher, train_students
+from .teacher import generate_sample_grid, make_grid_fn, train_teacher
+from .students import (
+    distill_diffusion_model,
+    load_teacher,
+    print_size_factor_info,
+    train_students,
+)
 from .continue_training import continue_training
 from .progressive import (
     make_guided_eval_fn,

@@ -54,15 +54,19 @@ def _engine_c(alpha_t: torch.Tensor, alpha_prev: torch.Tensor):
 
 
 def make_guided_eval_fn(model: torch.nn.Module, guidance_value: float,
-                        quant: Optional[str] = None):
+                        quant: Optional[str] = None, **quant_kw):
     """Eval forward of a w-conditioned student: it ignores the sampler's
     ``(cond, cond_mask)`` and feeds ``cond=w, mask=1``, so
     ``generate_trajectory_scan(..., guidance_scale=None)`` runs the guided
-    map in ONE forward per step.  ``quant="int8"`` (the int8 lane) is not
-    ported and raises."""
+    map in ONE forward per step.  ``quant="int8"`` runs the int8 forward
+    (:func:`..models.quantized.make_quantized_eval_fn`), with ``quant_kw``
+    (``act_scales``, ``quant_blocks``) passed through."""
     if quant == "int8":
-        raise NotImplementedError("quant='int8': the int8 lane is not ported")
-    base = make_eval_model_fn(model)
+        from ..models.quantized import make_quantized_eval_fn
+
+        base = make_quantized_eval_fn(model, **quant_kw)
+    else:
+        base = make_eval_model_fn(model)
 
     def fn(x, t, cond=None, cond_mask=None):
         b = x.shape[0]

@@ -131,13 +131,28 @@ def make_eval_model_fn(model: torch.nn.Module, params: Optional[Dict[str, torch.
 
 
 def make_eval_fn_from_config(model: torch.nn.Module, config) -> Callable:
-    """The config-aware eval forward every editing flow goes through (JAX
-    ``training/state.py::make_eval_fn_from_config``): the plain eval
-    forward.  The int8 forward (``sampler_quant="int8"``) and the spatially
-    partitioned one (``spatial_shape``) are not ported and raise."""
+    """The config-aware eval forward every sampler and editing flow goes
+    through (JAX ``training/state.py::make_eval_fn_from_config``):
+
+    * ``Config.sampler_quant="int8"``: the folded int8 forward
+      (:func:`..models.quantized.make_quantized_eval_fn`, dynamic scales);
+    * ``Config.spatial_shape``: the spatially partitioned forward, not
+      ported (raises ``NotImplementedError``);
+    * otherwise the plain eval forward.
+
+    The two opt-ins cannot combine (``ValueError``), as in JAX."""
+    spatial = config is not None and getattr(config, "spatial_shape", None)
     if config is not None and getattr(config, "sampler_quant", "none") == "int8":
-        raise NotImplementedError("sampler_quant='int8': the int8 lane is not ported")
-    if config is not None and getattr(config, "spatial_shape", None):
+        if spatial:
+            raise ValueError(
+                "spatial_shape and sampler_quant='int8' cannot combine: the "
+                "quantized forward bypasses the Block modules the spatial "
+                "constraints intercept"
+            )
+        from ..models.quantized import make_quantized_eval_fn
+
+        return make_quantized_eval_fn(model)
+    if spatial:
         raise NotImplementedError("spatial_shape (spatial partitioning) is not ported")
     return make_eval_model_fn(model)
 

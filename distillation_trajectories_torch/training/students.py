@@ -36,6 +36,21 @@ from .teacher import make_grid_fn
 
 
 def print_size_factor_info(size_factors: List[float]) -> None:
+    """Size-factor tier table with sf² parameter estimates (JAX
+    ``training/students.py::print_size_factor_info``)."""
+    param_counts = {sf: sf**2 for sf in size_factors}
+    tiers = [("Tiny", [sf for sf in size_factors if sf < 0.1]),
+             ("Small", [sf for sf in size_factors if 0.1 <= sf < 0.3]),
+             ("Medium", [sf for sf in size_factors if 0.3 <= sf < 0.7]),
+             ("Large", [sf for sf in size_factors if sf >= 0.7])]
+    print("Student model size factors:")
+    for category, factors in tiers:
+        if factors:
+            lo, hi = min(factors), max(factors)
+            print(f"  {category}: {param_counts[lo]:.4f}x to {param_counts[hi]:.4f}x parameters")
+
+
+def print_size_factor_info(size_factors: List[float]) -> None:
     """Size-factor tier table with sf² parameter estimates."""
     tiers = [
         ("Tiny", [sf for sf in size_factors if sf < 0.1]),

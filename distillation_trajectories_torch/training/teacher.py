@@ -60,6 +60,16 @@ def save_grid(grid_fn, draws, path, config, params=None) -> None:
                         nrow=config.samples_grid_size)
 
 
+def generate_sample_grid(model, config, diffusion_params, draws, path) -> None:
+    """Sample a ``config.num_samples_to_generate``-image grid of ``model``
+    and write it as a PNG (JAX ``training/teacher.py::generate_sample_grid``);
+    ``draws``, a draw source such as :class:`.state.TorchDraws`, gives its
+    noise.  No-op for a grid of 0 images."""
+    if config.num_samples_to_generate <= 0:
+        return
+    save_grid(make_grid_fn(model, config, diffusion_params), draws, path, config)
+
+
 def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     """Train the teacher (size_factor=1.0) on ``config.device``.
 

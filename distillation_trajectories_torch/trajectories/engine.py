@@ -33,7 +33,7 @@ from ..diffusion.sampling import (
 )
 from ..diffusion.schedules import get_diffusion_params
 from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, batch_metrics_core
-from ..training.state import make_eval_model_fn
+from ..training.state import make_eval_fn_from_config
 
 
 @dataclasses.dataclass
@@ -69,7 +69,8 @@ def _store_dtype(config) -> Optional[torch.dtype]:
 
 
 def _check_supported(config) -> None:
-    """Raise on Config lanes this port does not have yet."""
+    """Raise on Config lanes this port does not have yet (the multi-device
+    ones)."""
     if config is None:
         return
     if tuple(config.mesh_shape) != (1, 1):
@@ -78,15 +79,6 @@ def _check_supported(config) -> None:
         )
     if config.spatial_shape:
         raise NotImplementedError("spatial_shape (spatial partitioning) is not ported")
-    if config.sampler_quant != "none":
-        raise NotImplementedError(
-            f"sampler_quant={config.sampler_quant!r}: the int8 lane is not ported"
-        )
-    if config.parallel_sampling != "off":
-        raise NotImplementedError(
-            f"parallel_sampling={config.parallel_sampling!r}: the sliding-window "
-            "sampler is not ported"
-        )
 
 
 def _entry_device(config, device) -> torch.device:
@@ -112,17 +104,42 @@ def generate_trajectory(
     device=None,
 ) -> torch.Tensor:
     """One engine trajectory of a ``[B, H, W, C]`` noise batch:
-    ``[T+1, B, H, W, C]`` on ``device`` (default ``config.device``)."""
+    ``[T+1, B, H, W, C]`` on ``device`` (default ``config.device``).
+
+    The forward is the config's (``make_eval_fn_from_config``: plain or
+    int8).  ``Config.parallel_sampling="window"`` switches to the
+    sliding-window ParaDiGMS sampler
+    (:func:`..diffusion.parallel_sampling.sliding_window_trajectory`, window
+    ``paradigms_window``, tolerance ``paradigms_tol``), whose update is
+    plain torch: it launches no kernel.
+    """
     _check_supported(config)
     device = _entry_device(config, device)
     _check_model_device(model, device)
     dp = get_diffusion_params(timesteps, config)
+    model_fn = make_eval_fn_from_config(model, config)
+    noise = torch.as_tensor(noise, dtype=torch.float32).to(device)
+    seed = 0 if seed is None else seed
+    if config is not None and getattr(config, "parallel_sampling", "off") == "window":
+        from ..diffusion.parallel_sampling import sliding_window_trajectory
+
+        print("[engine] parallel_sampling='window' has no kernel update path; "
+              "the CFG-update kernel is not used for this trajectory")
+        traj, _ = sliding_window_trajectory(
+            model_fn, noise, timesteps, dp["alphas"], seed,
+            guidance_scale=guidance_scale,
+            window=getattr(config, "paradigms_window", 8),
+            tol=getattr(config, "paradigms_tol", 1e-3),
+            step_noise=step_noise,
+        )
+        store = _store_dtype(config)
+        return traj if store is None else traj.to(store)
     return generate_trajectory_scan(
-        make_eval_model_fn(model),
-        torch.as_tensor(noise, dtype=torch.float32).to(device),
+        model_fn,
+        noise,
         timesteps,
         dp["alphas"],
-        seed=0 if seed is None else seed,
+        seed=seed,
         guidance_scale=guidance_scale,
         store_dtype=_store_dtype(config),
         step_noise=step_noise,
@@ -181,7 +198,7 @@ def make_sweep_trajectory_fn(model, timesteps: int, config=None):
     -> trajs [S, T+1, H, W, C]`` for one model; CFG or not is the runtime
     ``cond_pairs`` input."""
     alphas = get_diffusion_params(timesteps, config)["alphas"]
-    model_fn = make_eval_model_fn(model)
+    model_fn = make_eval_fn_from_config(model, config)
     store = _store_dtype(config)
 
     def fn(noises, seeds, cond_pairs, gs, step_noise=None):

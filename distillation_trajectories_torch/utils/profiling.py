@@ -1,8 +1,11 @@
-"""Phase timers and the structured metrics log (port of the JAX package's
-``utils/profiling.py``, less its ``jax.profiler`` and NaN-check helpers).
+"""Phase timers, a profiler trace, anomaly checks and the structured
+metrics log (port of the JAX package's ``utils/profiling.py``).
 
 ``phase_timer`` times the calling thread's wall clock; work it launches on
 the GPU is inside the time only where the phase synchronizes.
+``profile_trace`` is ``torch.profiler`` where the JAX package runs
+``jax.profiler``; ``enable_nan_checks`` is autograd's anomaly detection
+where it sets ``jax_debug_nans``.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict
+from typing import Dict, Optional
 
 _PHASE_TIMES: Dict[str, list] = defaultdict(list)
 
@@ -50,6 +53,37 @@ def dump_phase_times(path: str) -> None:
 
 def reset_phase_times() -> None:
     _PHASE_TIMES.clear()
+
+
+@contextlib.contextmanager
+def profile_trace(trace_dir: Optional[str] = None):
+    """``torch.profiler`` over the block (CPU and, where there is one, CUDA
+    activity), written as a Chrome trace into ``trace_dir`` or
+    ``DTT_PROFILE_DIR``; a no-op when neither is given."""
+    trace_dir = trace_dir or os.environ.get("DTT_PROFILE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    print(f"[profiler] trace written to {path}")
+
+
+def enable_nan_checks(enable: bool = True) -> None:
+    """Autograd anomaly detection: a backward that makes a NaN raises at the
+    forward op that caused it."""
+    import torch
+
+    torch.autograd.set_detect_anomaly(enable)
 
 
 class MetricsLogger:

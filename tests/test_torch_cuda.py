@@ -1,7 +1,9 @@
 """The port on a CUDA GPU (skipped without one): the Triton kernel against
 its plain version, and a train step, the InceptionV3 trunk, AlexNet-LPIPS,
 the noise-prediction compute half, the sweep function's averaged chains,
-the editing chain and the progressive steps on the card against the CPU.
+the editing chain, the progressive steps, the int8 lane's padded
+``torch._int_mm`` product, its conv and forward, and the sliding-window
+sampler on the card against the CPU.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -306,3 +308,86 @@ def test_progressive_step_on_card_matches_cpu(cuda, guidance_range, teacher_guid
         else:
             atol = max(1e-7, 5e-5 * float(want_g[k].abs().max()))
             torch.testing.assert_close(g, want_g[k], rtol=1e-4, atol=atol, msg=k)
+
+
+@pytest.mark.parametrize("m, k, n", [(4, 27, 32), (512, 27, 128), (17, 2304, 256),
+                                     (4096, 4608, 128), (48, 144, 20), (25, 64, 32),
+                                     (262144, 3, 128)])
+def test_int8_matmul_padded_on_card_is_exact(cuda, m, k, n):
+    """torch._int_mm on CUDA takes M > 16 and K, N multiples of 8, and an
+    H100 refused small row-major products: the padded product with a
+    column-major b equals the exact one at shapes that need each pad, and at
+    enc1's 1x1 residual (K = 3)."""
+    from distillation_trajectories_torch.models.quantized import int8_matmul
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), dtype=torch.int8, generator=gen)
+    b = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen)
+    got = int8_matmul(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu().long(), a.long() @ b.long())
+    col = b.t().contiguous().t().to(cuda)  # the quantized weights' layout
+    assert torch.equal(int8_matmul(a.to(cuda), col), got)
+
+
+def test_int8_conv_and_forward_on_card_match_cpu(cuda):
+    """``_qconv`` bit for bit, and the int8 forward of a seeded sf-0.1
+    U-Net (float32, TF32 off) within a relative L2 of 1e-4."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.models.quantized import _qconv, make_quantized_eval_fn
+
+    gen = torch.Generator().manual_seed(0)
+    q = {"w_int8": torch.randint(-127, 128, (3, 3, 24, 40), dtype=torch.int8, generator=gen),
+         "scale": torch.rand(40, generator=gen) * 1e-2, "bias": torch.randn(40, generator=gen)}
+    xq = torch.randint(-127, 128, (2, 4, 4, 24), dtype=torch.int8, generator=gen)
+    want = _qconv(q, xq, torch.tensor(0.03), 1)
+    got = _qconv({k: v.to(cuda) for k, v in q.items()}, xq.to(cuda), torch.tensor(0.03, device=cuda), 1)
+    assert torch.equal(got.cpu(), want)
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        outs = []
+        x = torch.randn((2, 16, 16, 1), generator=gen)
+        t, c = torch.tensor([2.0, 7.0]), torch.ones((2, 1))
+        for device in ("cpu", cuda):
+            cfg = Config(device=str(device), image_size=16, channels=1, compute_dtype="float32")
+            fn = make_quantized_eval_fn(make_unet(cfg, size_factor=0.1, seed=3))
+            outs.append(fn(x.to(device), t.to(device), c.to(device), c.to(device)).cpu())
+        assert float((outs[1] - outs[0]).norm() / outs[0].norm()) < 1e-4
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_window_sampler_on_card_matches_sequential_chain(cuda):
+    """Sliding-window ParaDiGMS at tol=0 (plain update, W·B-row forwards)
+    against the sequential chain (the kernel's update tail) on the card,
+    float32 with TF32 off, at the JAX window tests' tolerance; and no
+    kernel launch on the window path."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.diffusion.parallel_sampling import (
+        sliding_window_trajectory,
+    )
+    from distillation_trajectories_torch.diffusion.sampling import generate_trajectory_scan
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training import make_eval_model_fn
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = Config(device="cuda", image_size=16, channels=1, compute_dtype="float32")
+        fn = make_eval_model_fn(make_unet(cfg, size_factor=0.1, seed=0))
+        alphas = get_diffusion_params(10)["alphas"]
+        noise = torch.randn((2, 16, 16, 1), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(4))
+        seq = generate_trajectory_scan(fn, noise, 10, alphas, seed=9, guidance_scale=4.0)
+        before = cfg_engine_update.launches
+        win, sweeps = sliding_window_trajectory(fn, noise, 10, alphas, seed=9,
+                                                guidance_scale=4.0, window=4, tol=0.0)
+        torch.cuda.synchronize()
+        assert cfg_engine_update.launches == before and sweeps == 9
+        torch.testing.assert_close(win, seq, rtol=1e-4, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32

@@ -147,3 +147,36 @@ def test_native_build_failure_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(subprocess, "run", no_compiler)
     with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
         native.shuffle_indices(4, 0)
+
+
+@pytest.mark.parametrize("dataset, image_size, channels", [("MNIST", 28, 1), ("CIFAR10", 32, 3)])
+def test_extra_data_roots_match_jax_bit_for_bit(tmp_path, monkeypatch, dataset, image_size,
+                                                channels):
+    """The readers search ``config.data_dir`` and then the extra roots, as
+    the JAX package does: with the files only under an extra root (a t10k
+    idx pair, a one-batch CIFAR pickle) both give the same arrays, bit for
+    bit (native size, so no resize)."""
+    mount = tmp_path / "mount"
+    monkeypatch.setattr(jax_datasets, "_EXTRA_DATA_ROOTS", [str(mount)])
+    monkeypatch.setattr(datasets, "_EXTRA_DATA_ROOTS", [str(mount)])
+    if dataset == "MNIST":
+        _write_mnist(str(mount), n=20)
+    else:
+        d = mount / "cifar-10-batches-py"
+        d.mkdir(parents=True)
+        rng = np.random.default_rng(2)
+        with open(d / "test_batch", "wb") as f:
+            pickle.dump({b"data": rng.integers(0, 256, (7, 3072), dtype=np.uint8),
+                         b"labels": list(rng.integers(0, 10, 7))}, f)
+    jcfg, tcfg = configs(tmp_path / "run", dataset=dataset, image_size=image_size,
+                         channels=channels)
+    for sub in ("MNIST", "cifar-10-batches-py"):  # nothing under config.data_dir
+        assert not os.path.exists(os.path.join(tcfg.data_dir, sub))
+    got_x, got_y = datasets.load_dataset(tcfg, train=False)
+    want_x, want_y = jax_datasets.load_dataset(jcfg, train=False)
+    assert got_x.shape == want_x.shape == ((20,) if dataset == "MNIST" else (7,)) + (
+        image_size, image_size, channels)
+    assert got_x.dtype == want_x.dtype == np.float32
+    np.testing.assert_array_equal(got_x, want_x)
+    np.testing.assert_array_equal(got_y, want_y)
+

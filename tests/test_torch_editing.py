@@ -13,8 +13,8 @@ the port's seeded weights carried into JAX and JAX's draws injected
   the chains, so the port's directions are compared up to sign);
 - the CLI's ``run`` against JAX's three functions called as the JAX CLI
   calls them, and the PNG names of its plots against JAX's ``visualize_*``;
-- ``--spatial``, ``sampler_quant="int8"`` and the default ``cuda`` device
-  raising here.
+- ``--spatial``, ``spatial_shape`` and the default ``cuda`` device raising
+  here.
 """
 
 from unittest import mock
@@ -271,8 +271,8 @@ def test_unported_lanes_and_default_device_raise(small, tmp_path):
         run_editing_demo.make_config(run_editing_demo.parse_args(
             ["--base_dir", str(tmp_path), "--spatial", "2,2", "--device", "cpu"]))
     image = np.zeros((16, 16, 1), np.float32)
-    for field, value in (("sampler_quant", "int8"), ("spatial_shape", (1, 2))):
-        cfg = configs(timesteps=T, **{field: value})[1]
+    for shape in ((1, 2), (2, 1)):
+        cfg = configs(timesteps=T, spatial_shape=shape)[1]
         with pytest.raises(NotImplementedError):
             apply_masked_inpainting(model, cfg, image)
     if not torch.cuda.is_available():

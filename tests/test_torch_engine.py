@@ -159,7 +159,7 @@ def test_generate_trajectory_and_compare_contract():
 @pytest.mark.parametrize(
     "override",
     [dict(mesh_shape=(2, 1)), dict(spatial_shape=(1, 2)),
-     dict(sampler_quant="int8"), dict(parallel_sampling="window")],
+     dict(mesh_shape=(1, 2)), dict(spatial_shape=(2, 1))],
 )
 def test_unported_options_raise(override):
     tcfg = dataclasses.replace(Config(device="cpu", **KW), **override)

@@ -145,3 +145,90 @@ def test_bf16_train_forward_runs_near_float32():
         assert model.enc1.norm1.running_var.dtype == torch.float32
     err = (outs[1] - outs[0]).abs().max() / outs[0].abs().max()
     assert err < 5e-2
+
+
+@pytest.mark.parametrize("kind", ["teacher", "distill"])
+def test_remat_step_equals_plain_step_and_jax_remat_step(kind):
+    """``Config.remat`` checkpoints each block: a train step with it gives
+    the loss, gradients and BatchNorm statistics of the step without it
+    (bit for bit on the CPU: the recomputation normalizes with the batch
+    statistics and the running buffers are updated once), and matches the
+    JAX step of the ``nn.remat`` model at the trainer tolerances."""
+    import jax.numpy as jnp
+    from distillation_trajectories_tpu.diffusion import get_diffusion_params as jax_params
+    from distillation_trajectories_tpu.diffusion.process import q_sample as jax_q_sample
+    from distillation_trajectories_tpu.models import init_unet as jax_init_unet
+    from distillation_trajectories_tpu.training import state as jax_state
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.training.state import (
+        create_train_state,
+        make_distill_train_step,
+        make_teacher_train_step,
+    )
+    from test_torch_train_step import _check_batch_stats, _check_grads
+    from torch_parity import distill_draws, teacher_draws
+
+    T, shape = 10, (8, 16, 16, 1)
+    jcfg, tcfg = configs(remat=True)
+    jmodel = jax_make_unet(jcfg, size_factor=0.1)
+    assert jmodel.remat
+    variables = numpy_tree(jax_init_unet(jmodel, jcfg, jax.random.PRNGKey(0)))
+    images = np.random.default_rng(4).uniform(-1, 1, shape).astype(np.float32)
+    dp, key = jax_params(T), jax.random.PRNGKey(3)
+    b = shape[0]
+    ones, zeros = jnp.ones((b, 1)), jnp.zeros((b, 1))
+    if kind == "teacher":
+        kt, kn1, kn2, kd1, kd2 = jax.random.split(key, 5)
+        t = jax.random.randint(kt, (b,), 0, T)
+
+        def loss_fn(params):  # the body of JAX state.py:169-179
+            bs = variables["batch_stats"]
+            x1, n1 = jax_q_sample(images, t, dp, kn1)
+            p1, bs = jax_state._train_apply(jmodel, params, bs, x1, t, ones, ones, kd1)
+            x2, n2 = jax_q_sample(images, t, dp, kn2)
+            p2, bs = jax_state._train_apply(jmodel, params, bs, x2, t, zeros, zeros, kd2)
+            return (jnp.mean((p1 - n1) ** 2) + jnp.mean((p2 - n2) ** 2)) / 2.0, bs
+
+        draws = teacher_draws(key, shape, T)
+        make_step = lambda: make_teacher_train_step(get_diffusion_params(T), T)
+    else:
+        teacher = jax_make_unet(jcfg, size_factor=0.2)
+        tvars = numpy_tree(jax_init_unet(teacher, jcfg, jax.random.PRNGKey(1)))
+        S = T // 2
+        kt, kn, kd1, kd2 = jax.random.split(key, 4)
+        t_teacher = jax.random.randint(kt, (b,), 0, T)
+        t_student = jnp.floor(t_teacher * (S / T)).astype(jnp.int32)
+
+        def loss_fn(params):  # the body of JAX state.py:341-363
+            teacher_fn = jax_state.make_eval_model_fn(teacher, tvars)
+            x_noisy, _ = jax_q_sample(images, t_teacher, dp, kn)
+            tc = teacher_fn(x_noisy, t_teacher, ones, ones)
+            tu = teacher_fn(x_noisy, t_teacher, zeros, zeros)
+            bs = variables["batch_stats"]
+            sc, bs = jax_state._train_apply(jmodel, params, bs, x_noisy, t_student, ones, ones, kd1)
+            su, bs = jax_state._train_apply(jmodel, params, bs, x_noisy, t_student, zeros, zeros, kd2)
+            return (jnp.mean((sc - tc) ** 2) + jnp.mean((su - tu) ** 2)) / 2.0, bs
+
+        draws = distill_draws(key, shape, T)
+        make_step = lambda: make_distill_train_step(port_model(tcfg, 0.2, tvars),
+                                                    get_diffusion_params(T), T, S)
+    (want_loss, batch_stats), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
+
+    runs = []
+    for remat in (True, False):
+        cfg = configs(remat=remat)[1]
+        model = port_model(cfg, 0.1, variables)
+        assert all(blk.remat is remat for blk in (model.enc1, model.dec1, model.bottleneck))
+        state = create_train_state(model, cfg, draws=None)
+        _, loss = make_step()(state, as_torch(images), draws)
+        runs.append((float(loss), model))
+    (loss_on, on), (loss_off, off) = runs
+    assert loss_on == loss_off
+    for (name, p), q in zip(on.named_parameters(), off.parameters()):
+        assert torch.equal(p.grad, q.grad), name
+    for (name, v), w in zip(on.state_dict().items(), off.state_dict().values()):
+        assert torch.equal(v, w), name
+    np.testing.assert_allclose(loss_on, float(want_loss), rtol=1e-5)
+    _check_grads(on, grads)
+    _check_batch_stats(on, batch_stats)
