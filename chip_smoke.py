@@ -86,9 +86,25 @@ on first use.  Phases, each printing its own lines:
    1e-3 against the sequential chain (sweeps, latency, the gap); (c) the
    teacher exported to a reference ``.pt`` and imported back through the
    CLI, read back equal; (d) ``run_full_sweep --skip-training`` as a
-   subprocess, each stage's seconds and ``ok`` from ``SWEEP_torch_chip.json``.
+   subprocess (its CFG stage at 2 of 10 guidance scales), each stage's
+   seconds and ``ok`` from ``SWEEP_torch_chip.json``;
+10. the multi-device lanes, on two ranks spawned here that share the card
+   (gloo; nothing here is a multi-GPU speed-up): (a) the data-sharded sweep
+   on (2, 1) at the main path's width (256 samples, 128 a rank, T=50,
+   bf16) with each rank's launches, traj/s and peak memory, after a T=10
+   float32 hold against the unsharded sweep; (b) three teacher steps
+   (sf 1.0, batch 128, T=100, dropout 0.3) on (2, 1) and on (1, 2) held in
+   float32 to the unsharded steps (losses rtol 1e-4, parameters rtol 2e-2 /
+   atol 5e-4), then timed in bf16; (c) the (1, 2) state written by both
+   ranks with ``save_checkpoint_sharded`` and read back whole here; (d)
+   ``train_students`` {0.1, 0.5} from phase 5's teacher, 10 batches,
+   sequential and ``sweep_parallel``: losses held in float32, then both
+   timed in bf16 with wall seconds and the device's idle share; (e) phase 5's teacher spatially partitioned on (1, 2): the
+   32x32 forward (2e-5) and a T=50 CFG chain (2e-4) against the unsharded
+   ones, and one 256x256 batch-1 bf16 forward's peak memory per rank.
 
-The kernel record counts the launches of phases 4, 6(b), 7(b), 8 and 9.  The last
+The kernel record counts the launches of phases 4, 6(b), 7(b), 8, 9 and 10
+(the ranks' included).  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -1871,12 +1887,20 @@ def phase_migration(card, workdir):
           f"identical (max abs diff {diff}, bf16, 8 images) [{card}]")
 
 
+# 9(d)'s CFG stage at 2 of its 10 guidance scales: phase 6(b) runs the same
+# CLI with both jobs at full depth, and the script's time limit is shared.
+ORCHESTRATOR_STAGE_ARGS = {"cfg_trio": ["--guidance_scales", "1.0,3.0"]}
+
+
 def phase_orchestrator(card, workdir):
     """9(d): the full-sweep orchestrator with --skip-training on phase 5's
-    checkpoints, as a subprocess (each stage a subprocess of its own)."""
+    checkpoints, as a subprocess (each stage a subprocess of its own), its
+    CFG stage cut to two guidance scales."""
     torch.cuda.empty_cache()
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "distillation_trajectories_torch.scripts.run_full_sweep",
+    run = ("import sys; from distillation_trajectories_torch.scripts import run_full_sweep as r; "
+           f"r.STAGE_ARGS = {ORCHESTRATOR_STAGE_ARGS!r}; sys.exit(r.main(sys.argv[1:]))")
+    cmd = [sys.executable, "-c", run,
            "--skip-training", "--tag", "chip", "--base_dir", workdir, "--size_factors", CLI_SIZES]
     t0 = time.perf_counter()
     # Its own session, so that a timeout stops the stages it started too.
@@ -1894,7 +1918,8 @@ def phase_orchestrator(card, workdir):
     with open(os.path.join(workdir, "SWEEP_torch_chip.json")) as f:
         payload = json.load(f)
     stages = payload["stages"]
-    print(f"run_full_sweep --skip-training (sizes {CLI_SIZES}, cuda): exit {proc.returncode}, "
+    print(f"run_full_sweep --skip-training (sizes {CLI_SIZES}, cuda, CFG stage at guidance "
+          f"1.0,3.0): exit {proc.returncode}, "
           f"{wall:.3f} s; SWEEP_torch_chip.json ok={payload['ok']}, device "
           f"{payload['preflight_probe'].get('name')}, stages " + ", ".join(
               f"{k} {v['seconds']} s ok={v['ok']}" for k, v in stages.items()) + f" [{card}]")
@@ -1918,6 +1943,466 @@ def phase_lanes(card, workdir):
     phase_orchestrator(card, workdir)
     print(f"phase lanes (d) orchestrator: {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
+
+
+# --- Phase 10: the multi-device lanes, two ranks sharing the card -----------
+
+LANE_HOLD_T = 10  # the numerical holds' chains (float32, TF32 off)
+LANE_STEPS = 3  # train steps a mesh: the hold's, then the timed ones (bf16)
+LANE_SPATIAL_PX = 256  # the spatial lane's big image (batch 1)
+
+
+def _lane_models(cfg):
+    """Phase 4's seeded teacher and students, built for ``cfg``."""
+    from distillation_trajectories_torch.models import make_unet
+
+    return (make_unet(cfg, size_factor=1.0, seed=0),
+            {sf: make_unet(cfg, size_factor=sf, seed=i + 1) for i, sf in enumerate(STUDENTS)})
+
+
+def _lane_images():
+    """The global batches of 10(b)'s train steps, seeded on the host."""
+    gen = torch.Generator().manual_seed(11)
+    return torch.rand((LANE_STEPS, 128, 32, 32, 3), generator=gen) * 2 - 1
+
+
+def _lane_teacher_state(cfg, mesh):
+    """10(b)'s teacher train state (TorchDraws seed 0), sharded on
+    ``mesh`` when there is one."""
+    from distillation_trajectories_torch.parallel import shard_train_state
+    from distillation_trajectories_torch.training.state import TorchDraws, create_train_state
+
+    source = TorchDraws(0, "cuda")
+    state = create_train_state(source.init_unet(cfg, 1.0), cfg, source)
+    return shard_train_state(state, mesh) if mesh is not None else state
+
+
+def _rank_sweep(rank):
+    """10(a): the data-sharded sweep on (2, 1): the T=10 float32 hold, then
+    the main path's width in bf16, timed."""
+    import torch.distributed as dist
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.trajectories import sweep_compare_trajectories
+
+    saved = _tf32_off()
+    cfg = Config(timesteps=LANE_HOLD_T, sample_steps=LANE_HOLD_T, compute_dtype="float32",
+                 mesh_shape=(2, 1))
+    teacher, students = _lane_models(cfg)
+    cfg_engine_update.launches = 0
+    hold = sweep_compare_trajectories(teacher, students, cfg, guidance_scales=MAIN_GS,
+                                      num_samples=SAMPLES, base_seed=42, verbose=False)
+    hold_launches = cfg_engine_update.launches
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    cfg = Config(timesteps=MAIN_T, sample_steps=MAIN_T, mesh_shape=(2, 1))  # bf16
+    teacher, students = _lane_models(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    cfg_engine_update.launches = 0
+    t0 = time.perf_counter()
+    out = sweep_compare_trajectories(teacher, students, cfg, guidance_scales=MAIN_GS,
+                                     num_samples=SAMPLES, base_seed=42, verbose=False)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(hold=hold, hold_launches=hold_launches, launches=cfg_engine_update.launches,
+                seconds=seconds, peak=torch.cuda.max_memory_allocated(), out=out)
+
+
+def _rank_train(rank, ckpt_dir):
+    """10(b) and the write of 10(c): three teacher steps on (2, 1) and on
+    (1, 2), float32 for the hold, then bf16 timed; the (1, 2) bf16 state
+    written with ``save_checkpoint_sharded``."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.parallel import mesh_from_config, shard_batch
+    from distillation_trajectories_torch.parallel.collectives import gather_state_dict
+    from distillation_trajectories_torch.training import save_checkpoint_sharded
+    from distillation_trajectories_torch.training.state import make_teacher_train_step
+
+    images = _lane_images()
+    out = {}
+    for shape in ((2, 1), (1, 2)):
+        saved = _tf32_off()
+        cfg = Config(timesteps=TRAIN_T, sample_steps=TRAIN_T, compute_dtype="float32",
+                     mesh_shape=shape)
+        mesh = mesh_from_config(cfg)
+        step = make_teacher_train_step(get_diffusion_params(TRAIN_T, cfg), TRAIN_T)
+        state = _lane_teacher_state(cfg, mesh)
+        losses = [float(step(state, shard_batch(images[i], mesh).cuda())[1])
+                  for i in range(LANE_STEPS)]
+        hold_state = {k: v.cpu() for k, v in gather_state_dict(state.model).items()}
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+        cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+        state = _lane_teacher_state(cfg, mesh)
+        times = []
+        for i in range(LANE_STEPS + 1):  # one warm-up step
+            x = shard_batch(images[i % LANE_STEPS], mesh).cuda()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            step(state, x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        rec = dict(losses=losses, hold_state=hold_state if rank == 0 else None,
+                   times=times[1:],
+                   local_shapes={k: tuple(v.shape) for k, v in state.model.state_dict().items()})
+        if shape == (1, 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint_sharded(ckpt_dir, 1, state.model, optimizer=state.optimizer)
+            rec["write_s"] = time.perf_counter() - t0
+            rec["saved"] = {k: v.cpu() for k, v in gather_state_dict(state.model).items()}
+        out[shape] = rec
+    return out
+
+
+def _rank_spatial(rank, workdir):
+    """10(e): phase 5's teacher spatially partitioned on (1, 2): the
+    32x32 forward and a T=50 CFG chain through ``generate_trajectory``
+    (float32, TF32 off), then one batch-1 forward at 256x256 in bf16 with
+    this rank's peak memory."""
+    import dataclasses
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.trajectories import generate_trajectory
+    from distillation_trajectories_torch.training import make_eval_fn_from_config
+    from distillation_trajectories_torch.training.students import load_teacher
+
+    saved = _tf32_off()
+    cfg = Config(base_dir=workdir, compute_dtype="float32", spatial_shape=(1, 2))
+    teacher = load_teacher(cfg)
+    x, t, c, noise = _spatial_inputs()
+    forward = make_eval_fn_from_config(teacher, cfg)(x.cuda(), t.cuda(), c.cuda(), c.cuda())
+    cfg_engine_update.launches = 0
+    traj = generate_trajectory(teacher, noise, MAIN_T, seed=3, guidance_scale=3.0, config=cfg)
+    launches = cfg_engine_update.launches
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", image_size=LANE_SPATIAL_PX)
+    fn = make_eval_fn_from_config(load_teacher(cfg), cfg)
+    big, tb, cb = _spatial_big()
+    fn(big, tb, cb, cb)  # warm-up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(big, tb, cb, cb)
+    torch.cuda.synchronize()
+    return dict(forward=forward.cpu(), traj=traj.cpu(), launches=launches,
+                big_ms=(time.perf_counter() - t0) * 1e3, big_finite=bool(torch.isfinite(out).all()),
+                big_peak=torch.cuda.max_memory_allocated() - before)
+
+
+def _spatial_inputs():
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((8, 32, 32, 3), generator=gen)
+    t = torch.arange(8, dtype=torch.float32) * 11
+    c = (torch.arange(8) % 2).float()[:, None]
+    return x, t, c, torch.randn((8, 32, 32, 3), generator=gen)
+
+
+def _spatial_big():
+    gen = torch.Generator().manual_seed(13)
+    big = torch.randn((1, LANE_SPATIAL_PX, LANE_SPATIAL_PX, 3), generator=gen).cuda()
+    return big, torch.full((1,), 40.0, device="cuda"), torch.ones((1, 1), device="cuda")
+
+
+def _lane_rank(rank, workdir):
+    """Everything phase 10 runs in each of the two ranks, in order."""
+    from distillation_trajectories_torch.parallel.collectives import all_gather_cat
+
+    import torch.distributed as dist
+
+    out = {"backend": dist.get_backend()}
+    t0 = time.perf_counter()
+    out["sweep"] = _rank_sweep(rank)
+    out["sweep_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["train"] = _rank_train(rank, os.path.join(workdir, "lanes_ckpt"))
+    out["train_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["spatial"] = _rank_spatial(rank, workdir)
+    out["spatial_s"] = time.perf_counter() - t0
+    # How the gather travelled: gloo's all_gather of CUDA tensors.
+    probe = all_gather_cat(torch.full((2,), float(rank), device="cuda"), dist.group.WORLD)
+    out["gather_probe"] = probe.cpu().tolist()
+    return out
+
+
+def _hold_sweep(card):
+    """10(a)'s reference: phase 4's sweep unsharded at T=10 in float32."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.trajectories import sweep_compare_trajectories
+
+    saved = _tf32_off()
+    cfg = Config(timesteps=LANE_HOLD_T, sample_steps=LANE_HOLD_T, compute_dtype="float32")
+    teacher, students = _lane_models(cfg)
+    cfg_engine_update.launches = 0
+    want = sweep_compare_trajectories(teacher, students, cfg, guidance_scales=MAIN_GS,
+                                      num_samples=SAMPLES, base_seed=42, verbose=False)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return want, cfg_engine_update.launches
+
+
+def _hold_train():
+    """10(b)'s reference: the three float32 teacher steps unsharded."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.training.state import make_teacher_train_step
+
+    saved = _tf32_off()
+    cfg = Config(timesteps=TRAIN_T, sample_steps=TRAIN_T, compute_dtype="float32")
+    step = make_teacher_train_step(get_diffusion_params(TRAIN_T, cfg), TRAIN_T)
+    state = _lane_teacher_state(cfg, None)
+    images = _lane_images()
+    losses = [float(step(state, images[i].cuda())[1]) for i in range(LANE_STEPS)]
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    return losses, {k: v.detach().cpu() for k, v in state.model.named_parameters()}
+
+
+def _hold_spatial(workdir):
+    """10(e)'s references: the unsharded forward and chain (float32, TF32
+    off) and the unsharded 256x256 bf16 forward's peak memory."""
+    import dataclasses
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.trajectories import generate_trajectory
+    from distillation_trajectories_torch.training import make_eval_model_fn
+    from distillation_trajectories_torch.training.students import load_teacher
+
+    saved = _tf32_off()
+    cfg = Config(base_dir=workdir, compute_dtype="float32")
+    teacher = load_teacher(cfg)
+    x, t, c, noise = _spatial_inputs()
+    with torch.no_grad():
+        forward = make_eval_model_fn(teacher)(x.cuda(), t.cuda(), c.cuda(), c.cuda()).cpu()
+    cfg_engine_update.launches = 0
+    traj = generate_trajectory(teacher, noise, MAIN_T, seed=3, guidance_scale=3.0,
+                               config=cfg).cpu()
+    launches = cfg_engine_update.launches
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16", image_size=LANE_SPATIAL_PX)
+    fn = make_eval_model_fn(load_teacher(cfg))
+    big, tb, cb = _spatial_big()
+    fn(big, tb, cb, cb)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn(big, tb, cb, cb)
+    torch.cuda.synchronize()
+    return dict(forward=forward, traj=traj, launches=launches,
+                big_ms=(time.perf_counter() - t0) * 1e3,
+                big_peak=torch.cuda.max_memory_allocated() - before)
+
+
+def _close_metrics(label, got, want, rtol=1e-4, atol=1e-6):
+    worst = 0.0
+    for sf, roles in want.items():
+        for gs, metrics in roles["student_metrics"].items():
+            for k, v in metrics.items():
+                g = got[sf]["student_metrics"][gs][k]
+                if not np.isfinite(v) and not np.isfinite(g):
+                    continue
+                if not abs(g - v) <= atol + rtol * abs(v):
+                    raise RuntimeError(f"{label}: sf={sf} gs={gs} {k}: {g} against {v}")
+                worst = max(worst, abs(g - v) / max(abs(v), 1e-30))
+    return worst
+
+
+def _students_run(workdir, tag, compute_dtype, sweep_parallel):
+    """``train_students`` {0.1, 0.5} from phase 5's teacher for 10 batches
+    in a tree of its own, profiled (device activity only): wall s, device
+    busy and window µs, and each student's epoch losses."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.training import students as port_students
+
+    cfg = Config(base_dir=os.path.join(workdir, f"lanes_{tag}"), dataset="CIFAR10", epochs=1,
+                 timesteps=TRAIN_T, sample_steps=TRAIN_T, limit_batches_per_epoch=10,
+                 num_samples_to_generate=0, compute_dtype=compute_dtype).create_directories()
+    shutil.copy(os.path.join(workdir, "output", "models", "teacher", "model_epoch_1.msgpack"),
+                cfg.teacher_models_dir)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        port_students.train_students(cfg, custom_size_factors=list(STUDENTS), seed=0,
+                                     sweep_parallel=sweep_parallel)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, window = _busy_and_window(kernels) if kernels else (float("nan"),) * 2
+    if sweep_parallel:
+        recs = _jsonl_records(os.path.join(cfg.results_dir, "sweep_parallel_metrics.jsonl"))
+        losses = {sf: [r["avg_loss"] for r in recs if r["size_factor"] == sf] for sf in STUDENTS}
+    else:
+        losses = {sf: _jsonl_losses(os.path.join(cfg.results_dir,
+                                                 f"distill_metrics_size_{sf}.jsonl"))
+                  for sf in STUDENTS}
+    return dict(wall=wall, busy=busy, window=window, losses=losses)
+
+
+def _sweep_parallel_runs(card, workdir):
+    """10(d): ``train_students`` sequential and with ``sweep_parallel``
+    (both students' streams on the one card): the losses held in float32
+    with TF32 off (rtol 1e-4: the upsample's backward adds with atomics in
+    no fixed order), then both timed in bf16 with the device's idle share."""
+    saved = _tf32_off()
+    hold = {mode: _students_run(workdir, f"f32_{mode}", "float32", mode)
+            for mode in (False, True)}
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for sf in STUDENTS:
+        got, want = hold[True]["losses"][sf], hold[False]["losses"][sf]
+        if len(got) != 1 or not np.allclose(got, want, rtol=1e-4, atol=0):
+            raise RuntimeError(f"sweep_parallel sf={sf}: losses {got} against {want}")
+    print(f"lanes (d) float32 losses, sweep_parallel against sequential: "
+          f"{hold[True]['losses']} against {hold[False]['losses']} (rtol 1e-4) [{card}]")
+    runs = {}
+    for mode, label in ((False, "sequential"), (True, "sweep_parallel")):
+        runs[label] = run = _students_run(workdir, f"bf16_{label}", "bfloat16", mode)
+        print(f"lanes (d) {label}: students {list(STUDENTS)} from phase 5's teacher, 10 batches "
+              f"of 128, bf16: wall {run['wall']:.3f} s (dataset, teacher load and checkpoints "
+              f"included; profiler on, device activity only); device busy "
+              f"{run['busy'] / 1e6:.3f} s of a {run['window'] / 1e6:.3f} s window, idle share "
+              f"{1 - run['busy'] / run['window']:.3f}; losses {run['losses']} [{card}]")
+    print(f"lanes (d) sweep_parallel / sequential wall: "
+          f"{runs['sweep_parallel']['wall'] / runs['sequential']['wall']:.3f} [{card}]")
+
+
+def _jsonl_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def _jsonl_losses(path):
+    return [r["avg_loss"] for r in _jsonl_records(path) if "avg_loss" in r]
+
+
+def phase_lanes_multi(card, workdir):
+    """Phase 10: the multi-device lanes on two ranks that share the card
+    (gloo); returns the kernel launches of its runs, the ranks' included."""
+    from distillation_trajectories_torch.models import variables_from_unet_state_dict
+    from distillation_trajectories_torch.parallel.launch import spawn_ranks
+    from distillation_trajectories_torch.training import load_checkpoint_sharded
+
+    t_phase = time.perf_counter()
+    want_sweep, parent_launches = _hold_sweep(card)
+    want_losses, want_state = _hold_train()
+    want_spatial = _hold_spatial(workdir)
+    parent_launches += want_spatial["launches"]
+    print(f"lanes: unsharded references {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(2, _lane_rank, (workdir,), backend=None, timeout=600, threads=0)
+    spawn_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    print(f"lanes: 2 ranks sharing the card, backend {r0['backend']}, {spawn_s:.1f} s in all "
+          f"(sweep {r0['sweep_s']:.1f} s, training {r0['train_s']:.1f} s, spatial "
+          f"{r0['spatial_s']:.1f} s); gloo all_gather of CUDA tensors: {r0['gather_probe']} "
+          f"[{card}]")
+
+    # (a) The data-sharded sweep.
+    chains = len(MAIN_GS) * (1 + len(STUDENTS))
+    for r, out in enumerate(ranks):
+        worst = _close_metrics(f"lanes (a) rank {r}", out["sweep"]["hold"], want_sweep)
+        if out["sweep"]["launches"] != (MAIN_T - 1) * chains:
+            raise RuntimeError(f"rank {r}: {out['sweep']['launches']} launches in the sweep")
+        for sf, roles in out["sweep"]["out"].items():
+            for gs, metrics in roles["student_metrics"].items():
+                bad = [k for k, v in metrics.items()
+                       if not np.isfinite(v) and k != "trajectory_mse"]
+                if bad or len(metrics) != 20:
+                    raise RuntimeError(f"rank {r} sf={sf} gs={gs}: bad metrics {bad}")
+        print(f"lanes (a) rank {r}: sharded sweep (2, 1), {SAMPLES // 2} of {SAMPLES} samples, "
+              f"T={LANE_HOLD_T} float32 hold against the unsharded sweep: worst rel diff "
+              f"{worst:.3e} (rtol 1e-4, atol 1e-6); bf16 T={MAIN_T}: "
+              f"{out['sweep']['launches']} launches ({MAIN_T - 1} x {chains} chains), "
+              f"{out['sweep']['seconds']:.3f} s, "
+              f"{SAMPLES * chains / out['sweep']['seconds']:.2f} traj/s for the whole sweep "
+              f"(two ranks sharing one card), peak {out['sweep']['peak'] / 2**30:.3f} GiB [{card}]")
+
+    # (b) Training steps on (2, 1) and (1, 2).
+    for shape in ((2, 1), (1, 2)):
+        rec = r0["train"][shape]
+        np.testing.assert_allclose(rec["losses"], want_losses, rtol=1e-4)
+        worst = 0.0
+        for k, v in want_state.items():  # the parameters, as JAX's _assert_spmd_parity
+            got = rec["hold_state"][k]
+            if not torch.allclose(got, v, rtol=2e-2, atol=5e-4):
+                raise RuntimeError(f"lanes (b) {shape} {k}: max abs diff "
+                                   f"{float((got - v).abs().max())} of max {float(v.abs().max())}")
+            worst = max(worst, float((got - v).abs().max()))
+        med = statistics.median(rec["times"])
+        print(f"lanes (b) teacher step on {shape}: float32 losses {rec['losses']} against "
+              f"{want_losses} (rtol 1e-4), worst parameter diff {worst:.3e} (rtol 2e-2, atol "
+              f"5e-4; BatchNorm statistics not held: Adam's noise on the conv biases that "
+              f"feed them moves their means); bf16 median step {med * 1e3:.3f} ms of {[round(t * 1e3, 3) for t in rec['times']]}, "
+              f"{128 / med:.1f} images/s (two ranks sharing one card) [{card}]")
+    local = r0["train"][(1, 2)]["local_shapes"]
+    print("lanes (b) local shapes on (1, 2): " + ", ".join(
+        f"{k} {local[k]} of {tuple(want_state[k].shape)}"
+        for k in ("enc1.conv1.weight", "time_mlp.1.weight", "enc1.norm1.weight",
+                  "final.weight")))
+
+    # (c) The sharded checkpoint, read back here without a topology.
+    t0 = time.perf_counter()
+    payload = load_checkpoint_sharded(os.path.join(workdir, "lanes_ckpt"), 1)
+    read_s = time.perf_counter() - t0
+    want = variables_from_unet_state_dict(r0["train"][(1, 2)]["saved"])
+    for col in ("params", "batch_stats"):
+        _leaves_equal_np(payload[col], want[col])
+    print(f"lanes (c) sharded checkpoint of the (1, 2) state: written by both ranks in "
+          f"{r0['train'][(1, 2)]['write_s']:.3f} s, read whole in one process in {read_s:.3f} s, "
+          f"equal bit for bit to gather_state_dict [{card}]")
+
+    # (d) sweep_parallel on the one card.
+    t0 = time.perf_counter()
+    _sweep_parallel_runs(card, workdir)
+    print(f"lanes (d): {time.perf_counter() - t0:.1f} s [{card}]")
+
+    # (e) Spatial partitioning on (1, 2).
+    rank_launches = 0
+    for r, out in enumerate(ranks):
+        sp = out["spatial"]
+        fwd = compare(f"lanes (e) rank {r} spatial forward (1, 2), 8 x 32x32x3, float32",
+                      sp["forward"], want_spatial["forward"], 2e-5, 2e-5, card)
+        chain = compare(f"lanes (e) rank {r} spatial T={MAIN_T} CFG chain", sp["traj"],
+                        want_spatial["traj"], 2e-4, 2e-4, card)
+        if sp["launches"] != MAIN_T - 1 or not sp["big_finite"]:
+            raise RuntimeError(f"rank {r}: spatial chain launches {sp['launches']}")
+        print(f"lanes (e) rank {r}: forward max abs err {fwd:.3e}, chain {chain:.3e}, "
+              f"{sp['launches']} launches; {LANE_SPATIAL_PX}x{LANE_SPATIAL_PX} batch-1 bf16 "
+              f"forward: peak {sp['big_peak'] / 2**20:.1f} MiB above its inputs, "
+              f"{sp['big_ms']:.3f} ms; unsharded {want_spatial['big_peak'] / 2**20:.1f} MiB, "
+              f"{want_spatial['big_ms']:.3f} ms [{card}]")
+        rank_launches += out["sweep"]["hold_launches"] + out["sweep"]["launches"] + sp["launches"]
+    print(f"lanes: launches {parent_launches} (unsharded references) + {rank_launches} "
+          f"(both ranks) in {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return parent_launches + rank_launches
+
+
+def _leaves_equal_np(a, b):
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise RuntimeError(f"checkpoint trees differ: {sorted(a)} against {sorted(b)}")
+        for k in a:
+            _leaves_equal_np(a[k], b[k])
+    elif not np.array_equal(np.asarray(a), np.asarray(b)):
+        raise RuntimeError("a sharded checkpoint leaf differs from the gathered state")
 
 
 def main():
@@ -1962,11 +2447,16 @@ def main():
         t0 = time.perf_counter()
         lane_launches = phase_lanes(card, workdir)
         print(f"phase lanes: {time.perf_counter() - t0:.1f} s [{card}]")
-    total = launches + cli_launches + clis_launches + edit_launches + lane_launches
+        t0 = time.perf_counter()
+        multi_launches = phase_lanes_multi(card, workdir)
+        print(f"phase multi-device lanes: {time.perf_counter() - t0:.1f} s [{card}]")
+    total = launches + cli_launches + clis_launches + edit_launches + lane_launches + multi_launches
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
           f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) + "
           f"{edit_launches} (editing demo and progressive students, phase 8) + "
-          f"{lane_launches} (int8 arms' and sequential chains, phase 9) = {total}")
+          f"{lane_launches} (int8 arms' and sequential chains, phase 9) + {multi_launches} "
+          f"(sharded sweep and spatial chains, both ranks, and their references, phase 10) "
+          f"= {total}")
 
     print(card)
     print(json.dumps({"kernels": [{

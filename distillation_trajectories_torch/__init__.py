@@ -21,10 +21,11 @@ GPU unless a caller asks for the CPU (``device="cpu"``).  Ported so far:
 - the sampler's opt-in lanes: the int8 forward (``models/quantized.py``)
   and sliding-window ParaDiGMS (``diffusion/parallel_sampling.py``);
   reference-checkpoint migration (``models/torch_port.py`` and two CLIs);
-  and the full-sweep orchestrator ``scripts/run_full_sweep.py``.
-
-The multi-device lanes (``parallel/*`` and the orbax sharded checkpoint)
-are not ported yet and raise ``NotImplementedError``.
+  and the full-sweep orchestrator ``scripts/run_full_sweep.py``;
+- the multi-device lanes over ``torch.distributed`` (``parallel/*``): the
+  ``(data, model)`` mesh for training and the sweep, spatial partitioning
+  of the eval forward, the all-students-at-once sweep, and sharded
+  checkpoints (``torch.distributed.checkpoint``).
 """
 
 __version__ = "0.1.0"

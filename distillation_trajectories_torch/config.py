@@ -48,10 +48,13 @@ def resolve_device(device) -> torch.device:
 class Config:
     """All hyperparameters plus the output directory contract.
 
-    Mirrors the JAX package's ``Config`` field for field.  The fields that
-    select the multi-device lanes, which this port does not have yet
-    (``mesh_shape != (1, 1)``, ``spatial_shape``), make the trajectory
-    entry points raise ``NotImplementedError``.  ``sampler_quant="int8"``
+    Mirrors the JAX package's ``Config`` field for field.
+    ``mesh_shape=(d, m)`` shards the trainers' state and batches and the
+    sweep's samples over a ``(data, model)`` mesh of ``d·m`` ranks,
+    ``spatial_shape=(d, s)`` partitions the eval forward's image rows, and
+    ``checkpoint_sharded`` writes ``model_epoch_{e}.dcp`` sharded
+    checkpoints (``parallel/*``, ``training/checkpoints.py``; the ranks
+    come from a launcher such as ``torchrun``).  ``sampler_quant="int8"``
     selects the int8 forward (``models/quantized.py``) and
     ``parallel_sampling="window"`` the sliding-window sampler of
     ``generate_trajectory`` (``paradigms_window``, ``paradigms_tol``);
@@ -62,7 +65,7 @@ class Config:
     ``epoch_scan`` and ``vmap_students`` select nothing either: the trainers
     always run the per-batch loop and train students of one architecture
     in sequence, the semantics the JAX package holds its epoch scan and
-    vmapped group to.  ``checkpoint_sharded`` makes the trainers raise.
+    vmapped group to.
     """
 
     # Dataset

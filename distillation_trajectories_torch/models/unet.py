@@ -97,35 +97,33 @@ class BatchNorm2d(nn.BatchNorm2d):
     Eval mode is torch's own.  In train mode the fused kernel normalizes
     with the batch mean and biased variance (statistics in float32 also for
     bf16 input); given zeroed buffers and momentum 1 it writes the batch
-    mean and the *unbiased* variance into them, and the running update here
-    scales that back to the biased variance, as flax does (torch momentum
-    0.1 is flax momentum 0.9).
+    mean and the *unbiased* variance into them, which :meth:`batch_stats`
+    scales back to the biased variance, the one flax's running update takes
+    (torch momentum 0.1 is flax momentum 0.9).
     """
 
     def batch_stats(self, x: torch.Tensor):
         """Train-mode normalization with the batch statistics alone:
-        ``(y, batch mean, unbiased batch variance)``; the running buffers
+        ``(y, batch mean, biased batch variance)``; the running buffers
         are left as they are."""
         mean = torch.zeros_like(self.running_mean)
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
-        return y, mean, var
+        n = x.numel() // x.shape[1]
+        return y, mean, var * ((n - 1) / n)
 
-    def update_running(self, mean: torch.Tensor, var: torch.Tensor, n: int) -> None:
-        """The flax running update from :meth:`batch_stats` of ``n`` values
-        per channel."""
+    def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        """The flax running update from :meth:`batch_stats`."""
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(mean, alpha=self.momentum)
-            self.running_var.mul_(1.0 - self.momentum).add_(
-                var * ((n - 1) / n), alpha=self.momentum
-            )
+            self.running_var.mul_(1.0 - self.momentum).add_(var, alpha=self.momentum)
             self.num_batches_tracked.add_(1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         y, mean, var = self.batch_stats(x)
-        self.update_running(mean, var, x.numel() // self.num_features)
+        self.update_running(mean, var)
         return y
 
 
@@ -159,10 +157,12 @@ class Block(nn.Module):
         self.norm2 = _norm(norm, out_ch)
         self.residual_conv = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
-    def _body(self, x: torch.Tensor, temb: torch.Tensor, stats=None) -> torch.Tensor:
+    def _body(self, x: torch.Tensor, temb: torch.Tensor, stats=None, conv3=None) -> torch.Tensor:
         """The block; with a ``stats`` list, BatchNorm normalizes with the
         batch statistics and appends them to it instead of updating its
-        running buffers."""
+        running buffers.  ``conv3(layer, h)`` stands in for the two 3×3
+        convolutions' calls (the spatial lane's halo exchange)."""
+        conv3 = conv3 or (lambda layer, h: layer(h))
 
         def norm(layer, h):
             if stats is None:
@@ -172,9 +172,9 @@ class Block(nn.Module):
             return y
 
         residual = x if self.residual_conv is None else self.residual_conv(x)
-        h = F.relu(norm(self.norm1, self.conv1(x)))
+        h = F.relu(norm(self.norm1, conv3(self.conv1, x)))
         h = h + F.relu(self.time_mlp(temb))[:, :, None, None]
-        h = F.relu(norm(self.norm2, self.conv2(h)))
+        h = F.relu(norm(self.norm2, conv3(self.conv2, h)))
         return h + residual
 
     def _body_with_stats(self, x: torch.Tensor, temb: torch.Tensor):
@@ -188,9 +188,8 @@ class Block(nn.Module):
             return checkpoint(self._body, x, temb, use_reentrant=False)
         out, mean1, var1, mean2, var2 = checkpoint(
             self._body_with_stats, x, temb, use_reentrant=False)
-        n = out.numel() // out.shape[1]
-        self.norm1.update_running(mean1, var1, n)
-        self.norm2.update_running(mean2, var2, n)
+        self.norm1.update_running(mean1, var1)
+        self.norm2.update_running(mean2, var2)
         return out
 
 
@@ -225,6 +224,7 @@ class DiffusionUNet(nn.Module):
         self.size_factor = size_factor
         self.dtype = dtype
         self.drop = nn.Dropout(dropout)
+        self.batch_shard = None  # (data rank, data ranks) of a data-sharded step
         ted = self.time_emb_dim
         d0, d1, d2, d3 = self.dims
 
@@ -258,16 +258,28 @@ class DiffusionUNet(nn.Module):
         return [max(16, int(base * m)) for m in (1, 2, 2, 2)]
 
     def _dropout(self, h: torch.Tensor, generator) -> torch.Tensor:
-        """flax ``nn.Dropout``: keep with probability 1-p, scale by 1/(1-p)."""
+        """flax ``nn.Dropout``: keep with probability 1-p, scale by 1/(1-p).
+
+        With ``batch_shard = (r, d)`` (a data-sharded step: ``h`` holds rows
+        ``r·b … (r+1)·b`` of a global batch of ``d·b``) the mask is drawn
+        for the global batch, in ``h``'s memory layout, and this rank keeps
+        its rows, so the masks are the unsharded step's."""
         if not self.training or self.drop.p == 0.0:
             return h
         if generator is None:
             return self.drop(h)
         keep = 1.0 - self.drop.p
-        mask = torch.empty_like(h).bernoulli_(keep, generator=generator)
+        if self.batch_shard is None:
+            mask = torch.empty_like(h).bernoulli_(keep, generator=generator)
+        else:
+            r, d = self.batch_shard
+            b = h.shape[0]
+            mask = torch.empty_strided((d * b, *h.shape[1:]), h.stride(), dtype=h.dtype,
+                                       device=h.device)
+            mask = mask.bernoulli_(keep, generator=generator)[r * b:(r + 1) * b]
         return h / keep * mask
 
-    def forward(self, x, t, cond=None, cond_mask=None, generator=None):
+    def forward(self, x, t, cond=None, cond_mask=None, generator=None, layout=None):
         b = x.shape[0]
         if t.ndim > 1:
             t = t.reshape(b, -1)[:, 0]
@@ -281,10 +293,7 @@ class DiffusionUNet(nn.Module):
                 if cond_mask is None
                 else cond_mask.reshape(b, 1).float()
             )
-        up = lambda h: F.interpolate(
-            h, scale_factor=2, mode="bilinear", align_corners=True
-        )
-        pool = lambda h: F.max_pool2d(h, 2, 2)
+        lay = layout or DENSE
         drop = lambda h: self._dropout(h, generator)
         with torch.autocast(
             device_type=x.device.type,
@@ -292,20 +301,51 @@ class DiffusionUNet(nn.Module):
             enabled=self.dtype != torch.float32,
         ):
             temb = self.time_mlp(t) + mask * self.cond_emb(cond_in)
-            h = x.permute(0, 3, 1, 2)  # NHWC -> NCHW view, channels-last strides
-            x1 = drop(self.enc1(h, temb))
-            x2 = drop(self.enc2(pool(x1), temb))
-            x3 = drop(self.enc3(pool(x2), temb))
-            x4 = drop(self.enc4(pool(x3), temb))
-            h = drop(self.bottleneck(pool(x4), temb))
-            h = drop(self.dec3(torch.cat([up(h), x4], dim=1), temb))
-            h = drop(self.dec2(torch.cat([up(h), x3], dim=1), temb))
-            h = drop(self.dec1(torch.cat([up(h), x2], dim=1), temb))
-            h = up(h)
+            h = lay.enter(x.permute(0, 3, 1, 2))  # NHWC -> NCHW view, channels-last strides
+            x1 = drop(lay.block(self.enc1, h, temb))
+            x2 = drop(lay.block(self.enc2, lay.pool(x1), temb))
+            x3 = drop(lay.block(self.enc3, lay.pool(x2), temb))
+            x4 = drop(lay.block(self.enc4, lay.pool(x3), temb))
+            h = drop(lay.block(self.bottleneck, lay.pool(x4), temb))
+            h = drop(lay.block(self.dec3, lay.cat(lay.up(h), x4), temb))
+            h = drop(lay.block(self.dec2, lay.cat(lay.up(h), x3), temb))
+            h = drop(lay.block(self.dec1, lay.cat(lay.up(h), x2), temb))
+            h = lay.up(h)
             if self.dec0 is not None:
-                h = drop(self.dec0(torch.cat([h, x1], dim=1), temb))
-            out = self.final(h)
+                h = drop(lay.block(self.dec0, lay.cat(h, x1), temb))
+            out = lay.exit(lay.pointwise(self.final, h))
         return out.float().permute(0, 2, 3, 1).contiguous()
+
+
+class DenseLayout:
+    """How :class:`DiffusionUNet` moves activations between its blocks:
+    whole NCHW tensors (the default).  The spatial lane
+    (``parallel/spatial.py``) supplies another layout with the same
+    methods, as JAX's spatial forward intercepts each Block call."""
+
+    def enter(self, h):
+        return h
+
+    def block(self, block, h, temb):
+        return block(h, temb)
+
+    def pool(self, h):
+        return F.max_pool2d(h, 2, 2)
+
+    def up(self, h):
+        return F.interpolate(h, scale_factor=2, mode="bilinear", align_corners=True)
+
+    def cat(self, a, b):
+        return torch.cat([a, b], dim=1)
+
+    def pointwise(self, layer, h):
+        return layer(h)
+
+    def exit(self, h):
+        return h
+
+
+DENSE = DenseLayout()
 
 
 def init_unet_(model: nn.Module, generator: torch.Generator) -> nn.Module:

@@ -1,9 +1,19 @@
-"""Flags and checkpoint loaders shared by the port's CLIs."""
+"""Flags and checkpoint loaders shared by the port's CLIs.
+
+Each CLI joins the process group a launcher names (``torchrun``) at the
+start; ``--mesh D,M`` and ``--spatial D,S`` then need ``D·M`` (``D·S``)
+ranks, for example::
+
+    torchrun --nproc_per_node=2 -m distillation_trajectories_torch.scripts.train_teacher \
+        --device cpu --mesh 2,1 --checkpoint_sharded
+"""
 
 from __future__ import annotations
 
 import argparse
 import os
+
+from ..parallel.mesh import require_ranks
 
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:
@@ -14,24 +24,49 @@ def add_common_flags(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--num_samples", type=int, default=None,
                         help="Samples in the sample grid (0 skips grid generation)")
     parser.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                        help="Device mesh (not ported: raises)")
+                        help="(data, model) mesh over the launched ranks, e.g. '2,1' "
+                        "(torchrun --nproc_per_node=2). Default: one device")
     parser.add_argument("--checkpoint_sharded", action="store_true",
-                        help="Orbax sharded checkpoints (not ported: raises)")
+                        help="Write model_epoch_{e}.dcp sharded checkpoints (every rank "
+                        "its shards). Default stays the msgpack contract")
     parser.add_argument("--device", type=str, default=None,
                         help="Device to train on (default: the config's, cuda)")
 
 
+def parse_axes(text: str, flag: str = "--mesh"):
+    """``'D,M'`` (or ``'D'``, for ``D,1``) as two positive ints."""
+    parts = [int(x) for x in text.split(",")]
+    if len(parts) == 1:
+        parts.append(1)
+    if len(parts) != 2 or parts[0] < 1 or parts[1] < 1:
+        raise SystemExit(f"{flag} must be two positive ints 'A,B', got {text!r}")
+    return parts[0], parts[1]
+
+
+def start_distributed(config) -> bool:
+    """Join the launcher's process group, if one is named: gloo for a CPU
+    run, else the backend ``parallel.distributed.choose_backend`` picks."""
+    import torch
+
+    from ..parallel import initialize_distributed
+
+    cpu = torch.device(config.device).type == "cpu"
+    return initialize_distributed(backend="gloo" if cpu else None)
+
+
 def make_config(args):
-    """A Config from parsed flags; raises on the lanes the port lacks."""
+    """A Config from parsed flags, in the launcher's process group."""
     from ..config import Config
 
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {args.mesh}: the port trains on one device")
-    if args.checkpoint_sharded:
-        raise NotImplementedError("--checkpoint_sharded: the orbax lane is not ported")
     config = Config(base_dir=args.base_dir) if args.base_dir else Config()
     if args.device is not None:
         config.device = args.device
+    if args.mesh:
+        config.mesh_shape = parse_axes(args.mesh)
+    config.checkpoint_sharded = bool(args.checkpoint_sharded)
+    start_distributed(config)
+    if args.mesh:
+        require_ranks(config.mesh_shape, "--mesh")
     for flag, field in (("noise_schedule", "noise_schedule"), ("dropout", "dropout"),
                         ("sample_mode", "sample_mode"), ("epochs", "epochs"),
                         ("dataset", "dataset"), ("image_size", "image_size"),

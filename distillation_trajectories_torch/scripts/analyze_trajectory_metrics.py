@@ -27,12 +27,16 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..metrics.transformations import transform_metrics
+from ..parallel.distributed import is_main_process
+from ..parallel.mesh import require_ranks
 from ._common import (
     load_student,
     load_teacher_from_arg,
+    parse_axes,
     parse_float_list,
     plots_available,
     resolve_output_dir,
+    start_distributed,
 )
 
 # Poster teal→purple colormap of the reference plots.
@@ -84,7 +88,8 @@ def parse_args(argv=None):
         "jobs with matching (T, scale, samples) cells.",
     )
     parser.add_argument("--mesh", type=str, default=None, metavar="DATA,MODEL",
-                        help="Device mesh (not ported: raises)")
+                        help="(data, model) mesh over the launched ranks: the sample "
+                        "axis is sharded over data (torchrun --nproc_per_node=D·M)")
     parser.add_argument("--device", type=str, default=None,
                         help="Device to run on (default: the config's, cuda)")
     return parser.parse_args(argv)
@@ -93,11 +98,14 @@ def parse_args(argv=None):
 def make_config(args):
     from ..config import Config
 
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {args.mesh}: the port runs on one device")
     config = Config(base_dir=args.base_dir) if args.base_dir else Config()
     if args.device is not None:
         config.device = args.device
+    if args.mesh:
+        config.mesh_shape = parse_axes(args.mesh)
+    start_distributed(config)
+    if args.mesh:
+        require_ranks(config.mesh_shape, "--mesh")
     config.timesteps = args.timesteps
     if args.dataset:
         config.dataset = args.dataset
@@ -351,7 +359,7 @@ def main(argv=None):
     results = run(args, config, specs)
     shared_s = time.perf_counter() - t_start
     live = [(spec, m) for spec, m in zip(specs, results) if m]
-    plots = plots_available()
+    plots = is_main_process() and plots_available()
     for i, (spec, metrics_by_size) in enumerate(live):
         t_job = time.perf_counter()
         output_dir, guidance_scales = spec["output_dir"], spec["guidance_scales"]

@@ -6,8 +6,9 @@ the trained teacher (the flags of ``scripts/run_editing_demo.py``, plus
 
 Two halves: :func:`run` loads the teacher and returns the three results
 and the PCA directions, importing no plotting library; :func:`plot` draws
-the JAX CLI's PNGs under ``config.analysis_dir/editing``.  ``--spatial``
-(the spatially partitioned forward) is not ported and raises.
+the JAX CLI's PNGs under ``config.analysis_dir/editing``.  ``--spatial D,S``
+runs every forward spatially partitioned over the launched ranks
+(``torchrun --nproc_per_node=D·S``); rank 0 draws the PNGs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from ._common import load_teacher_from_arg
+from ..parallel.distributed import is_main_process
+from ..parallel.mesh import require_ranks
+from ._common import load_teacher_from_arg, parse_axes, start_distributed
 
 DIRECTION_SAMPLES = 32  # generations behind the PCA directions, as in the JAX CLI
 
@@ -40,7 +43,9 @@ def parse_args(argv=None):
     parser.add_argument("--full_res_head", action="store_true")
     parser.add_argument("--noise_schedule", type=str, default=None)
     parser.add_argument("--spatial", type=str, default=None,
-                        help="D,S: spatially partitioned forwards (not ported: raises)")
+                        help="D,S: run the editing forwards spatially partitioned over a "
+                        "(data, spatial) mesh of the launched ranks (image rows split "
+                        "S-way; torchrun --nproc_per_node=D·S)")
     parser.add_argument("--sample_mode", type=str, default="engine",
                         choices=["engine", "ancestral"])
     parser.add_argument("--device", type=str, default=None,
@@ -53,11 +58,14 @@ def make_config(args):
     CUDA and no GPU exists), its directories created."""
     from ..config import Config, resolve_device
 
-    if args.spatial:
-        raise NotImplementedError(f"--spatial {args.spatial}: spatial partitioning is not ported")
     config = Config(base_dir=args.base_dir) if args.base_dir else Config()
     if args.device is not None:
         config.device = args.device
+    if args.spatial:
+        config.spatial_shape = parse_axes(args.spatial, "--spatial")
+    start_distributed(config)
+    if args.spatial:
+        require_ranks(config.spatial_shape, "--spatial")
     if args.full_res_head:
         config.full_res_head = True
     if args.noise_schedule:
@@ -148,8 +156,9 @@ def main(argv=None, draws=None):
     args = parse_args(argv)
     config = make_config(args)
     results = run(args, config, draws)
-    plot(results, config)
-    print(f"\nEditing demos saved under {output_dir(config)}")
+    if is_main_process():
+        plot(results, config)
+        print(f"\nEditing demos saved under {output_dir(config)}")
     return results
 
 

@@ -65,7 +65,7 @@ def preflight(device: str) -> dict:
 
 
 def run_stage(name, cmd, log_dir, timeout=None, retries=1, retry_extra_args=None,
-              env_extra=None, device="cpu"):
+              env_extra=None, device="cuda"):
     """Run one stage as a subprocess with a timeout and retries.
 
     Each attempt appends an ``===== attempt N =====`` banner to the stage's

@@ -13,11 +13,16 @@ from .state import (
 )
 from .checkpoints import (
     AsyncCheckpointWriter,
+    abstract_target,
     available_epochs,
+    available_epochs_sharded,
     checkpoint_path,
     latest_epoch,
     load_checkpoint,
+    load_checkpoint_sharded,
     save_checkpoint,
+    save_checkpoint_sharded,
+    sharded_checkpoint_path,
     variables_from_checkpoint,
 )
 from .loop import run_train_epoch

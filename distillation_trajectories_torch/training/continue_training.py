@@ -2,8 +2,9 @@
 ``distillation_trajectories_tpu/training/continue_training.py``).
 
 Weights, BatchNorm statistics and, when the checkpoint has them, the Adam
-moments are restored from a checkpoint written by either package; epochs
-continue as ``model_epoch_{start + i}``.
+moments are restored from a checkpoint written by either package (or the
+port's sharded lane); epochs continue as ``model_epoch_{start + i}``.
+With ``Config.mesh_shape`` the restored state is sharded over the mesh.
 """
 
 from __future__ import annotations
@@ -15,8 +16,10 @@ from ..config import resolve_device
 from ..data import get_data_loader
 from ..diffusion import get_diffusion_params
 from ..models import load_optax_adam_state, load_unet_variables, make_unet
-from .checkpoints import AsyncCheckpointWriter, load_checkpoint, variables_from_checkpoint
-from .loop import check_supported, run_train_epoch
+from ..parallel.distributed import barrier
+from ..parallel.mesh import mesh_from_config, shard_train_state
+from .checkpoints import AsyncCheckpointWriter, load_checkpoint, save_epoch, variables_from_checkpoint
+from .loop import run_train_epoch
 from .state import TorchDraws, create_train_state, make_teacher_train_step
 from .teacher import make_grid_fn, save_grid
 
@@ -29,7 +32,6 @@ def continue_training(config, start_epoch: int, seed: int = 0, log_every: int = 
     ``draws`` is a factory ``(seed, device) -> draw source``.  Returns the
     final :class:`..state.TrainState`.
     """
-    check_supported(config)
     device = resolve_device(config.device)
     source = (draws or TorchDraws)(seed + start_epoch, device)
     payload = load_checkpoint(config.teacher_models_dir, start_epoch)
@@ -38,6 +40,10 @@ def continue_training(config, start_epoch: int, seed: int = 0, log_every: int = 
     state = create_train_state(model, config, source)
     if "opt_state" in payload:
         load_optax_adam_state(model, state.optimizer, payload["opt_state"])
+    mesh = mesh_from_config(config)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
+        print(f"[continue] SPMD over mesh {mesh}")
 
     diffusion_params = get_diffusion_params(config.timesteps, config)
     loader = get_data_loader(config, seed=seed + start_epoch)
@@ -62,11 +68,12 @@ def continue_training(config, start_epoch: int, seed: int = 0, log_every: int = 
             print(f"[continue] epoch {epoch + 1} avg loss {avg_loss:.5f} "
                   f"({time.time() - t0:.1f}s)")
             if (epoch + 1) % config.save_interval == 0 or i == config.epochs - 1:
-                ckpt_writer.save(config.teacher_models_dir, epoch + 1, state.model,
-                                 optimizer=state.optimizer)
+                save_epoch(ckpt_writer, config, config.teacher_models_dir, epoch + 1,
+                           state.model, optimizer=state.optimizer)
                 save_grid(grid_fn, source,
                           os.path.join(config.results_dir, f"samples_epoch_{epoch + 1}.png"),
                           config)
     finally:
         ckpt_writer.close()
+    barrier()
     return state

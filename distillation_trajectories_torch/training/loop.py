@@ -4,7 +4,9 @@ trainers (port of the per-batch loop of JAX ``training/loop.py:89-118``).
 The JAX package's epoch scan is bitwise equal to this loop, so the loop is
 the whole contract: batches in loader order, ``limit_batches_per_epoch``
 honoured, the losses kept on the device and fetched once, and an empty
-epoch reported as 0.0.
+epoch reported as 0.0.  On a mesh (``state.mesh``) every rank reads the
+same global batch and keeps its rows (``parallel.shard_batch``); the steps
+return the global batch's loss.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import sys
 
 import numpy as np
 import torch
+
+from ..parallel.mesh import shard_batch
 
 
 def progress_iter(loader, desc, config):
@@ -56,7 +60,10 @@ def run_train_epoch(
                 and batch_idx >= config.limit_batches_per_epoch
             ):
                 break
-            images = torch.from_numpy(images).to(device)
+            images = torch.from_numpy(images)
+            if state.mesh is not None:
+                images = shard_batch(images, state.mesh)
+            images = images.to(device)
             state, loss = train_step(state, images)
             losses.append(loss)
             if log_every and (batch_idx + 1) % log_every == 0:
@@ -75,14 +82,3 @@ def run_train_epoch(
     losses_host = torch.stack(losses).cpu().numpy()
     return state, float(np.mean(losses_host)), len(losses)
 
-
-def check_supported(config) -> None:
-    """Raise on trainer lanes this port does not have."""
-    if tuple(config.mesh_shape or (1, 1)) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape={tuple(config.mesh_shape)}: the port trains on one device"
-        )
-    if config.checkpoint_sharded:
-        raise NotImplementedError(
-            "checkpoint_sharded: the orbax sharded-checkpoint lane is not ported"
-        )

@@ -32,8 +32,8 @@ from ..config import resolve_device
 from ..data import get_data_loader
 from ..diffusion import get_diffusion_params
 from ..diffusion.process import q_sample
-from .checkpoints import AsyncCheckpointWriter
-from .loop import check_supported, run_train_epoch
+from .checkpoints import AsyncCheckpointWriter, save_epoch
+from .loop import run_train_epoch
 from .state import (
     StepDraws,
     TorchDraws,
@@ -182,11 +182,11 @@ def progressive_distill(
     ``(seed, device) -> draw source``, default :class:`..state.TorchDraws`)
     seeded ``seed + 1000·r``.  Checkpoints, Adam state included, go to
     ``models_dir/progressive/steps_{n}`` (``progressive_cfg`` when guided)
-    every ``save_interval`` epochs and after the last.  With
+    every ``save_interval`` epochs and after the last, sharded
+    (``model_epoch_{e}.dcp``) with ``Config.checkpoint_sharded``.  With
     ``guidance_range`` round 1's teacher makes the two CFG forwards and
     every later teacher, a w-conditioned student, one.
     """
-    check_supported(config)
     device = resolve_device(config.device)
     epochs = epochs_per_round or config.epochs
     family = "progressive" if guidance_range is None else "progressive_cfg"
@@ -222,7 +222,8 @@ def progressive_distill(
                 print(f"[progressive] steps={next_steps} epoch {epoch + 1}/{epochs} "
                       f"loss {avg:.6f} ({time.time() - t0:.1f}s)")
                 if (epoch + 1) % config.save_interval == 0 or epoch == epochs - 1:
-                    writer.save(ckpt_dir, epoch + 1, state.model, optimizer=state.optimizer)
+                    save_epoch(writer, config, ckpt_dir, epoch + 1, state.model,
+                               optimizer=state.optimizer)
             cur_model, cur_steps = state.model, next_steps
     finally:
         writer.close()

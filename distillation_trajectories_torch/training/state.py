@@ -21,6 +21,8 @@ import torch
 
 from ..diffusion.process import q_sample
 from ..diffusion.schedules import schedule_on
+from ..parallel.collectives import all_reduce_, mean_gradients
+from ..parallel.mesh import DATA_AXIS, axis_group, axis_size, shard_batch
 
 
 @dataclasses.dataclass
@@ -92,13 +94,15 @@ class TorchDraws:
 @dataclasses.dataclass
 class TrainState:
     """A model in training: its optimizer, its draw source, the optional
-    EMA of its parameters (by name) and the step count."""
+    EMA of its parameters (by name), the step count and, once
+    ``parallel.shard_train_state`` has partitioned it, its mesh."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     draws: object
     ema: Optional[Dict[str, torch.Tensor]] = None
     step: int = 0
+    mesh: Optional[object] = None
 
 
 def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Adam:
@@ -136,8 +140,9 @@ def make_eval_fn_from_config(model: torch.nn.Module, config) -> Callable:
 
     * ``Config.sampler_quant="int8"``: the folded int8 forward
       (:func:`..models.quantized.make_quantized_eval_fn`, dynamic scales);
-    * ``Config.spatial_shape``: the spatially partitioned forward, not
-      ported (raises ``NotImplementedError``);
+    * ``Config.spatial_shape=(d, s)``: the spatially partitioned forward
+      (:func:`..parallel.spatial.make_spatial_eval_fn`: image rows split
+      s-way, halo rows exchanged), for sampling and editing alike;
     * otherwise the plain eval forward.
 
     The two opt-ins cannot combine (``ValueError``), as in JAX."""
@@ -153,7 +158,10 @@ def make_eval_fn_from_config(model: torch.nn.Module, config) -> Callable:
 
         return make_quantized_eval_fn(model)
     if spatial:
-        raise NotImplementedError("spatial_shape (spatial partitioning) is not ported")
+        from ..parallel.spatial import make_spatial_eval_fn, make_spatial_mesh
+
+        mesh = make_spatial_mesh(tuple(spatial), device_type=torch.device(config.device).type)
+        return make_spatial_eval_fn(model, mesh)
     return make_eval_model_fn(model)
 
 
@@ -167,9 +175,39 @@ def _schedule(cache: Dict, diffusion_params, device) -> Dict:
     return cache[device]
 
 
+def _step_draws(state: TrainState, draws: Optional[StepDraws], images: torch.Tensor,
+                make: Callable) -> StepDraws:
+    """The step's draws: ``draws``, or ``make(images)`` from the state's
+    source.  On a data-sharded mesh they are made for the global batch
+    (``images`` holds this rank's rows) and cut to this rank's rows, so
+    every rank draws what the unsharded step draws."""
+    d = axis_size(state.mesh, DATA_AXIS)
+    if d == 1:
+        return draws if draws is not None else make(images)
+    if draws is None:
+        draws = make(images.new_empty((images.shape[0] * d, *images.shape[1:]), device="meta"))
+    rows = lambda v: None if v is None else shard_batch(v, state.mesh)
+    return StepDraws(rows(draws.t), tuple(rows(n) for n in draws.noises), draws.generator,
+                     rows(draws.w))
+
+
+def _global_loss(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """The global batch's loss: the mean of the ranks' losses over the
+    data axis (equal shards)."""
+    d = axis_size(state.mesh, DATA_AXIS)
+    loss = loss.detach()
+    if d == 1:
+        return loss
+    return all_reduce_(loss.clone(), axis_group(state.mesh, DATA_AXIS)) / d
+
+
 def _apply_update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[float]) -> None:
+    """Backward, the data axis's gradient mean on a mesh, the Adam step
+    and the EMA."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    if axis_size(state.mesh, DATA_AXIS) > 1:
+        mean_gradients(state.model, axis_group(state.mesh, DATA_AXIS))
     state.optimizer.step()
     if ema_rate is not None and state.ema is not None:
         with torch.no_grad():
@@ -188,8 +226,8 @@ def make_teacher_train_step(diffusion_params, timesteps: int, ema_rate: Optional
     schedules: Dict[torch.device, Dict] = {}
 
     def train_step(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws] = None):
-        if draws is None:
-            draws = state.draws.teacher_step(images, timesteps)
+        draws = _step_draws(state, draws, images,
+                            lambda like: state.draws.teacher_step(like, timesteps))
         dp = _schedule(schedules, diffusion_params, images.device)
         model = state.model.train()
         b = images.shape[0]
@@ -201,7 +239,7 @@ def make_teacher_train_step(diffusion_params, timesteps: int, ema_rate: Optional
         loss_uncond = _mse(model(x2, draws.t, zeros, zeros, generator=draws.generator), n2)
         loss = (loss_cond + loss_uncond) / 2.0
         _apply_update(state, loss, ema_rate)
-        return state, loss.detach()
+        return state, _global_loss(state, loss)
 
     return train_step
 
@@ -218,8 +256,8 @@ def make_distill_train_step(teacher_model: torch.nn.Module, teacher_diffusion_pa
     schedules: Dict[torch.device, Dict] = {}
 
     def train_step(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws] = None):
-        if draws is None:
-            draws = state.draws.distill_step(images, teacher_steps)
+        draws = _step_draws(state, draws, images,
+                            lambda like: state.draws.distill_step(like, teacher_steps))
         dp = _schedule(schedules, teacher_diffusion_params, images.device)
         b = images.shape[0]
         ones = images.new_ones((b, 1))
@@ -234,6 +272,6 @@ def make_distill_train_step(teacher_model: torch.nn.Module, teacher_diffusion_pa
         student_uncond = model(x_noisy, t_student, zeros, zeros, generator=draws.generator)
         loss = (_mse(student_cond, teacher_cond) + _mse(student_uncond, teacher_uncond)) / 2.0
         _apply_update(state, loss, None)
-        return state, loss.detach()
+        return state, _global_loss(state, loss)
 
     return train_step

@@ -1,6 +1,6 @@
 """Student distillation across size factors (port of
 ``distillation_trajectories_tpu/training/students.py``, without its
-TPU-host machinery: AOT compile pool, watchdog, epoch scan, mesh).
+TPU-host machinery: AOT compile pool, watchdog, epoch scan).
 
 Each student trains in turn from the teacher's latest checkpoint: per batch
 two teacher forwards in eval mode and two student forwards plus one
@@ -9,10 +9,14 @@ backward in train mode.  Size factors that floor to the same architecture
 such a group as one vmapped graph with exactly these per-member semantics:
 each member's own draw stream from ``seed + int(sf * 1000)`` and the same
 loader order (a fresh loader with the trainer's seed per student).
+With ``Config.mesh_shape`` each student's state and a copy of the teacher
+are sharded over the ``(data, model)`` mesh; ``sweep_parallel`` trains
+every student at once (``parallel/sweep.py``).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Dict, List, Optional
@@ -21,6 +25,8 @@ from ..config import resolve_device
 from ..data.datasets import DataLoader, load_dataset
 from ..diffusion import get_diffusion_params
 from ..models import load_unet_variables, make_unet, param_count
+from ..parallel.distributed import barrier
+from ..parallel.mesh import mesh_from_config, shard_params, shard_train_state
 from ..utils.profiling import MetricsLogger, dump_phase_times, phase_timer, phase_times
 from ..utils.viz import save_image_grid
 from .checkpoints import (
@@ -28,26 +34,12 @@ from .checkpoints import (
     checkpoint_path,
     latest_epoch,
     load_checkpoint,
+    save_epoch,
     variables_from_checkpoint,
 )
-from .loop import check_supported, run_train_epoch
+from .loop import run_train_epoch
 from .state import TorchDraws, create_train_state, make_distill_train_step
 from .teacher import make_grid_fn
-
-
-def print_size_factor_info(size_factors: List[float]) -> None:
-    """Size-factor tier table with sf² parameter estimates (JAX
-    ``training/students.py::print_size_factor_info``)."""
-    param_counts = {sf: sf**2 for sf in size_factors}
-    tiers = [("Tiny", [sf for sf in size_factors if sf < 0.1]),
-             ("Small", [sf for sf in size_factors if 0.1 <= sf < 0.3]),
-             ("Medium", [sf for sf in size_factors if 0.3 <= sf < 0.7]),
-             ("Large", [sf for sf in size_factors if sf >= 0.7])]
-    print("Student model size factors:")
-    for category, factors in tiers:
-        if factors:
-            lo, hi = min(factors), max(factors)
-            print(f"  {category}: {param_counts[lo]:.4f}x to {param_counts[hi]:.4f}x parameters")
 
 
 def print_size_factor_info(size_factors: List[float]) -> None:
@@ -73,10 +65,12 @@ def load_teacher(config, epoch: Optional[int] = None):
     return load_unet_variables(model, variables_from_checkpoint(payload)).eval()
 
 
-def _build_student(teacher_model, config, size_factor: float, seed: int, draws=None) -> dict:
-    """The student model, its train state and step, and its grid function;
-    the draw source is seeded from ``seed + int(size_factor * 1000)``."""
-    device = resolve_device(config.device)
+def _build_student(teacher_model, config, size_factor: float, seed: int, draws=None,
+                   device=None) -> dict:
+    """The student model, its train state and step, and its grid function
+    on ``device`` (default ``config.device``); the draw source is seeded
+    from ``seed + int(size_factor * 1000)``."""
+    device = resolve_device(config.device if device is None else device)
     source = (draws or TorchDraws)(seed + int(size_factor * 1000), device)
     model = source.init_unet(config, size_factor)
     train_step = make_distill_train_step(
@@ -107,11 +101,16 @@ def distill_diffusion_model(
     ``draws`` is a factory ``(seed, device) -> draw source``.  Returns the
     trained student.
     """
-    check_supported(config)
     own_writer = ckpt_writer is None
     writer = ckpt_writer or AsyncCheckpointWriter()
+    mesh = mesh_from_config(config)
+    if mesh is not None and getattr(teacher_model, "mesh", None) is None:
+        teacher_model = shard_params(copy.deepcopy(teacher_model), mesh)
     built = _build_student(teacher_model, config, size_factor, seed, draws)
     state = built["state"]
+    if mesh is not None:
+        state = built["state"] = shard_train_state(state, mesh)
+        print(f"[distill sf={size_factor}] SPMD over mesh {mesh}")
     teacher_mb = param_count(teacher_model) * 4 / 2**20
     student_mb = param_count(built["model"]) * 4 / 2**20
     print(f"Teacher model size: {teacher_mb:.2f} MB")
@@ -143,8 +142,8 @@ def distill_diffusion_model(
                             avg_loss=avg_loss, seconds=time.time() - t0)
 
             if (epoch + 1) % config.save_interval == 0 or epoch == config.epochs - 1:
-                writer.save(config.student_dir(size_factor), epoch + 1, state.model,
-                            optimizer=state.optimizer)
+                save_epoch(writer, config, config.student_dir(size_factor), epoch + 1,
+                           state.model, optimizer=state.optimizer)
                 if epoch == config.epochs - 1 and config.num_samples_to_generate > 0:
                     # The sampling runs here; fetching and writing the PNG
                     # ride the writer's pool.
@@ -162,6 +161,7 @@ def distill_diffusion_model(
         metrics_log.close()
         if own_writer:
             writer.close()
+            barrier()
     return state.model
 
 
@@ -179,13 +179,11 @@ def train_students(
 
     ``skip_existing=True`` loads instead of training every size factor
     whose final-epoch checkpoint exists and is no older than the teacher's
-    latest (those models stay on the CPU).  ``sweep_parallel`` (one student
-    per device) is not ported and raises.  ``teacher_epoch`` picks the
-    teacher checkpoint (default: the latest).
+    latest (those models stay on the CPU).  ``sweep_parallel`` trains every
+    student at once, student *i* on visible device ``i % n``
+    (:func:`..parallel.sweep.distill_students_parallel`).  ``teacher_epoch``
+    picks the teacher checkpoint (default: the latest).
     """
-    if sweep_parallel:
-        raise NotImplementedError("sweep_parallel: the multi-device sweep is not ported")
-    check_supported(config)
     with phase_timer("students/teacher_load"):
         teacher = load_teacher(config, teacher_epoch)
     size_factors = custom_size_factors if custom_size_factors else config.student_size_factors
@@ -214,6 +212,18 @@ def train_students(
             return preloaded
 
     print_size_factor_info(size_factors)
+    if sweep_parallel:
+        from ..parallel.sweep import distill_students_parallel
+
+        if tuple(config.mesh_shape or (1, 1)) != (1, 1):
+            print("[students] WARNING: sweep_parallel uses per-device student placement "
+                  f"and ignores mesh_shape={tuple(config.mesh_shape)}; each student trains "
+                  "unsharded on its own device. Drop --mesh or --sweep_parallel to get "
+                  "SPMD sharding.")
+        students = distill_students_parallel(config, teacher, size_factors, seed=seed,
+                                             draws=draws)
+        students.update(preloaded)
+        return students
     with phase_timer("students/dataset"):
         images, labels = load_dataset(config)
     students: Dict[float, object] = {}
@@ -229,6 +239,7 @@ def train_students(
     finally:
         with phase_timer("students/ckpt_flush"):
             writer.close()
+        barrier()
     summary = {k: round(v["total_s"], 1) for k, v in phase_times().items()
                if k.startswith("students/")}
     print(f"[students] phase totals (s): {summary}")

@@ -1,11 +1,15 @@
 """Teacher training (port of ``distillation_trajectories_tpu/training/
 teacher.py``, without its TPU-host machinery: AOT compile pool, watchdog,
-epoch scan, mesh and the orbax lane).
+epoch scan).
 
 The sf-1.0 U-Net trains with the teacher step on ``config.device``,
-checkpoints go to ``model_epoch_{e}.msgpack`` every ``save_interval``
-epochs and after the last, and each save also writes a sample grid
-``samples_epoch_{e}.png`` drawn with ``p_sample_loop``.
+checkpoints go to ``model_epoch_{e}.msgpack`` (``.dcp`` with
+``Config.checkpoint_sharded``) every ``save_interval`` epochs and after
+the last, and each save also writes a sample grid
+``samples_epoch_{e}.png`` drawn with ``p_sample_loop``.  With
+``Config.mesh_shape`` the state is sharded over the ``(data, model)`` mesh
+(``parallel.shard_train_state``); every rank samples the grid, rank 0
+alone writes files, and the others wait for it at the end.
 """
 
 from __future__ import annotations
@@ -16,10 +20,12 @@ import time
 from ..config import resolve_device
 from ..data import get_data_loader
 from ..diffusion import get_diffusion_params, p_sample_loop, subsampled_timestep_indices
+from ..parallel.distributed import barrier, is_main_process
+from ..parallel.mesh import mesh_from_config, shard_train_state
 from ..utils.profiling import MetricsLogger, phase_timer
 from ..utils.viz import save_image_grid
-from .checkpoints import AsyncCheckpointWriter
-from .loop import check_supported, run_train_epoch
+from .checkpoints import AsyncCheckpointWriter, save_epoch
+from .loop import run_train_epoch
 from .state import (
     TorchDraws,
     create_train_state,
@@ -53,11 +59,12 @@ def make_grid_fn(model, config, diffusion_params, sample_steps=None):
 def save_grid(grid_fn, draws, path, config, params=None) -> None:
     """Draw one grid's noise from ``draws`` — on every save, as the JAX
     trainers split a sample key on every save — and, when the grid has
-    images, sample and write it."""
+    images, sample it (on every rank of a mesh) and write it (rank 0)."""
     noise, step_noise = draws.sample(grid_fn.shape, grid_fn.n_steps)
     if config.num_samples_to_generate > 0:
-        save_image_grid(grid_fn(noise, step_noise, params), path,
-                        nrow=config.samples_grid_size)
+        samples = grid_fn(noise, step_noise, params)
+        if is_main_process():
+            save_image_grid(samples, path, nrow=config.samples_grid_size)
 
 
 def generate_sample_grid(model, config, diffusion_params, draws, path) -> None:
@@ -78,12 +85,15 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     every step's and grid's random inputs.  Returns the final
     :class:`..state.TrainState`.
     """
-    check_supported(config)
     device = resolve_device(config.device)
     source = (draws or TorchDraws)(seed, device)
     diffusion_params = get_diffusion_params(config.timesteps, config)
     model = source.init_unet(config, 1.0)
     state = create_train_state(model, config, source, use_ema=config.use_ema)
+    mesh = mesh_from_config(config)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
+        print(f"[teacher] SPMD over mesh {mesh}")
     train_step = make_teacher_train_step(
         diffusion_params, config.timesteps,
         ema_rate=config.ema_rate if config.use_ema else None,
@@ -117,8 +127,8 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
                             steps=n_batches)
 
             if (epoch + 1) % config.save_interval == 0 or epoch == config.epochs - 1:
-                ckpt_writer.save(config.teacher_models_dir, epoch + 1, state.model,
-                                 optimizer=state.optimizer, ema=state.ema)
+                save_epoch(ckpt_writer, config, config.teacher_models_dir, epoch + 1,
+                           state.model, optimizer=state.optimizer, ema=state.ema)
                 with phase_timer("teacher/grid"):
                     save_grid(grid_fn, source,
                               os.path.join(config.results_dir, f"samples_epoch_{epoch + 1}.png"),
@@ -126,4 +136,5 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     finally:
         metrics_log.close()
         ckpt_writer.close()
+    barrier()
     return state

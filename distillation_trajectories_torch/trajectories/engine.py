@@ -11,6 +11,13 @@ counterpart: PyTorch runs eagerly.
 The three random draws of a sweep — starting noises, per-step noise and the
 Wasserstein subsample keys — form one :class:`SweepDraws`, injectable as
 ``draws=`` so that a test can hand in the JAX draws.
+
+``Config.mesh_shape`` shards a sweep's sample axis over the mesh's data
+axis (one process per rank): the draws are made for all samples on every
+rank, each rank runs and scores its rows' chains, and the per-sample
+metrics are gathered before the means, so every rank returns the
+unsharded result.  ``Config.spatial_shape`` sends
+:func:`generate_trajectory` through the spatially partitioned forward.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from ..diffusion.sampling import (
 )
 from ..diffusion.schedules import get_diffusion_params
 from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, batch_metrics_core
+from ..parallel.mesh import DATA_AXIS, axis_size, gather_batch, mesh_from_config, shard_batch
 from ..training.state import make_eval_fn_from_config
 
 
@@ -68,19 +76,6 @@ def _store_dtype(config) -> Optional[torch.dtype]:
     return None
 
 
-def _check_supported(config) -> None:
-    """Raise on Config lanes this port does not have yet (the multi-device
-    ones)."""
-    if config is None:
-        return
-    if tuple(config.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape={tuple(config.mesh_shape)}: the port runs on one device"
-        )
-    if config.spatial_shape:
-        raise NotImplementedError("spatial_shape (spatial partitioning) is not ported")
-
-
 def _entry_device(config, device) -> torch.device:
     if device is None:
         device = config.device if config is not None else "cuda"
@@ -106,19 +101,24 @@ def generate_trajectory(
     """One engine trajectory of a ``[B, H, W, C]`` noise batch:
     ``[T+1, B, H, W, C]`` on ``device`` (default ``config.device``).
 
-    The forward is the config's (``make_eval_fn_from_config``: plain or
-    int8).  ``Config.parallel_sampling="window"`` switches to the
+    The forward is the config's (``make_eval_fn_from_config``: plain,
+    int8, or spatially partitioned under ``Config.spatial_shape``, whose
+    divisibility guards run on the starting noise up front, as in JAX).
+    ``Config.parallel_sampling="window"`` switches to the
     sliding-window ParaDiGMS sampler
     (:func:`..diffusion.parallel_sampling.sliding_window_trajectory`, window
     ``paradigms_window``, tolerance ``paradigms_tol``), whose update is
     plain torch: it launches no kernel.
     """
-    _check_supported(config)
     device = _entry_device(config, device)
     _check_model_device(model, device)
     dp = get_diffusion_params(timesteps, config)
     model_fn = make_eval_fn_from_config(model, config)
     noise = torch.as_tensor(noise, dtype=torch.float32).to(device)
+    if config is not None and config.spatial_shape:
+        from ..parallel.spatial import make_spatial_mesh, shard_batch_spatial
+
+        shard_batch_spatial(noise, make_spatial_mesh(tuple(config.spatial_shape), device.type))
     seed = 0 if seed is None else seed
     if config is not None and getattr(config, "parallel_sampling", "off") == "window":
         from ..diffusion.parallel_sampling import sliding_window_trajectory
@@ -155,7 +155,6 @@ def make_batch_trajectory_fn(model, timesteps: int, config=None, use_cfg: bool =
     forwards (cond 0 and cond 1, both with mask 1) combined at ``gs``, or
     one cond-0 mask-0 forward.  The default step noise draws sample ``i``
     at step ``t`` from the generator of ``(seeds[i], t)``."""
-    _check_supported(config)
     device = _entry_device(config, device)
     _check_model_device(model, device)
     sweep = make_sweep_trajectory_fn(model, timesteps, config)
@@ -251,8 +250,15 @@ def sweep_compare_trajectories_multi(
     "student_metrics": {gs: {...}}}}`` per job: per-sample scalar metrics
     averaged over samples, the same values under both keys in independent
     dicts.
+
+    Under ``Config.mesh_shape`` (every rank calls this alike) a job whose
+    ``num_samples`` the data axis divides runs this rank's rows of its
+    draws; one all-gather before the means restores the sample axis in
+    the unsharded order.  A job it does not divide runs unsharded, as in
+    JAX.
     """
-    _check_supported(config)
+    mesh = mesh_from_config(config) if config is not None else None
+    d = axis_size(mesh, DATA_AXIS)
     device = _entry_device(config, device)
     jobs = [dict(job) for job in jobs]
     for job in jobs:
@@ -287,11 +293,22 @@ def sweep_compare_trajectories_multi(
             fn_cache[key] = make_sweep_trajectory_fn(model, timesteps, config)
         return fn_cache[key]
 
-    pending = []  # (job index, size factor, gs, {metric: [S] tensor})
+    pending = []  # (job index, size factor, gs, {metric: [S] tensor}, sharded)
     for ji, job in enumerate(jobs):
         timesteps, s = job["timesteps"], job["num_samples"]
         dkey, draws = job_draws(job)
         seeds = np.arange(job["base_seed"], job["base_seed"] + s)
+        sharded = d > 1 and s % d == 0
+        if d > 1 and not sharded:
+            print(f"[engine] num_samples={s} not divisible by data axis {d}; running unsharded")
+        if sharded:
+            dkey = ("rows", dkey)
+            if dkey not in draws_cache:
+                rows = lambda v, dim=0: None if v is None else shard_batch(v, mesh, dim)
+                draws_cache[dkey] = SweepDraws(rows(draws.noises), rows(draws.step_noise, 1),
+                                               rows(draws.uniforms))
+            draws = draws_cache[dkey]
+            seeds, s = shard_batch(seeds, mesh).numpy(), s // d
         for gs in job["guidance_scales"]:
             use_cfg = gs is not None and gs > 1.0
             pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
@@ -314,12 +331,22 @@ def sweep_compare_trajectories_multi(
                     k: v for k, v in metrics.items()
                     if v.ndim == 1 and v.shape[0] == s
                 }
-                pending.append((ji, sf, gs, scalars))
+                pending.append((ji, sf, gs, scalars, sharded))
 
-    flat = [v for *_, scalars in pending for v in scalars.values()]
-    host = iter(torch.stack(flat).cpu().numpy() if flat else ())
+    # One all-gather restores the sharded jobs' samples (rank r holds rows
+    # r·l … (r+1)·l of each vector), then one transfer brings every vector.
+    vecs = [(v, sh) for *_, scalars, sh in pending for v in scalars.values()]
+    local = [v for v, sh in vecs if sh]
+    if local:
+        every = gather_batch(torch.cat(local), mesh).view(d, -1)
+        offsets = np.cumsum([0] + [v.numel() for v in local])
+        full = iter(every[:, a:b].reshape(-1) for a, b in zip(offsets[:-1], offsets[1:]))
+        vecs = [(next(full) if sh else v, sh) for v, sh in vecs]
+    sizes = [v.numel() for v, _ in vecs]
+    host = iter(np.split(torch.cat([v for v, _ in vecs]).cpu().numpy(), np.cumsum(sizes)[:-1])
+                if vecs else ())
     outputs: List[dict] = [{sf: {} for sf in job["students"]} for job in jobs]
-    for ji, sf, gs, scalars in pending:
+    for ji, sf, gs, scalars, _ in pending:
         outputs[ji][sf][gs] = {k: float(np.mean(next(host))) for k in scalars}
     results = [
         {

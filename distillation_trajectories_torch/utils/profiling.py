@@ -87,17 +87,25 @@ def enable_nan_checks(enable: bool = True) -> None:
 
 
 class MetricsLogger:
-    """Structured JSONL metrics stream for a run (one record per event)."""
+    """Structured JSONL metrics stream for a run (one record per event),
+    written by rank 0 of a process group alone."""
 
     def __init__(self, path: str):
+        from ..parallel.distributed import is_main_process
+
         self.path = path
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        self._f = open(path, "a")
+        self._f = None
+        if is_main_process():
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._f = open(path, "a")
 
     def log(self, event: str, **fields) -> None:
+        if self._f is None:
+            return
         record = {"event": event, "time": time.time(), **fields}
         self._f.write(json.dumps(record) + "\n")
         self._f.flush()
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()

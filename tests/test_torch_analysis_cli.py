@@ -89,6 +89,8 @@ def test_default_device_is_cuda(base_dir, cli, extra):
 
 
 def test_mesh_raises(base_dir):
-    with pytest.raises(NotImplementedError):
+    """``--mesh`` in a process without its ranks: JAX's ``ValueError``,
+    naming the launch (the lane: tests/test_torch_sharded_sweep.py)."""
+    with pytest.raises(ValueError, match="needs 2 devices.*torchrun --nproc_per_node=2"):
         analyze_trajectory_metrics.main(FLAGS + ["--base_dir", base_dir, "--mesh", "2,1",
                                                  "--device", "cpu"])

@@ -3,7 +3,8 @@ its plain version, and a train step, the InceptionV3 trunk, AlexNet-LPIPS,
 the noise-prediction compute half, the sweep function's averaged chains,
 the editing chain, the progressive steps, the int8 lane's padded
 ``torch._int_mm`` product, its conv and forward, and the sliding-window
-sampler on the card against the CPU.
+sampler on the card against the CPU; and a CFG chain sharded over two
+ranks that share the card against the unsharded chain there.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -391,3 +392,36 @@ def test_window_sampler_on_card_matches_sequential_chain(cuda):
         torch.testing.assert_close(win, seq, rtol=1e-4, atol=1e-5)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_sharded_chain_on_two_ranks_sharing_the_card(cuda):
+    """Two ``gloo`` ranks on the one card, each its 4 rows of an 8-sample
+    CFG chain through the kernel (9 launches a rank), gathered: the
+    unsharded chain on the card at the sampler's tolerance."""
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.diffusion.sampling import generate_trajectory_scan
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.parallel.launch import spawn_ranks
+    from distillation_trajectories_torch.training import make_eval_model_fn
+
+    import torch_dist
+
+    cfg = torch_dist.config(device="cuda")
+    model = make_unet(cfg, size_factor=0.1, seed=2)
+    gen = torch.Generator().manual_seed(6)
+    noise = torch.randn((8, 16, 16, 1), generator=gen)
+    step_noise = torch.randn((9, 8, 16, 16, 1), generator=gen)
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    out = spawn_ranks(2, torch_dist.sharded_chain_on_card, (sd, noise, step_noise),
+                      backend="gloo", timeout=300)
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = generate_trajectory_scan(make_eval_model_fn(model), noise.cuda(), 10,
+                                        get_diffusion_params(10, cfg)["alphas"], 0,
+                                        guidance_scale=3.0, step_noise=step_noise.cuda())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    for rank_out in out:
+        assert rank_out["launches"] == 9
+        torch.testing.assert_close(rank_out["traj"], want.cpu(), rtol=2e-4, atol=1e-5)

@@ -266,14 +266,17 @@ def test_run_editing_demo_matches_jax(tmp_path, monkeypatch):
 
 
 def test_unported_lanes_and_default_device_raise(small, tmp_path):
+    """``--spatial`` and ``Config.spatial_shape`` in a process without
+    their ranks raise JAX's ``ValueError`` (the lane itself:
+    tests/test_torch_spatial.py); the default device raises without a GPU."""
     jcfg, tcfg, jmodel, variables, model = small
-    with pytest.raises(NotImplementedError, match="spatial"):
+    with pytest.raises(ValueError, match="spatial.*needs 4 devices"):
         run_editing_demo.make_config(run_editing_demo.parse_args(
             ["--base_dir", str(tmp_path), "--spatial", "2,2", "--device", "cpu"]))
     image = np.zeros((16, 16, 1), np.float32)
     for shape in ((1, 2), (2, 1)):
         cfg = configs(timesteps=T, spatial_shape=shape)[1]
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="needs 2 devices"):
             apply_masked_inpainting(model, cfg, image)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):

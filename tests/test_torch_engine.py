@@ -34,6 +34,7 @@ from distillation_trajectories_torch.trajectories import (
     compare_trajectories,
     generate_trajectory,
     sweep_compare_trajectories,
+    sweep_compare_trajectories_multi,
 )
 
 torch.set_num_threads(2)
@@ -162,9 +163,34 @@ def test_generate_trajectory_and_compare_contract():
      dict(mesh_shape=(1, 2)), dict(spatial_shape=(2, 1))],
 )
 def test_unported_options_raise(override):
+    """The multi-device options in a process without their ranks: JAX's
+    ``ValueError`` (the mesh needs 2 devices) from the sweep, and from
+    ``generate_trajectory`` under ``spatial_shape``; under ``mesh_shape``
+    that sampler runs unsharded, as JAX's ignores the mesh.  The lanes
+    themselves are held in tests/test_torch_{sharded_sweep,spatial}.py."""
     tcfg = dataclasses.replace(Config(device="cpu", **KW), **override)
     model = make_unet(tcfg, size_factor=0.1, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="needs 2 devices.*torchrun --nproc_per_node=2"):
         sweep_compare_trajectories(model, {0.1: model}, tcfg, num_samples=1)
-    with pytest.raises(NotImplementedError):
-        generate_trajectory(model, torch.zeros((1, 16, 16, 1)), 10, config=tcfg)
+    noise = torch.randn((1, 16, 16, 1), generator=torch.Generator().manual_seed(0))
+    if "spatial_shape" in override:
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            generate_trajectory(model, noise, 10, config=tcfg)
+    else:
+        plain = dataclasses.replace(tcfg, mesh_shape=(1, 1))
+        torch.testing.assert_close(generate_trajectory(model, noise, 10, config=tcfg),
+                                   generate_trajectory(model, noise, 10, config=plain),
+                                   rtol=0, atol=0)
+
+
+def test_multi_job_sweep_takes_jobs_of_unequal_sample_counts():
+    """Jobs of 2 and 3 samples in one ``sweep_compare_trajectories_multi``
+    call: each job's metrics are those of the job swept alone (the one host
+    transfer at the end splits the vectors by length)."""
+    tcfg = Config(device="cpu", **{**KW, "timesteps": 4})
+    model = make_unet(tcfg, size_factor=0.1, device="cpu")
+    jobs = [{"students": {0.1: model}, "num_samples": n, "base_seed": seed,
+             "guidance_scales": (1.0, 3.0), "timesteps": 4} for n, seed in ((2, 5), (3, 9))]
+    together = sweep_compare_trajectories_multi(model, jobs, tcfg, verbose=False)
+    for job, got in zip(jobs, together):
+        assert got == sweep_compare_trajectories_multi(model, [job], tcfg, verbose=False)[0]

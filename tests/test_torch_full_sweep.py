@@ -38,6 +38,20 @@ def test_write_speedup_math(tmp_path, monkeypatch):
     assert wl["student_size_factors"] == rfs.SIZE_FACTORS
 
 
+def test_run_stage_preflights_the_card_by_default(tmp_path, monkeypatch):
+    """A caller that names no device gets the card's preflight before a
+    retry (the port's default device), not the host's, which always reads
+    ``ok``."""
+    asked = []
+    monkeypatch.setattr(rfs, "preflight",
+                        lambda device: asked.append(device) or {"status": "down", "detail": "x"})
+    out = rfs.run_stage("fails", [sys.executable, "-c", "raise SystemExit(1)"], str(tmp_path),
+                        retries=1)
+    assert asked == ["cuda"] and out["ok"] is False
+    log = open(tmp_path / "sweep_fails.log").read()
+    assert log.count("===== attempt") == 1  # the retry was skipped: the card is down
+
+
 def test_preflight_aborts_without_cuda(tmp_path, monkeypatch):
     """``--device cuda`` where the preflight finds no GPU: no stage runs,
     ``ok: false`` with the preflight is written, and main returns 1."""

@@ -41,7 +41,7 @@ from distillation_trajectories_torch.models import (
 )
 from distillation_trajectories_torch.scripts import train_progressive
 from distillation_trajectories_torch.training import progressive, save_checkpoint
-from distillation_trajectories_torch.training.checkpoints import available_epochs
+from distillation_trajectories_torch.training.checkpoints import available_epochs, load_checkpoint
 from distillation_trajectories_torch.training.state import create_train_state
 from torch_parity import JaxDraws, as_torch, configs, numpy_tree, progressive_draws
 
@@ -222,6 +222,18 @@ def test_train_progressive_cli_on_the_cpu(tmp_path, capsys):
 
 
 def test_checkpoint_sharded_raises(tmp_path):
-    _, tcfg = configs(tmp_path, checkpoint_sharded=True)
-    with pytest.raises(NotImplementedError, match="checkpoint_sharded"):
-        progressive.progressive_distill(tcfg, _seeded(tcfg, 0)[0])
+    """``Config.checkpoint_sharded`` sends the progressive rounds'
+    checkpoints through the sharded lane: ``model_epoch_1.dcp``, read back
+    as the round's student with its Adam state."""
+    _, tcfg = configs(tmp_path, checkpoint_sharded=True, limit_batches_per_epoch=1,
+                      timesteps=T)
+    model, steps = progressive.progressive_distill(tcfg, _seeded(tcfg, 0)[0])
+    ckpt_dir = os.path.join(tcfg.models_dir, "progressive", f"steps_{steps}")
+    assert os.path.isdir(os.path.join(ckpt_dir, "model_epoch_1.dcp"))
+    assert available_epochs(ckpt_dir) == [1]
+    payload = load_checkpoint(ckpt_dir, 1)
+    want = variables_from_unet_state_dict(model.state_dict())
+    for a, b in zip(jax.tree_util.tree_leaves(payload["params"]),
+                    jax.tree_util.tree_leaves(want["params"])):
+        np.testing.assert_array_equal(a, b)
+    assert int(payload["opt_state"]["0"]["count"]) == 1

@@ -14,13 +14,7 @@ JAX_ROOT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 
 # Names of the JAX package the port does not carry, by package path.
 NOT_PORTED = {
-    # The multi-device lanes (mesh, sharded sweep, distributed, spatial),
-    # the next slice of the port.
-    "parallel": "*",
     "training": {
-        # The orbax sharded checkpoint, part of the multi-device slice.
-        "save_checkpoint_sharded", "load_checkpoint_sharded", "available_epochs_sharded",
-        "sharded_checkpoint_path", "abstract_target",
         # flax train-state initialisation; the port's TrainState holds a
         # built torch module (create_train_state).
         "make_state_init_fn",

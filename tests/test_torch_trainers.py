@@ -11,6 +11,7 @@ the port's own epoch-2 teacher loss moves by up to 2.5e-4 of itself
 between runs on 1, 3 and 8 CPU threads, and differs from JAX's by as much.
 """
 
+import dataclasses
 import importlib
 import json
 import os
@@ -163,5 +164,16 @@ def test_train_students_match_jax(pair):
         for (k, v), w in zip(again[sf].state_dict().items(), out[sf].state_dict().values()):
             if not k.endswith("num_batches_tracked"):
                 assert torch.equal(v, w.cpu()), k
-    with pytest.raises(NotImplementedError):
-        port_students.train_students(tcfg, custom_size_factors=sfs, sweep_parallel=True)
+
+    # sweep_parallel trains both students at once: bit for bit the sequential ones.
+    par_cfg = dataclasses.replace(tcfg, base_dir=tcfg.base_dir + "_par").create_directories()
+    jax_ckpt.save_checkpoint(par_cfg.teacher_models_dir, 1, variables["params"],
+                             batch_stats=variables["batch_stats"])
+    par = port_students.train_students(par_cfg, custom_size_factors=sfs, seed=0,
+                                       sweep_parallel=True, draws=JaxDraws.factory(jcfg))
+    for sf in sfs:
+        for (k, v), w in zip(par[sf].state_dict().items(), out[sf].state_dict().values()):
+            assert torch.equal(v, w), k
+        _check_png(os.path.join(par_cfg.results_dir, f"student_samples_size_{sf}_epoch_2.png"),
+                   4, 16, 2)
+        assert os.path.exists(os.path.join(par_cfg.student_dir(sf), "model_epoch_2.msgpack"))
