@@ -54,6 +54,15 @@ def start_distributed(config) -> bool:
     return initialize_distributed(backend="gloo" if cpu else None)
 
 
+def report_device(config) -> None:
+    """Print the device a CLI runs on and whether CUDA sees a card (under
+    ``run_on_cpu`` it must not)."""
+    import torch
+
+    print(f"[device] {config.device}; torch.cuda.is_available()={torch.cuda.is_available()}",
+          flush=True)
+
+
 def make_config(args):
     """A Config from parsed flags, in the launcher's process group."""
     from ..config import Config
@@ -80,6 +89,7 @@ def make_config(args):
     if getattr(args, "timesteps", None) is not None:
         config.timesteps = config.sample_steps = args.timesteps
         config.teacher_steps = config.student_steps = args.timesteps
+    report_device(config)
     return config.create_directories()
 
 
@@ -131,6 +141,7 @@ def analysis_config(args, timesteps=None):
     if timesteps:
         config.timesteps = timesteps
     resolve_device(config.device)
+    report_device(config)
     return config.create_directories()
 
 

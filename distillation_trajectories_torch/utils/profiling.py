@@ -5,7 +5,9 @@ metrics log (port of the JAX package's ``utils/profiling.py``).
 the GPU is inside the time only where the phase synchronizes.
 ``profile_trace`` is ``torch.profiler`` where the JAX package runs
 ``jax.profiler``; ``enable_nan_checks`` is autograd's anomaly detection
-where it sets ``jax_debug_nans``.
+where it sets ``jax_debug_nans``.  ``busy_and_window``, ``tally`` and
+``trace_summary`` are the one reading of a profile that the sampler
+profiler (``scripts/profile_sampler.py``) and ``chip_smoke.py`` share.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 _PHASE_TIMES: Dict[str, list] = defaultdict(list)
 
@@ -76,6 +78,94 @@ def profile_trace(trace_dir: Optional[str] = None):
     path = os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(path)
     print(f"[profiler] trace written to {path}")
+
+
+KERNEL_KINDS = (  # first match wins
+    ("cfg_engine_update (Triton)", ("cfg_engine_update",)),
+    ("upsample", ("upsample",)),
+    ("max pool", ("max_pool",)),
+    ("batch norm", ("batch_norm",)),
+    ("concat", ("CatArray", "cat_")),
+    ("random normal", ("normal", "philox")),
+    ("copy / cast", ("copy",)),
+    ("convolution", ("conv", "xmma", "implicit_gemm", "cudnn")),
+    ("matmul", ("gemm", "cutlass", "cublas")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "Functor")),
+)
+
+# Chrome-trace categories of the device's own activity.
+DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def kernel_kind(name: str, kinds=KERNEL_KINDS) -> str:
+    """The first kind of ``kinds`` one of whose substrings is in ``name``."""
+    return next((kind for kind, keys in kinds if any(s in name for s in keys)), "other")
+
+
+def busy_and_window(spans: Iterable[Tuple[float, float]]) -> Tuple[float, float]:
+    """Busy time (the union of the ``(start, end)`` intervals) and the span
+    from the first start to the last end, in the spans' unit."""
+    spans = sorted(spans)
+    busy, cur_start, cur_end = 0.0, *spans[0]
+    window_end = cur_end
+    for start, end in spans[1:]:
+        if start > cur_end:
+            busy += cur_end - cur_start
+            cur_start, cur_end = start, end
+        else:
+            cur_end = max(cur_end, end)
+        window_end = max(window_end, end)
+    busy += cur_end - cur_start
+    return busy, window_end - spans[0][0]
+
+
+def tally(events: Iterable[Tuple[str, float]], kinds=KERNEL_KINDS):
+    """``(by_kind, by_name)`` of ``(name, duration)`` events, each mapping a
+    key to ``(launches, total duration)``."""
+    by_kind: Dict[str, Tuple[int, float]] = {}
+    by_name: Dict[str, Tuple[int, float]] = {}
+    for name, dur in events:
+        for table, key in ((by_kind, kernel_kind(name, kinds)), (by_name, name)):
+            n, t = table.get(key, (0, 0.0))
+            table[key] = (n + 1, t + dur)
+    return by_kind, by_name
+
+
+class TraceSummary(NamedTuple):
+    """What ``trace_summary`` reads from one Chrome trace (times in µs)."""
+
+    path: str
+    on_device: bool  # rows are device kernels (self times), else CPU operators (inclusive)
+    rows: List[Tuple[str, int, float]]  # (name, launches, total), longest first
+    busy_us: float
+    window_us: float
+
+    @property
+    def idle_share(self) -> float:
+        return 1.0 - self.busy_us / self.window_us if self.window_us > 0 else 0.0
+
+    def launches(self, substring: str) -> int:
+        return sum(n for name, n, _ in self.rows if substring in name)
+
+
+def trace_summary(path: str) -> TraceSummary:
+    """One row per name of a ``torch.profiler`` Chrome trace: its device
+    kernels and memory operations where it holds any, else its CPU
+    operators; with the busy time (the union of their intervals) over the
+    window from the first one's start to the last one's end."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    picked = [e for e in events if e.get("cat") in DEVICE_CATEGORIES]
+    on_device = bool(picked)
+    if not on_device:
+        picked = [e for e in events if e.get("cat") == "cpu_op"]
+    if not picked:
+        raise ValueError(f"{path} holds neither device activity nor CPU operators")
+    spans = [(e["name"], float(e["ts"]), float(e["dur"])) for e in picked]
+    busy, window = busy_and_window((ts, ts + dur) for _, ts, dur in spans)
+    _, by_name = tally((name, dur) for name, _, dur in spans)
+    rows = sorted(((name, n, t) for name, (n, t) in by_name.items()), key=lambda r: -r[2])
+    return TraceSummary(path, on_device, rows, busy, window)
 
 
 def enable_nan_checks(enable: bool = True) -> None:

@@ -63,12 +63,27 @@ def _images(seed):
 
 
 def test_engine_c_matches_jax():
+    """``c1`` (a quotient, no cancellation) at rtol 1e-6.  ``c2`` is the
+    difference of two terms of 0.05–0.13 whose float32 rounding survives
+    the cancellation, so a relative hold on it measures nothing: each
+    package's ``c2`` is held to a float64 evaluation from the same float32
+    alphas within 4·eps_f32 of the larger term, and the two packages to
+    each other within twice that."""
     a = get_diffusion_params(T)["alphas"]
     t = np.arange(2, T)
-    got = progressive._engine_c(torch.from_numpy(a[t]), torch.from_numpy(a[t - 1]))
-    want = jax_progressive._engine_c(jnp.asarray(a[t]), jnp.asarray(a[t - 1]))
-    for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6)
+    (g1, g2) = (x.numpy() for x in progressive._engine_c(
+        torch.from_numpy(a[t]), torch.from_numpy(a[t - 1])))
+    (w1, w2) = (np.asarray(x) for x in jax_progressive._engine_c(
+        jnp.asarray(a[t]), jnp.asarray(a[t - 1])))
+    np.testing.assert_allclose(g1, w1, rtol=1e-6)
+
+    at, ap = a[t].astype(np.float64), a[t - 1].astype(np.float64)
+    first, second = np.sqrt(1.0 - ap), np.sqrt(ap / at) * np.sqrt(1.0 - at)
+    exact = first - second
+    atol = 4 * np.finfo(np.float32).eps * np.maximum(np.abs(first), np.abs(second))
+    for name, c2 in (("port", g2), ("jax", w2)):
+        assert np.all(np.abs(c2 - exact) <= atol), (name, np.abs(c2 - exact) / atol)
+    assert np.all(np.abs(g2 - w2) <= 2 * atol), np.abs(g2 - w2) / atol
 
 
 def _check_grads(model, jax_grads):

@@ -66,3 +66,34 @@ def test_jax_public_names_are_the_ports(package):
     assert not missing, f"{package}: the port lacks {missing}"
     carried = sorted(n for n in skip if hasattr(module, n))
     assert not carried, f"{package}: {carried} are ported now; take them off the list"
+
+
+def test_port_modules_import_no_jax():
+    """Every module of the port (bar the Triton kernel's, which imports
+    triton and is loaded only to launch on the card) imports in a fresh
+    interpreter without pulling in ``jax`` or the JAX package."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(JAX_ROOT)
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import distillation_trajectories_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')\n"
+        "         if not m.name.endswith('cfg_update_triton')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+        "'distillation_trajectories_tpu'))\n"
+        "print(' '.join(names))\n"
+        "print(' '.join(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    names, bad = out.stdout.split("\n")[:2]
+    assert bad == "", bad
+    scripts = {f"distillation_trajectories_torch.scripts.{s}" for s in (
+        "profile_sampler", "run_on_cpu", "smoke_diffusion", "show_real_samples",
+        "analyze_latest_sample")}
+    assert scripts <= set(names.split()) and len(names.split()) >= 80
