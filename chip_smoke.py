@@ -70,27 +70,23 @@ on first use.  Phases, each printing its own lines:
    teacher_steps 100, bf16, dropout 0.3): two plain rounds (100 → 50 → 25)
    and one guided round (w ~ U[1, 5], 100 → 50) of 10 batches, with step
    times, images/s and peak memory per round and every checkpoint read
-   back, then the students' chains at 256 x 32x32x3 (the plain steps_25
-   student, the guided steps_50 student at w=3 in one forward a step; 73
-   launches) beside phase 4's teacher CFG chain;
+   back (phase 12 times the students' chains);
 9. the sampler's opt-in lanes, migration and the orchestrator, on phase 5's
    checkpoints: (a) ``int8_matmul`` (``torch._int_mm``, zero-padded) on the
    card against the exact product, ``_qconv`` card vs CPU bit for bit and
    the int8 forward card vs CPU (float32, TF32 off: the teacher's int8
    weights, then its forward fed the CPU's codes at every site, held
    exactly up to rounding ties; free-running, near the float forward);
-   then the arms of
-   ``scripts/bench_quant.py`` (float, fold, int8, int8_static,
-   int8_static_mixed) as T=50 CFG chains of 256 x 32x32x3 from the sf-1.0
-   teacher in bf16, with traj/s, peak memory and the endpoint's relative L2
-   against float (49 launches a chain), and each Block conv's int8 time
-   beside the bf16 cuDNN conv of the same layer; (b) sliding-window
-   ParaDiGMS at B=1, T=50, W=8 through ``generate_trajectory`` at tol 0 and
-   1e-3 against the sequential chain (sweeps, latency, the gap); (c) the
-   teacher exported to a reference ``.pt`` and imported back through the
-   CLI, read back equal; (d) ``run_full_sweep --skip-training`` as a
-   subprocess (its CFG stage at 2 of 10 guidance scales), each stage's
-   seconds and ``ok`` from ``SWEEP_torch_chip.json``;
+   then each Block conv's int8 time beside the bf16 cuDNN conv of the same
+   layer (the arms' chains are phase 12(c)'s); (b) the teacher exported to
+   a reference ``.pt`` and imported back through the CLI, read back equal;
+   (c) ``run_full_sweep --skip-training`` as a subprocess (its CFG stage at
+   2 of 10 guidance scales), each stage's seconds and ``ok`` from
+   ``SWEEP_torch_chip.json``; (d) the engine's window dispatch
+   (``Config.parallel_sampling="window"``, W=8, tol 0) through
+   ``generate_trajectory`` on the teacher, B=1, float32 with TF32 off,
+   within 1e-5 of the sequential chain and launching no kernel (the
+   window sampler's grid is phase 12(b)'s);
 10. the multi-device lanes, on two ranks spawned here that share the card
    (gloo; nothing here is a multi-GPU speed-up): (a) the data-sharded sweep
    on (2, 1) at the main path's width (256 samples, 128 a rank, T=50,
@@ -115,10 +111,26 @@ on first use.  Phases, each printing its own lines:
    this process's device memory does not move; (d) ``analyze_latest_sample``
    on phase 5's grid, its structure score equal to numpy's on the pixels
    decoded with ``zlib``; (e) ``show_real_samples.run`` on the synthetic
-   stand-in.
+   stand-in;
+12. the bench entry points, each through its module's ``run`` at its
+   defaults (full width: sf 1.0, 32x32x3, bf16), the kernel's launches
+   checked against the count each bench's arguments give and its JSON
+   record printed with the card's name and power limit: (a) ``bench`` (the
+   main path's traj/s over 5 timed chains, the metric suite's pairs/s, the
+   CPU baseline; its ledger in the workdir; then its chain timed again in
+   turns with the step noise drawn inside and before each timed call, the
+   mean and the best of each); (b) ``bench_r2`` ``pallas``
+   (kernel vs plain tail, batch 256), ``ablate`` (batch 256) and
+   ``paradigms`` (B=1, windows {4, 8, 16} x tol {1e-3, 3e-3, 1e-2});
+   (c) ``bench_quant --use_checkpoint`` on phase 5's teacher (the five
+   arms, the int8 census); (d) ``bench_progressive --measure_only`` on
+   phase 8(c)'s plain steps_25 and guided steps_50 students against phase
+   5's teacher at T=100 (the guided one with a w-sweep of 1, 3, 5);
+   (e) ``bench_fast --teacher_steps 100 --student_steps 50 --fid_samples 64``
+   on the same teacher and guided student.
 
-The kernel record counts the launches of phases 4, 6(b), 7(b), 8, 9, 10
-(the ranks' included) and 11.  The last
+The kernel record counts the launches of phases 4, 6(b), 7(b), 8(b), 9(d),
+10 (the ranks' included), 11 and 12.  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -404,7 +416,7 @@ def phase_main_path(card):
           f"first call {first_s:.3f} s = {pairs / first_s:.2f} pairs/s; "
           f"second call {second_s:.3f} s = {pairs / second_s:.2f} pairs/s [{card}]")
     print(f"peak device memory (first sweep): {peak} bytes = {peak / 2**30:.3f} GiB [{card}]")
-    return launches, SAMPLES / chain_s
+    return launches
 
 
 def _close_grads(label, got_model, want_model):
@@ -890,23 +902,6 @@ def phase_analysis_sweep(card, workdir):
     return launches
 
 
-def _conv_flops(model, x):
-    """2 x multiply-adds of every convolution of one forward of ``x``."""
-    total = [0]
-
-    def hook(module, inputs, output):
-        k = module.weight[0].numel()  # in_channels / groups x kernel area
-        total[0] += 2 * output.numel() * k
-
-    handles = [m.register_forward_hook(hook) for m in model.modules()
-               if isinstance(m, torch.nn.Conv2d)]
-    with torch.no_grad():
-        model(x)
-    for h in handles:
-        h.remove()
-    return total[0]
-
-
 def phase_analysis_fid(card, workdir):
     """Phase 6(c): the FID CLI's ``run`` half at full width."""
     from distillation_trajectories_torch.metrics.fid import (
@@ -917,6 +912,7 @@ def phase_analysis_fid(card, workdir):
     from distillation_trajectories_torch.models.inception import preprocess_for_inception
     from distillation_trajectories_torch.scripts import analyze_fid
     from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
+    from distillation_trajectories_torch.utils.profiling import conv_flops
 
     args = analyze_fid.parse_args(["--base_dir", workdir, "--size_factors", FID_SIZES,
                                    "--device", "cuda"])
@@ -981,7 +977,7 @@ def phase_analysis_fid(card, workdir):
     gen = torch.Generator(device="cuda").manual_seed(0)
     batch = preprocess_for_inception(
         torch.rand((inception.batch_size, 32, 32, 3), device="cuda", generator=gen) * 2 - 1)
-    flops = _conv_flops(inception.model, batch)
+    flops = conv_flops(inception.model, batch)
     with torch.no_grad():
         # Three forwards (~1,000 launches) stay inside the sleep kernel's
         # hold on the stream, so the events time the device, not the host.
@@ -1416,33 +1412,14 @@ class _RoundSteps(_TimedSteps):
         return step
 
 
-def _chain_rate(run, n):
-    """Best of three host-timed calls of ``run`` (already warm), as traj/s."""
-    times = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    return n / min(times), times
-
-
-def phase_progressive(card, workdir, teacher_tps):
+def phase_progressive(card, workdir):
     """Phase 8(c): ``progressive_distill`` at full width from phase 5's
-    teacher, two plain rounds and one guided round, then the students'
-    chains at the main path's shape."""
+    teacher, two plain rounds and one guided round, every checkpoint read
+    back (phase 12(d) and (e) time the students' chains)."""
     from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion import get_diffusion_params
-    from distillation_trajectories_torch.diffusion.sampling import (
-        draw_step_noise,
-        generate_trajectory_scan,
-        seeded_normal,
-    )
     from distillation_trajectories_torch.models import load_unet_variables, make_unet
-    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
     from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
-    from distillation_trajectories_torch.training import make_eval_model_fn, progressive
+    from distillation_trajectories_torch.training import progressive
     from distillation_trajectories_torch.training.checkpoints import (
         load_checkpoint,
         variables_from_checkpoint,
@@ -1493,41 +1470,8 @@ def phase_progressive(card, workdir, teacher_tps):
     print(f"progressive_distill wall: plain 2 rounds {plain_s:.3f} s, guided 1 round "
           f"{guided_s:.3f} s (datasets, steps and async checkpoints included) [{card}]")
 
-    seeds = list(range(42, 42 + SAMPLES))
-    noises = seeded_normal([(s, 0) for s in seeds], MAIN_SHAPE[1:], "cuda")
-    chains = (
-        (f"plain steps_{plain_steps} student", make_eval_model_fn(plain), plain_steps),
-        (f"guided steps_{guided_steps} student at w={PROG_W} (make_guided_eval_fn, 1 forward "
-         f"a step)", progressive.make_guided_eval_fn(guided, PROG_W), guided_steps),
-    )
-    step_noise = {t: draw_step_noise(seeds, t, MAIN_SHAPE[1:], "cuda") for _, _, t in chains}
-    runs = [lambda fn=fn, t=t: generate_trajectory_scan(
-        fn, noises, t, get_diffusion_params(t, cfg)["alphas"], seed=0, step_noise=step_noise[t])
-        for _, fn, t in chains]
-    torch.cuda.synchronize()
-    cfg_engine_update.launches = 0
-    outs = [run() for run in runs]
-    torch.cuda.synchronize()
-    launches = cfg_engine_update.launches
-    expected = sum(t - 1 for _, _, t in chains)
-    print(f"progressive students' chains kernel launches: {launches} (expected {expected}) [{card}]")
-    if launches != expected:
-        raise RuntimeError("the students' chains did not launch the kernel once per step")
-    for (label, _, t), out in zip(chains, outs):
-        if tuple(out.shape) != (t + 1, *MAIN_SHAPE) or not torch.isfinite(out).all():
-            raise RuntimeError(f"{label}: chain not finite or misshapen")
-    for (label, _, t), run in zip(chains, runs):
-        tps, times = _chain_rate(run, SAMPLES)
-        print(f"{label}, T={t}, {SAMPLES} x 32x32x3: {tps:.2f} traj/s (best of "
-              f"{[round(x, 4) for x in times]} s, {min(times) / (t - 1) * 1e3:.3f} ms a step) "
-              f"against phase 4's two-forward teacher CFG chain at T={MAIN_T}: "
-              f"{teacher_tps:.2f} traj/s ({SAMPLES / teacher_tps / (MAIN_T - 1) * 1e3:.3f} ms a "
-              f"step), x{tps / teacher_tps:.2f} [{card}]")
-        profile_breakdown(run, min(times), card, label=f"one {label} chain, T={t}")
-    return launches
 
-
-def phase_edit(card, workdir, teacher_tps):
+def phase_edit(card, workdir):
     t0 = time.perf_counter()
     phase_edit_check()
     print(f"phase editing/progressive (a) card vs CPU: {time.perf_counter() - t0:.1f} s [{card}]")
@@ -1535,7 +1479,7 @@ def phase_edit(card, workdir, teacher_tps):
     launches = phase_edit_demo(card, workdir)
     print(f"phase editing/progressive (b) editing demo: {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
-    launches += phase_progressive(card, workdir, teacher_tps)
+    phase_progressive(card, workdir)
     print(f"phase editing/progressive (c) progressive distillation: "
           f"{time.perf_counter() - t0:.1f} s [{card}]")
     if "matplotlib" in sys.modules:
@@ -1544,12 +1488,6 @@ def phase_edit(card, workdir, teacher_tps):
 
 
 INT8_OPS_PER_S = 1979e12  # H100 SXM int8 tensor cores (dense)
-QUANT_ARMS = ("float", "fold", "int8", "int8_static", "int8_static_mixed")
-LEVEL_HW = {"enc1": 32, "enc2": 16, "enc3": 8, "enc4": 4, "bottleneck": 2,
-            "dec3": 4, "dec2": 8, "dec1": 16}  # each Block's spatial size at 32x32
-# scripts/bench_quant.py's mixed set: int8 only where a Block works at 8x8 or more.
-MIXED_BLOCKS = {name for name, hw in LEVEL_HW.items() if hw >= 8}
-PARADIGMS_W = 8
 
 
 def phase_int8_check(card, workdir):
@@ -1763,94 +1701,6 @@ def _int8_forced_forward(fns, inputs):
     return out, sites
 
 
-def _arm_fn(arm, teacher, scales):
-    from distillation_trajectories_torch.models.quantized import make_quantized_eval_fn
-    from distillation_trajectories_torch.training import make_eval_model_fn
-
-    if arm == "float":
-        return make_eval_model_fn(teacher)
-    if arm == "fold":
-        return make_quantized_eval_fn(teacher, nbits=None)
-    if arm == "int8":
-        return make_quantized_eval_fn(teacher)
-    if arm == "int8_static":
-        return make_quantized_eval_fn(teacher, act_scales=scales)
-    return make_quantized_eval_fn(teacher, act_scales=scales, quant_blocks=MIXED_BLOCKS)
-
-
-def phase_int8_arms(card, workdir):
-    """9(a): the arms of scripts/bench_quant.py on phase 5's teacher at the
-    main path's shape; returns the kernel's launches."""
-    from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion import get_diffusion_params
-    from distillation_trajectories_torch.diffusion.sampling import (
-        CFG_COND_PAIRS,
-        draw_step_noise,
-        generate_trajectory_scan,
-        seeded_normal,
-    )
-    from distillation_trajectories_torch.models.quantized import calibrate_activation_scales
-    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
-    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
-
-    cfg = Config(base_dir=workdir, timesteps=MAIN_T, sample_steps=MAIN_T)  # bf16, cuda
-    teacher = load_teacher_from_arg(cfg)
-    alphas = get_diffusion_params(MAIN_T, cfg)["alphas"]
-    seeds = list(range(42, 42 + SAMPLES))
-    noises = seeded_normal([(s, 0) for s in seeds], MAIN_SHAPE[1:], "cuda")
-    step_noise = draw_step_noise(seeds, MAIN_T, MAIN_SHAPE[1:], "cuda")
-    chain = lambda fn: generate_trajectory_scan(fn, noises, MAIN_T, alphas, seed=0,
-                                                guidance_scale=3.0, step_noise=step_noise)
-    print(f"int8 lane: phase 5's teacher sf 1.0, {SAMPLES} x 32x32x3, T={MAIN_T}, gs 3.0, compute "
-          f"{cfg.compute_dtype}; arms {list(QUANT_ARMS)}; mixed blocks {sorted(MIXED_BLOCKS)}")
-    results, f_chain, scales, launches = {}, None, None, 0
-    for arm in QUANT_ARMS:
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        if arm.startswith("int8_static") and scales is None:
-            # Calibration states along the float chain (activations grow
-            # toward the noisy end) with the sampler's two (cond, mask) rows.
-            cb = min(32, SAMPLES)
-            idxs = sorted({0, MAIN_T // 4, MAIN_T // 2, (3 * MAIN_T) // 4, MAIN_T - 1})
-            rows = [(f_chain[i][:cb], float(MAIN_T - 1 - i), c, mk)
-                    for i in idxs for c, mk in np.unique(CFG_COND_PAIRS, axis=0)]
-            scales = calibrate_activation_scales(
-                teacher, torch.stack([r[0] for r in rows]),
-                torch.tensor([[r[1]] * cb for r in rows], device="cuda"),
-                torch.tensor([[[r[2]]] * cb for r in rows], device="cuda"),
-                torch.tensor([[[r[3]]] * cb for r in rows], device="cuda"))
-            print(f"  calibrated {sum(len(v) for v in scales.values())} static scales on "
-                  f"{len(rows)} batches of {cb} in {time.perf_counter() - t0:.3f} s")
-        fn = _arm_fn(arm, teacher, scales)
-        before = cfg_engine_update.launches
-        first = chain(fn)
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        tps, times = _chain_rate(lambda: chain(fn), SAMPLES)
-        made = cfg_engine_update.launches - before
-        peak = torch.cuda.max_memory_allocated()
-        if made != 4 * (MAIN_T - 1) or not torch.isfinite(first).all():
-            raise RuntimeError(f"{arm}: {made} launches for 4 chains, or a chain not finite")
-        launches += made
-        if arm == "float":
-            f_chain = first
-        end, f_end = first[-1], f_chain[-1]
-        rel = float((end - f_end).norm() / f_end.norm())
-        results[arm] = dict(tps=tps, rel=rel, peak=peak)
-        print(f"  arm {arm}: {tps:.2f} traj/s (best of {[round(x, 4) for x in times]} s; first "
-              f"call {first_s:.3f} s with setup), x{tps / results['float']['tps']:.3f} float; "
-              f"endpoint relative L2 vs float {rel:.5f}; peak device memory {peak} bytes = "
-              f"{peak / 2**30:.3f} GiB [{card}]")
-    best = max((a for a in results if a.startswith("int8")), key=lambda a: results[a]["tps"])
-    print(f"int8 lane best arm: {best} at {results[best]['tps']:.2f} traj/s = "
-          f"x{results[best]['tps'] / results['float']['tps']:.3f} the bf16 float chain, endpoint "
-          f"relative L2 {results[best]['rel']:.5f} [{card}]")
-    _int8_layer_times(teacher, card)
-    return launches
-
-
 def _int8_layer_times(teacher, card):
     """Each Block conv at the main path's batch: the int8 conv (im2col +
     torch._int_mm + dequantization), its product alone, and the bf16 cuDNN
@@ -1865,13 +1715,15 @@ def _int8_layer_times(teacher, card):
         quantize_unet_variables,
     )
 
+    from distillation_trajectories_torch.scripts._common import block_sizes
+
     qvars = quantize_unet_variables(teacher)
     gen = torch.Generator(device="cuda").manual_seed(1)
     sums = [0.0, 0.0, 0.0]
     print(f"int8 conv per layer at batch {SAMPLES} (device ms; product bound at 1979 TOP/s int8 and "
           f"3.35 TB/s):")
     with torch.no_grad():
-        for name, hw in LEVEL_HW.items():
+        for name, hw in block_sizes(32).items():
             block = getattr(teacher, name)
             for conv_name, key, pad in (("conv1", "conv1", 1), ("conv2", "conv2", 1),
                                         ("residual_conv", "residual", 0)):
@@ -1900,64 +1752,8 @@ def _int8_layer_times(teacher, card):
           f"bf16 cuDNN {sums[2]:.3f} ms [{card}]")
 
 
-def phase_paradigms(card, workdir):
-    """9(b): sliding-window ParaDiGMS through generate_trajectory against
-    the sequential chain; returns the kernel's launches (the sequential
-    chains'; the window path launches none)."""
-    import dataclasses
-
-    from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion import parallel_sampling
-    from distillation_trajectories_torch.diffusion.sampling import seeded_normal
-    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
-    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
-    from distillation_trajectories_torch.trajectories import generate_trajectory
-
-    sweeps = []
-    window = parallel_sampling.sliding_window_trajectory
-
-    def recorded(*args, **kwargs):
-        traj, n = window(*args, **kwargs)
-        sweeps.append(n)
-        return traj, n
-
-    noise = seeded_normal([(7, 0)], MAIN_SHAPE[1:], "cuda")
-    launches = 0
-    for dtype in ("float32", "bfloat16"):
-        saved = _tf32_off() if dtype == "float32" else None
-        cfg = Config(base_dir=workdir, timesteps=MAIN_T, sample_steps=MAIN_T, compute_dtype=dtype)
-        teacher = load_teacher_from_arg(cfg)
-        runs = {"sequential": (cfg, 0)}
-        for tol in (0.0, 1e-3):
-            runs[f"window tol={tol:g}"] = (dataclasses.replace(
-                cfg, parallel_sampling="window", paradigms_window=PARADIGMS_W,
-                paradigms_tol=tol), tol)
-        outs = {}
-        with mock.patch.object(parallel_sampling, "sliding_window_trajectory", recorded):
-            for label, (rcfg, _) in runs.items():
-                run = lambda: generate_trajectory(teacher, noise, MAIN_T, seed=7,
-                                                  guidance_scale=3.0, config=rcfg)
-                before = cfg_engine_update.launches
-                sweeps.clear()
-                outs[label] = run()
-                _, times = _chain_rate(run, 1)
-                made = cfg_engine_update.launches - before
-                expected = 4 * (MAIN_T - 1) if label == "sequential" else 0
-                if made != expected or not torch.isfinite(outs[label]).all():
-                    raise RuntimeError(f"{label}: {made} launches (expected {expected}) or not finite")
-                launches += made
-                gap = float((outs[label] - outs["sequential"]).abs().max())
-                print(f"ParaDiGMS {dtype} {label} (B=1, T={MAIN_T}, W={PARADIGMS_W}, gs 3.0): "
-                      f"{'sweeps ' + str(sweeps[-1]) + ', ' if sweeps else ''}best of "
-                      f"{[round(x * 1e3, 2) for x in times]} ms, {made} kernel launches in 4 "
-                      f"calls, max abs gap to the sequential chain {gap:.3e} [{card}]")
-        if saved is not None:
-            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
-    return launches
-
-
 def phase_migration(card, workdir):
-    """9(c): phase 5's teacher to a reference .pt and back through the CLIs."""
+    """9(b): phase 5's teacher to a reference .pt and back through the CLIs."""
     from distillation_trajectories_torch import Config
     from distillation_trajectories_torch.models import load_unet_variables, make_unet
     from distillation_trajectories_torch.models.torch_port import export_reference_unet_state_dict
@@ -2009,13 +1805,13 @@ def phase_migration(card, workdir):
           f"identical (max abs diff {diff}, bf16, 8 images) [{card}]")
 
 
-# 9(d)'s CFG stage at 2 of its 10 guidance scales: phase 6(b) runs the same
+# 9(c)'s CFG stage at 2 of its 10 guidance scales: phase 6(b) runs the same
 # CLI with both jobs at full depth, and the script's time limit is shared.
 ORCHESTRATOR_STAGE_ARGS = {"cfg_trio": ["--guidance_scales", "1.0,3.0"]}
 
 
 def phase_orchestrator(card, workdir):
-    """9(d): the full-sweep orchestrator with --skip-training on phase 5's
+    """9(c): the full-sweep orchestrator with --skip-training on phase 5's
     checkpoints, as a subprocess (each stage a subprocess of its own), its
     CFG stage cut to two guidance scales."""
     torch.cuda.empty_cache()
@@ -2050,20 +1846,84 @@ def phase_orchestrator(card, workdir):
         raise RuntimeError("the orchestrator's stages did not all pass")
 
 
+PARADIGMS_W = 8  # 9(d)'s window
+
+
+def phase_window_dispatch(card, workdir):
+    """9(d): the engine's window dispatch (``Config.parallel_sampling``)
+    on phase 5's teacher, B=1, float32 with TF32 off: ``generate_trajectory``
+    sequential (the kernel at every step) and with the window sampler at
+    tol 0 (no kernel), the latter within 1e-5 of the former; returns the
+    kernel's launches."""
+    import dataclasses
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import parallel_sampling
+    from distillation_trajectories_torch.diffusion.sampling import seeded_normal
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+    from distillation_trajectories_torch.trajectories import generate_trajectory
+
+    sweeps = []
+    window = parallel_sampling.sliding_window_trajectory
+
+    def recorded(*args, **kwargs):
+        traj, n = window(*args, **kwargs)
+        sweeps.append(n)
+        return traj, n
+
+    saved = _tf32_off()
+    try:
+        cfg = Config(base_dir=workdir, timesteps=MAIN_T, sample_steps=MAIN_T,
+                     compute_dtype="float32")
+        teacher = load_teacher_from_arg(cfg)
+        runs = {"sequential": cfg, "window": dataclasses.replace(
+            cfg, parallel_sampling="window", paradigms_window=PARADIGMS_W, paradigms_tol=0.0)}
+        noise = seeded_normal([(7, 0)], MAIN_SHAPE[1:], "cuda")
+        outs, made, secs = {}, {}, {}
+        with mock.patch.object(parallel_sampling, "sliding_window_trajectory", recorded):
+            for label, rcfg in runs.items():
+                before = cfg_engine_update.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[label] = generate_trajectory(teacher, noise, MAIN_T, seed=7,
+                                                  guidance_scale=3.0, config=rcfg)
+                torch.cuda.synchronize()
+                secs[label] = time.perf_counter() - t0
+                made[label] = cfg_engine_update.launches - before
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    gap = float((outs["window"] - outs["sequential"]).abs().max())
+    print(f"window dispatch (phase 5's teacher, B=1, T={MAIN_T}, W={PARADIGMS_W}, tol 0, gs 3.0, "
+          f"float32, TF32 off): {sweeps} sweeps, {made} kernel launches, seconds (first calls) "
+          f"{ {k: round(v, 3) for k, v in secs.items()} }, max abs gap to the sequential chain "
+          f"{gap:.3e} (at most 1e-5) [{card}]")
+    if (made != {"sequential": MAIN_T - 1, "window": 0} or len(sweeps) != 1 or not gap <= 1e-5
+            or not all(torch.isfinite(o).all() for o in outs.values())):
+        raise RuntimeError("the window dispatch did not hold to the sequential chain")
+    return made["sequential"]
+
+
 def phase_lanes(card, workdir):
+    """Phase 9 (the int8 arms' chains and the window sampler's grid are
+    phase 12's: ``bench_quant``, ``bench_r2``); returns the kernel's
+    launches (9(d)'s sequential chain)."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+
     t0 = time.perf_counter()
     phase_int8_check(card, workdir)
-    launches = phase_int8_arms(card, workdir)
+    _int8_layer_times(load_teacher_from_arg(Config(base_dir=workdir)), card)
     print(f"phase lanes (a) int8: {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
-    launches += phase_paradigms(card, workdir)
-    print(f"phase lanes (b) ParaDiGMS: {time.perf_counter() - t0:.1f} s [{card}]")
-    t0 = time.perf_counter()
     phase_migration(card, workdir)
-    print(f"phase lanes (c) migration: {time.perf_counter() - t0:.1f} s [{card}]")
+    print(f"phase lanes (b) migration: {time.perf_counter() - t0:.1f} s [{card}]")
     t0 = time.perf_counter()
     phase_orchestrator(card, workdir)
-    print(f"phase lanes (d) orchestrator: {time.perf_counter() - t0:.1f} s [{card}]")
+    print(f"phase lanes (c) orchestrator: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    launches = phase_window_dispatch(card, workdir)
+    print(f"phase lanes (d) window dispatch: {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
 
 
@@ -2686,6 +2546,247 @@ def phase_last_entry_points(card, workdir):
     return launches
 
 
+# --- Phase 12: the bench entry points, through each module's run ------------
+
+
+def _bench_run(label, module, flags, expected, card):
+    """``module.run`` on ``flags`` with the kernel's launches counted from 0:
+    the record, after the launches are checked against ``expected(args)``
+    and the record printed."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+
+    args = module.parse_args(flags)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    cfg_engine_update.launches = 0
+    t0 = time.perf_counter()
+    record = module.run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, want = cfg_engine_update.launches, expected(args)
+    print(f"{label}: {' '.join(flags)}")
+    print(json.dumps(record))
+    print(f"{label}: {wall:.1f} s, {launches} kernel launches (expected {want} from its "
+          f"arguments) [{card}]")
+    if launches != want:
+        raise RuntimeError(f"{label} launched the kernel {launches} times, not {want}")
+    return record, launches
+
+
+def _finite(label, *values):
+    if not all(v is not None and np.isfinite(v) for v in values):
+        raise RuntimeError(f"{label}: a value is not finite: {values}")
+
+
+def phase_bench(card, workdir):
+    """12(a): ``bench`` with the main path's workload, its ledger and
+    baseline cache in the workdir."""
+    from distillation_trajectories_torch.scripts import bench
+
+    ledger = os.path.join(workdir, "bench_ledger.jsonl")
+    with mock.patch.multiple(bench, LEDGER=ledger,
+                             CACHE=os.path.join(workdir, "bench_baseline.json")):
+        rec, launches = _bench_run(
+            "bench", bench, [], lambda a: (1 + a.iters) * (a.timesteps - 1), card)
+    with open(ledger) as f:
+        lines = f.read().splitlines()
+    if rec["preflight"]["status"] != "ok" or rec["card"] != card or len(lines) != 1:
+        raise RuntimeError(f"bench: preflight {rec['preflight']}, card {rec['card']!r}, "
+                           f"{len(lines)} ledger lines")
+    _finite("bench", rec["value"], rec["pairs_per_s"], rec["vs_baseline"], *rec["seconds"])
+    print(f"bench: {rec['value']} traj/s (calls {rec['seconds']} s), {rec['pairs_per_s']} "
+          f"pairs/s, x{rec['vs_baseline']} {rec['baseline_source']} [{card}]")
+    return launches + _bench_method_split(card)
+
+
+class _PreDrawn:
+    """``BenchDraws`` with each seed's step noise drawn ahead of the timed
+    calls: the timing then holds the chain alone.  ``seconds`` holds each
+    seed's draw, timed alone between synchronizations."""
+
+    def __init__(self, draws, seeds, timesteps, shape):
+        self.noise, self.uniforms = draws.noise, draws.uniforms
+        self.steps, self.seconds = {}, []
+        for seed in seeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.steps[seed] = draws.step_noise(seed, timesteps, shape)
+            torch.cuda.synchronize()
+            self.seconds.append(time.perf_counter() - t0)
+
+    def step_noise(self, seed, timesteps, shape):
+        return self.steps[seed]
+
+
+def _bench_method_split(card, turns=2):
+    """``bench_main_path`` at its defaults, in turns with its step noise
+    drawn inside each timed call (as ``bench`` and the JAX bench draw it)
+    and before it: the traj/s of each from the mean call (``bench``'s
+    method) and from the best call (phase 4's); returns the launches."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.scripts import bench
+    from distillation_trajectories_torch.scripts._common import BenchDraws
+
+    args = bench.parse_args([])
+    shape = (args.batch, args.image_size, args.image_size, 3)
+    draws = BenchDraws("cuda")
+    before = cfg_engine_update.launches
+    seconds, draw_s = {"inside": [], "before": []}, []
+    for _ in range(turns):
+        for label in seconds:
+            pre = (None if label == "inside" else
+                   _PreDrawn(draws, range(args.iters + 1), args.timesteps, shape))
+            seconds[label] += bench.bench_main_path(args, pre)[1]
+            draw_s += pre.seconds[1:] if pre else []  # seed 0's draw is the warm-up's
+            del pre
+    launches = cfg_engine_update.launches - before
+    want = 2 * turns * (1 + args.iters) * (args.timesteps - 1)
+    rate = {label: (args.batch * len(s) / sum(s), args.batch / min(s))
+            for label, s in seconds.items()}
+    print(f"bench method split ({turns} turns of {args.iters} timed chains each, batch "
+          f"{args.batch}, T={args.timesteps}): step noise drawn inside the timed call "
+          f"{rate['inside'][0]:.3f} traj/s from the mean call, {rate['inside'][1]:.3f} from the "
+          f"best; drawn before {rate['before'][0]:.3f} / {rate['before'][1]:.3f}; one chain's "
+          f"draw alone {statistics.median(draw_s) * 1e3:.3f} ms (median of {len(draw_s)}, "
+          f"{min(draw_s) * 1e3:.3f}-{max(draw_s) * 1e3:.3f}); calls (s) "
+          f"{ {k: [round(x, 4) for x in v] for k, v in seconds.items()} }; {launches} kernel "
+          f"launches (expected {want}) [{card}]")
+    _finite("bench method split", *(x for r in rate.values() for x in r))
+    if launches != want:
+        raise RuntimeError(f"bench method split launched the kernel {launches} times, not {want}")
+    return launches
+
+
+def phase_bench_r2(card, workdir):
+    """12(b): ``bench_r2`` pallas, ablate (batch 256) and paradigms (B=1,
+    the full 3x3 grid of windows and tolerances)."""
+    from distillation_trajectories_torch.scripts import bench_r2
+
+    flags = ["--exp", "pallas,ablate,paradigms", "--base_dir", workdir]
+    out, launches = _bench_run(
+        "bench_r2", bench_r2, flags,
+        lambda a: (2 + a.iters + 2 * (1 + a.iters) + 2 + a.iters) * (a.timesteps - 1), card)
+    pallas, ablate, par = out["pallas"], out["ablate"], out["paradigms"]
+    _finite("bench_r2", pallas["max_abs_deviation"], pallas["speedup"], ablate["mfu_vs_bf16_peak"],
+            *(r["max_abs_dev_vs_exact"] for r in par["rows"]))
+    if len(par["rows"]) != 9 or not 0 < ablate["mfu_vs_bf16_peak"] < 1:
+        raise RuntimeError(f"bench_r2: {len(par['rows'])} window rows, "
+                           f"MFU {ablate['mfu_vs_bf16_peak']}")
+    print(f"bench_r2 pallas (batch 256, gs 7.5): kernel {pallas['kernel_seconds']} s against plain "
+          f"{pallas['plain_seconds']} s a chain, x{pallas['speedup']}, max abs deviation "
+          f"{pallas['max_abs_deviation']:.3e} [{card}]")
+    print(f"bench_r2 ablate (batch 256, gs 3.0): {ablate['ms_per_step_full']} ms a step, two "
+          f"forwards {ablate['two_fwd_share']}, upsample {ablate['upsample_cost_share']}, tail "
+          f"{ablate['update_tail_share']} of the chain; {ablate['per_step_flops']} conv FLOPs a "
+          f"step, MFU {ablate['mfu_vs_bf16_peak']} of 989 TFLOP/s [{card}]")
+    print(f"bench_r2 paradigms (B=1, gs 7.5): sequential {par['sequential_seconds']} s; " + "; ".join(
+        f"W={r['window']} tol={r['tol']:g}: {r['sweeps_at_seed3']} sweeps, {r['seconds']} s, "
+        f"x{r['speedup_vs_scan']}, gap {r['max_abs_dev_vs_exact']:.2e}" for r in par["rows"])
+        + f" [{card}]")
+    return launches
+
+
+def phase_bench_quant(card, workdir):
+    """12(c): ``bench_quant --use_checkpoint`` on phase 5's teacher."""
+    from distillation_trajectories_torch.scripts import bench_quant
+
+    rec, launches = _bench_run(
+        "bench_quant", bench_quant, ["--use_checkpoint", "--base_dir", workdir],
+        lambda a: (len(a.arm_list) * (1 + a.iters) + 1) * (a.timesteps - 1), card)
+    arms = rec["arms"]
+    if rec["weights"] != "teacher-checkpoint" or set(arms) != set(bench_quant.ALL_ARMS):
+        raise RuntimeError(f"bench_quant: weights {rec['weights']!r}, arms {sorted(arms)}")
+    n = arms["int8"]["census"]["convs"]
+    if not (arms["int8"]["census"]["int8_convs"] == n - 1
+            and 0 < arms["int8_static_mixed"]["census"]["int8_convs"] < n - 1):
+        raise RuntimeError(f"bench_quant: int8 census {[arms[a].get('census') for a in arms]}")
+    _finite("bench_quant", *(a["traj_per_s"] for a in arms.values()),
+            *(a["endpoint_rel_l2"] for k, a in arms.items() if k != "float"))
+    print("bench_quant arms (phase 5's teacher, 256 x 32x32x3, T=50, gs 3.0): " + "; ".join(
+        f"{k} {a['traj_per_s']} traj/s" + (f" x{a['speedup_vs_float']}, endpoint rel L2 "
+                                           f"{a['endpoint_rel_l2']:.5f}" if k != "float" else "")
+        for k, a in arms.items()) + f"; best {rec['int8_mode']} [{card}]")
+    return launches
+
+
+def _progressive_launches(a):
+    t, s = a.timesteps - 1, (a.timesteps >> a.rounds) - 1
+    sweep = len(a.w_sweep.split(",")) if a.guidance_range and a.w_sweep else 0
+    return (a.iters + 1) * (t + s) + (1 + sweep + (a.fid_samples > 0)) * (t + s)
+
+
+def phase_bench_progressive(card, workdir):
+    """12(d): ``bench_progressive --measure_only`` on phase 8(c)'s plain
+    steps_25 and guided steps_50 students."""
+    from distillation_trajectories_torch.scripts import bench_progressive
+
+    launches = 0
+    for label, flags in (
+        ("bench_progressive plain", ["--timesteps", str(TRAIN_T), "--rounds", "2"]),
+        ("bench_progressive guided", ["--timesteps", str(TRAIN_T), "--rounds", "1",
+                                      "--guidance_range", ",".join(map(str, PROG_GUIDANCE)),
+                                      "--w_sweep", "1.0,3.0,5.0"]),
+    ):
+        rec, n = _bench_run(label, bench_progressive,
+                            flags + ["--measure_only", "--base_dir", workdir],
+                            _progressive_launches, card)
+        launches += n
+        tp, q = rec["throughput"], rec["quality"]
+        _finite(label, *(v["traj_per_s"] for v in tp.values()), q["endpoint_mse"],
+                *(v["endpoint_mse"] for v in q.get("w_sweep", {}).values()))
+        t, s = str(rec["teacher_steps"]), str(rec["final_steps"])
+        print(f"{label}: teacher T={t} {tp[t]['traj_per_s']} traj/s, student T={s} "
+              f"{tp[s]['traj_per_s']} traj/s (x{tp[s]['traj_per_s'] / tp[t]['traj_per_s']:.2f}); "
+              f"endpoint MSE {q['endpoint_mse']:.4g} [{card}]")
+    return launches
+
+
+def _fast_launches(a):
+    t, s = a.teacher_steps - 1, a.student_steps - 1
+    arms = a.arms.split(",")
+    sweep = len(a.w_sweep.split(",")) if a.w_sweep else 0
+    return ((a.iters + 2) * t + any(x.startswith("int8_static") for x in arms) * s
+            + len(arms) * (a.iters + 2) * s + (sweep + (a.fid_samples > 0)) * (t + s))
+
+
+def phase_bench_fast(card, workdir):
+    """12(e): ``bench_fast`` on phase 5's teacher (T=100) and phase 8(c)'s
+    guided steps_50 student, FID on 64 samples."""
+    from distillation_trajectories_torch.scripts import bench_fast
+
+    rec, launches = _bench_run(
+        "bench_fast", bench_fast,
+        ["--teacher_steps", str(TRAIN_T), "--student_steps", str(TRAIN_T // 2),
+         "--fid_samples", "64", "--base_dir", workdir], _fast_launches, card)
+    arms = rec["arms"]
+    if len(arms) != 5 or rec["fid_features"] != "seeded-random":
+        raise RuntimeError(f"bench_fast: arms {sorted(arms)}, features {rec['fid_features']}")
+    _finite("bench_fast", *(a["traj_per_s"] for a in arms.values()), rec["fid_teacher_vs_best"],
+            *(a["endpoint_mse_vs_teacher"] for k, a in arms.items() if k.startswith("student")),
+            *(v["endpoint_mse"] for v in rec["w_sweep_best_arm"].values()))
+    print("bench_fast (phase 5's teacher T=100 CFG vs the guided student T=50): " + "; ".join(
+        f"{k} {a['traj_per_s']} traj/s" + (f" x{a['speedup_vs_teacher']}, endpoint MSE "
+                                           f"{a['endpoint_mse_vs_teacher']:.4g}"
+                                           if k.startswith("student") else "")
+        for k, a in arms.items()) + f"; best {rec['best_arm']}, FID {rec['fid_teacher_vs_best']:.4g} "
+        f"(self floor {rec.get('fid_teacher_self_floor', float('nan')):.4g}) [{card}]")
+    return launches
+
+
+def phase_benches(card, workdir):
+    """Phase 12; returns the kernel's launches, each bench's checked
+    against the count its arguments give."""
+    launches = 0
+    for label, run in (("(a) bench", phase_bench), ("(b) bench_r2", phase_bench_r2),
+                       ("(c) bench_quant", phase_bench_quant),
+                       ("(d) bench_progressive", phase_bench_progressive),
+                       ("(e) bench_fast", phase_bench_fast)):
+        t0 = time.perf_counter()
+        launches += run(card, workdir)
+        print(f"phase benches {label}: {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -2701,6 +2802,7 @@ def main():
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     record = phase_kernel(card)
@@ -2709,7 +2811,7 @@ def main():
     phase_sampler()
     print(f"phase sampler: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches, teacher_tps = phase_main_path(card)
+    launches = phase_main_path(card)
     print(f"phase main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_train_check()
@@ -2723,7 +2825,7 @@ def main():
         clis_launches = phase_clis(card, workdir)
         print(f"phase CLIs: {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
-        edit_launches = phase_edit(card, workdir, teacher_tps)
+        edit_launches = phase_edit(card, workdir)
         print(f"phase editing/progressive: {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
         lane_launches = phase_lanes(card, workdir)
@@ -2734,14 +2836,19 @@ def main():
         t0 = time.perf_counter()
         last_launches = phase_last_entry_points(card, workdir)
         print(f"phase last entry points: {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        bench_launches = phase_benches(card, workdir)
+        print(f"phase benches: {time.perf_counter() - t0:.1f} s [{card}]")
     total = (launches + cli_launches + clis_launches + edit_launches + lane_launches
-             + multi_launches + last_launches)
+             + multi_launches + last_launches + bench_launches)
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
           f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) + "
-          f"{edit_launches} (editing demo and progressive students, phase 8) + "
-          f"{lane_launches} (int8 arms' and sequential chains, phase 9) + {multi_launches} "
+          f"{edit_launches} (editing demo, phase 8) + {lane_launches} (the window dispatch's "
+          f"sequential chain, phase 9) + {multi_launches} "
           f"(sharded sweep and spatial chains, both ranks, and their references, phase 10) + "
-          f"{last_launches} (sampler profiler's warm-up and traced chains, phase 11) = {total}")
+          f"{last_launches} (sampler profiler's warm-up and traced chains, phase 11) + "
+          f"{bench_launches} (the five benches, phase 12) = {total}")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     print(card)
     print(json.dumps({"kernels": [{

@@ -6,14 +6,22 @@ ranks, for example::
 
     torchrun --nproc_per_node=2 -m distillation_trajectories_torch.scripts.train_teacher \
         --device cpu --mesh 2,1 --checkpoint_sharded
+
+The benches (``bench*.py``) share the device preflight, their draws, a
+timer of calls and the Block sizes of the int8 lane's mixed set.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import subprocess
+import time
 
 from ..parallel.mesh import require_ranks
+
+project_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def add_common_flags(parser: argparse.ArgumentParser) -> None:
@@ -181,6 +189,16 @@ def load_student(config, size_factor, epoch=None):
     return load_unet_variables(model, variables_from_checkpoint(payload)).eval()
 
 
+def load_model(config, directory, size_factor=1.0):
+    """The U-Net of ``size_factor`` from the latest checkpoint in
+    ``directory``, on ``config.device``, in eval mode."""
+    from ..models import load_unet_variables, make_unet
+    from ..training.checkpoints import load_checkpoint, variables_from_checkpoint
+
+    model = make_unet(config, size_factor=size_factor)
+    return load_unet_variables(model, variables_from_checkpoint(load_checkpoint(directory))).eval()
+
+
 def parse_float_list(s):
     return [float(x) for x in s.split(",") if x.strip()]
 
@@ -195,3 +213,123 @@ def plots_available() -> bool:
         print("[plots] matplotlib cannot be imported: plots skipped")
         return False
     return True
+
+
+def card_line(index: int = 0) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them, or the reason they could not be read."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
+             "-i", str(index)],
+            capture_output=True, text=True, check=True, timeout=60,
+        )
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"nvidia-smi not read: {e}"
+    return out.stdout.strip().splitlines()[0]
+
+
+def preflight_probe(device="cuda") -> dict:
+    """The device a run measures on: ``status`` ``ok`` (a card, with its
+    name, memory, count and ``detail``, the ``nvidia-smi`` name and power
+    limit), ``down`` (CUDA asked for and no card) or ``skipped`` (a host
+    device: nothing to probe)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return {"status": "skipped", "device": str(dev), "detail": "host device"}
+    if not torch.cuda.is_available():
+        return {"status": "down", "device": str(dev),
+                "detail": "torch.cuda.is_available() is False"}
+    index = dev.index or 0
+    props = torch.cuda.get_device_properties(index)
+    return {"status": "ok", "device": str(dev), "name": props.name,
+            "total_memory_bytes": int(props.total_memory),
+            "count": torch.cuda.device_count(), "detail": card_line(index)}
+
+
+def block_sizes(image_size: int) -> dict:
+    """Each U-Net Block's spatial size at ``image_size`` (32 → 16 → 8 → 4 → 2
+    and back up)."""
+    hw = image_size
+    return {"enc1": hw, "enc2": hw // 2, "enc3": hw // 4, "enc4": hw // 8,
+            "bottleneck": hw // 16, "dec3": hw // 8, "dec2": hw // 4, "dec1": hw // 2}
+
+
+def mixed_blocks(image_size: int) -> set:
+    """The int8 lane's mixed set: the Blocks working at 8x8 or more.  The
+    4x4 and 2x2 levels are latency-bound, and requantizing them costs more
+    than their int8 products save."""
+    return {name for name, hw in block_sizes(image_size).items() if hw >= 8}
+
+
+def add_bench_flags(parser: argparse.ArgumentParser, base_dir: bool = True) -> None:
+    """The port's flags of every bench, beside the JAX bench's own
+    (``--base_dir`` only where the bench reads or writes under it)."""
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="Device to measure on (cuda raises without a GPU)")
+    if base_dir:
+        parser.add_argument("--base_dir", type=str, default=None,
+                            help="Output root (checkpoints under <base_dir>/output/models)")
+    parser.add_argument("--compute_dtype", type=str, default="bfloat16",
+                        choices=["bfloat16", "float32"])
+
+
+class BenchDraws:
+    """The benches' random draws on ``device``, keyed by integers where the
+    JAX benches key theirs with ``PRNGKey``: a starting ``noise(key,
+    shape)`` from the generator of ``(key, 0)``; a chain's ``step_noise(seed,
+    timesteps, shape)`` as the engine sampler draws it by default (step t
+    from ``(seed, t)``); the metric suite's Wasserstein ``uniforms(key,
+    pairs, n, d)``.  Tests pass an object with the same three methods that
+    makes the JAX draws."""
+
+    def __init__(self, device):
+        import torch
+
+        self.device = torch.device(device)
+
+    def noise(self, key: int, shape):
+        from ..diffusion.sampling import seeded_normal
+
+        return seeded_normal([(key, 0)], shape, self.device)[0]
+
+    def step_noise(self, seed: int, timesteps: int, shape):
+        from ..diffusion.sampling import draw_step_noise
+
+        return draw_step_noise([seed], timesteps, shape, self.device)[:, 0]
+
+    def uniforms(self, key: int, pairs: int, n: int, d: int):
+        import torch
+
+        gen = torch.Generator(device=self.device).manual_seed(int(key))
+        return torch.rand((pairs, n, d), generator=gen, device=self.device)
+
+
+def synchronize(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def timed_calls(fn, seeds, device) -> list:
+    """Wall seconds of ``fn(seed)`` for each seed, each call ended by a
+    device synchronization (the barrier; nothing is read back)."""
+    seconds = []
+    for seed in seeds:
+        synchronize(device)
+        t0 = time.perf_counter()
+        fn(seed)
+        synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+    return seconds
+
+
+def write_json(path: str, record: dict) -> str:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(record, f, indent=1)
+        f.write("\n")
+    return path

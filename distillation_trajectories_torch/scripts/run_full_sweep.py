@@ -14,7 +14,7 @@ Stages (the CLIs' defaults unless a flag below says otherwise):
 
 Each stage has a timeout, retries and an attempt banner in its log under
 ``<base>/output/results/sweep_<stage>.log``.  On ``--device cuda`` a
-preflight records the card's name and memory, and a missing GPU writes
+preflight records the card's name, memory and power limit, and a missing GPU writes
 ``ok: false`` and exits 1 before any stage starts (a stage's retry is
 skipped the same way).  The record is ``SWEEP_torch_{tag}.json`` under
 ``--base_dir`` (the repository root without one); the JAX package's
@@ -34,7 +34,7 @@ import subprocess
 import sys
 import time
 
-project_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from ._common import preflight_probe, project_root
 
 SIZE_FACTORS = "0.01,0.05,0.1,0.2,0.3,0.4,0.5,0.6,0.7,0.75,0.8,0.9,1.0"
 # Stage 3 and 4's jobs: the flagship sweep at the CLI's defaults and the trio.
@@ -48,20 +48,10 @@ STAGE_ARGS = {}
 
 
 def preflight(device: str) -> dict:
-    """The run's device: ``status`` ``ok`` or ``down``; on CUDA the card's
-    name, total memory and count."""
-    import torch
-
-    dev = torch.device(device)
-    if dev.type != "cuda":
-        return {"status": "ok", "device": str(dev), "detail": "host device"}
-    if not torch.cuda.is_available():
-        return {"status": "down", "device": str(dev),
-                "detail": "torch.cuda.is_available() is False"}
-    props = torch.cuda.get_device_properties(dev.index or 0)
-    return {"status": "ok", "device": str(dev), "name": props.name,
-            "total_memory_bytes": int(props.total_memory),
-            "count": torch.cuda.device_count(), "detail": "cuda available"}
+    """``_common.preflight_probe`` with a host device read as ``ok``: the
+    stages run there with no card to wait for."""
+    probe = preflight_probe(device)
+    return {**probe, "status": "ok"} if probe["status"] == "skipped" else probe
 
 
 def run_stage(name, cmd, log_dir, timeout=None, retries=1, retry_extra_args=None,

@@ -7,7 +7,9 @@ the GPU is inside the time only where the phase synchronizes.
 ``jax.profiler``; ``enable_nan_checks`` is autograd's anomaly detection
 where it sets ``jax_debug_nans``.  ``busy_and_window``, ``tally`` and
 ``trace_summary`` are the one reading of a profile that the sampler
-profiler (``scripts/profile_sampler.py``) and ``chip_smoke.py`` share.
+profiler (``scripts/profile_sampler.py``) and ``chip_smoke.py`` share;
+``conv_flops`` is the one FLOP count of a forward that they and the step
+ablation (``scripts/bench_r2.py``) use.
 """
 
 from __future__ import annotations
@@ -166,6 +168,28 @@ def trace_summary(path: str) -> TraceSummary:
     _, by_name = tally((name, dur) for name, _, dur in spans)
     rows = sorted(((name, n, t) for name, (n, t) in by_name.items()), key=lambda r: -r[2])
     return TraceSummary(path, on_device, rows, busy, window)
+
+
+def conv_flops(model, *inputs, **kwargs) -> int:
+    """2 x the multiply-adds of every ``Conv2d`` in one forward
+    ``model(*inputs, **kwargs)`` (run under ``no_grad``).  Linear layers,
+    pooling, upsampling and elementwise work are not counted."""
+    import torch
+
+    total = [0]
+
+    def hook(module, args, output):
+        total[0] += 2 * output.numel() * module.weight[0].numel()  # in/groups x kernel area
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, torch.nn.Conv2d)]
+    try:
+        with torch.no_grad():
+            model(*inputs, **kwargs)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
 
 
 def enable_nan_checks(enable: bool = True) -> None:

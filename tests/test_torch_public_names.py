@@ -95,5 +95,6 @@ def test_port_modules_import_no_jax():
     assert bad == "", bad
     scripts = {f"distillation_trajectories_torch.scripts.{s}" for s in (
         "profile_sampler", "run_on_cpu", "smoke_diffusion", "show_real_samples",
-        "analyze_latest_sample")}
-    assert scripts <= set(names.split()) and len(names.split()) >= 80
+        "analyze_latest_sample", "bench", "bench_r2", "bench_quant", "bench_progressive",
+        "bench_fast")}
+    assert scripts <= set(names.split()) and len(names.split()) >= 85

@@ -240,3 +240,32 @@ class JaxEditingDraws:
 
     def direction(self, seed, shape):
         return as_torch(jax.random.normal(jax.random.PRNGKey(seed), shape))
+
+
+class JaxBenchDraws:
+    """The benches' draws (``scripts._common.BenchDraws``) made the JAX
+    benches' way: ``noise(key, shape)`` is ``normal(PRNGKey(key), shape)``,
+    a chain of seed s takes ``normal(fold_in(PRNGKey(s), t), shape)`` at
+    step t, and the metric suite's pair i takes ``uniform(k_i, (n, d))``
+    with ``k = split(PRNGKey(key), pairs)``."""
+
+    def __init__(self, device="cpu"):
+        pass
+
+    def noise(self, key, shape):
+        return torch.from_numpy(jax_noises([key], tuple(shape))[0])
+
+    def step_noise(self, seed, timesteps, shape):
+        return torch.from_numpy(jax_step_noise([seed], timesteps, tuple(shape))[:, 0])
+
+    def uniforms(self, key, pairs, n, d):
+        keys = jax.random.split(jax.random.PRNGKey(int(key)), pairs)
+        return torch.from_numpy(np.stack([np.asarray(jax.random.uniform(k, (n, d)))
+                                          for k in keys]))
+
+
+def jax_variables(model):
+    """The JAX variables of a port U-Net's weights."""
+    from distillation_trajectories_torch.models import variables_from_unet_state_dict
+
+    return variables_from_unet_state_dict(model.state_dict())
