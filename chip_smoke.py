@@ -26,11 +26,14 @@ on first use.  Phases, each printing its own lines:
    width (sf 1.0, the synthetic CIFAR-shaped set, batch 128, T=100, bf16,
    dropout 0.3, one epoch of 30 batches, a checkpoint and a 16-sample grid
    written to a temporary directory) and ``train_students`` for
-   sf {0.1, 0.5} from that checkpoint — with step times, images/s,
-   checkpoint and grid times, peak memory and a profiler breakdown of
-   teacher steps (forward, backward, optimizer) printed, and a failure
-   when a loss is not finite or does not fall, the checkpoint read back
-   does not reproduce the trained model, or anything ran on the CPU;
+   sf {0.1, 0.5} from that checkpoint, both through the trainers' default
+   epoch lane (a captured CUDA graph replayed a batch) — with each epoch's
+   seconds a step (capture included), images/s, checkpoint and grid
+   times, peak memory, and a few per-batch teacher steps timed and
+   profiled (forward, backward, optimizer) printed, and a failure when a
+   loss is not finite or does not fall, no graph was captured, the
+   checkpoint read back does not reproduce the trained model, or anything
+   ran on the CPU;
 6. analysis, on phase 5's checkpoints (teacher, students {0.1, 0.5}):
    (a) the InceptionV3 trunk (299x299, batch 2), its preprocessing,
    AlexNet-LPIPS (64x64, batch 8), the paired trajectory function (T=10)
@@ -127,7 +130,22 @@ on first use.  Phases, each printing its own lines:
    phase 8(c)'s plain steps_25 and guided steps_50 students against phase
    5's teacher at T=100 (the guided one with a w-sweep of 1, 3, 5);
    (e) ``bench_fast --teacher_steps 100 --student_steps 50 --fid_samples 64``
-   on the same teacher and guided student.
+   on the same teacher and guided student;
+13. the trainers' default lanes: (a) the teacher's graph-replayed epoch
+   lane against the eager per-batch loop from one seed (float32, TF32 off,
+   cuDNN deterministic, sf 0.1, 16x16x1, batch 8, T=10, dropout 0.3, two
+   epochs of 8 batches): the draw generator's end state equal, each step's
+   loss at rtol 1e-5, the weights held as ``_hold_weights`` says; (b) the
+   teacher at full width (sf 1.0, the synthetic CIFAR-shaped set, batch
+   128, T=100, bf16, dropout 0.3, 30 batches), loop and graph in turns
+   (loop, graph, graph, loop): each turn's epoch seconds, median
+   synchronized step, the device's idle share and kernels a step over 4
+   profiled steps, capture seconds and peak memory, after the dataset
+   upload's bytes and seconds; (c) ``train_students`` {0.01, 0.05, 0.1}
+   from phase 5's teacher, 10 batches, float32 with TF32 off: {0.01, 0.05}
+   as one group step and 0.1 alone, held against ``vmap_students=False``
+   (losses rtol 1e-5), with the group's epoch seconds against the two
+   sequential ones.
 
 The kernel record counts the launches of phases 4, 6(b), 7(b), 8(b), 9(d),
 10 (the ranks' included), 11 and 12.  The last
@@ -619,6 +637,50 @@ def _step_summary(label, record, batch, card):
     return med, first, last
 
 
+class _TimedEpochs:
+    """Wraps an epoch-lane factory so every epoch it runs is timed between
+    device synchronizations, with its losses kept, its capture's seconds
+    read and its device checked."""
+
+    def __init__(self, factory):
+        self.factory, self.runs = factory, []
+
+    def __call__(self, *args, **kwargs):
+        epoch_fn, record = self.factory(*args, **kwargs), []
+        self.runs.append(record)
+
+        def timed(state, dataset, idx):
+            if dataset.device.type != "cuda" or next(state.model.parameters()).device.type != "cuda":
+                raise RuntimeError("an epoch ran off the card")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, losses = epoch_fn(state, dataset, idx)
+            torch.cuda.synchronize()
+            captured = epoch_fn.captured[0]
+            if not isinstance(captured.graph, torch.cuda.CUDAGraph):
+                raise RuntimeError("the epoch lane captured no CUDA graph")
+            record.append((time.perf_counter() - t0, losses.cpu().tolist(), captured.capture_s))
+            return state, losses
+
+        timed.captured = epoch_fn.captured
+        return timed
+
+
+def _epoch_summary(label, record, batch, card):
+    """One epoch of the epoch lane: its wall seconds a step (the warm-up
+    steps and the capture included), images/s and the loss's fall."""
+    seconds, losses, capture_s = record[0]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"{label}: a loss is not finite: {losses}")
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    step = seconds / len(losses)
+    print(f"{label}: epoch lane, {len(losses)} steps in {seconds:.3f} s ({step * 1e3:.3f} ms a "
+          f"step, capture {capture_s:.3f} s and the warm-up steps included), "
+          f"{batch / step:.1f} images/s; loss {first:.5f} (mean of first 5) -> {last:.5f} "
+          f"(last 5) [{card}]")
+    return step, first, last
+
+
 def phase_train_main(card, workdir):
     """The training path at full width through the port's trainers."""
     from distillation_trajectories_torch import Config
@@ -641,9 +703,9 @@ def phase_train_main(card, workdir):
           f"1 epoch of {TRAIN_BATCHES} batches; seeded random init")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    timed = _TimedSteps(teacher.make_teacher_train_step)
+    timed = _TimedEpochs(teacher.make_teacher_epoch_fn)
     t0 = time.perf_counter()
-    with mock.patch.object(teacher, "make_teacher_train_step", timed):
+    with mock.patch.object(teacher, "make_teacher_epoch_fn", timed):
         state = teacher.train_teacher(cfg, seed=0)
     torch.cuda.synchronize()
     teacher_s = time.perf_counter() - t0
@@ -651,8 +713,8 @@ def phase_train_main(card, workdir):
     model = state.model
     if any(t.device.type != "cuda" for t in model.state_dict().values()):
         raise RuntimeError("the trained teacher is not on the card")
-    med, first, last = _step_summary(
-        f"teacher train step (sf 1.0, {param_count(model)} params)", timed.runs[0],
+    _, first, last = _epoch_summary(
+        f"train_teacher (sf 1.0, {param_count(model)} params)", timed.runs[0],
         cfg.batch_size, card)
     if not last < first:
         raise RuntimeError(f"teacher loss did not fall: {first} -> {last}")
@@ -701,19 +763,26 @@ def phase_train_main(card, workdir):
           f"fetch + encode + write): {ckpt_s:.3f} s; 16-sample grid (p_sample_loop, "
           f"T={TRAIN_T}, 2 forwards per step): {grid_s:.3f} s [{card}]")
 
-    # A few more teacher steps under the profiler.
+    # A few more teacher steps of the per-batch lane, timed, then profiled
+    # (phase 13 profiles the graph-replayed lane beside it).
     step = teacher.make_teacher_train_step(get_diffusion_params(cfg.timesteps, cfg),
                                            cfg.timesteps)
     images = torch.rand((cfg.batch_size, 32, 32, 3), device="cuda", generator=gen) * 2 - 1
-    for _ in range(3):
-        step(state, images)
-    torch.cuda.synchronize()
+    record = []
+    for _ in range(7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, loss = step(state, images)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0, float(loss)))
+    med, _, _ = _step_summary("teacher per-batch step (sf 1.0, the same state)", record,
+                              cfg.batch_size, card)
     profile_train_steps(lambda: step(state, images), 4, med, card)
 
     # Students from the teacher's checkpoint.
-    distill = _TimedSteps(students.make_distill_train_step)
+    distill = _TimedEpochs(students.make_distill_epoch_fn)
     t0 = time.perf_counter()
-    with mock.patch.object(students, "make_distill_train_step", distill):
+    with mock.patch.object(students, "make_distill_epoch_fn", distill):
         trained_students = students.train_students(cfg, custom_size_factors=list(STUDENTS), seed=0)
     torch.cuda.synchronize()
     students_s = time.perf_counter() - t0
@@ -721,8 +790,8 @@ def phase_train_main(card, workdir):
         student = trained_students[sf]
         if next(student.parameters()).device.type != "cuda":
             raise RuntimeError(f"student {sf} is not on the card")
-        _step_summary(f"distill step sf {sf} ({param_count(student)} params)", record,
-                      cfg.batch_size, card)
+        _epoch_summary(f"distill sf {sf} ({param_count(student)} params)", record,
+                       cfg.batch_size, card)
         for name in (os.path.join(cfg.student_dir(sf), "model_epoch_1.msgpack"),
                      os.path.join(cfg.results_dir, f"student_samples_size_{sf}_epoch_1.png")):
             if not os.path.getsize(name) > 0:
@@ -2787,6 +2856,331 @@ def phase_benches(card, workdir):
     return launches
 
 
+# --- Phase 13: the trainers' default lanes on the card ------------------------
+
+EPOCH_HOLD_IMAGES = 64  # 13(a): 8 batches of 8 an epoch
+EPOCH_HOLD_EPOCHS = 2
+EPOCH_TURNS = ("loop", "graph", "graph", "loop")  # 13(b)
+GROUP_SIZES = (0.01, 0.05, 0.1)  # 13(c): 0.01 and 0.05 floor to one U-Net
+GROUP_BATCHES = 10
+
+
+def _hold_weights(label, got_model, want_model, steps, lr, rel_limit=5e-3):
+    """Two trainings' weights from one seed.  The upsample's backward adds
+    with atomics in no fixed order, and Adam's first steps turn that
+    rounding into moves of about ±lr on weights whose gradient is near 0,
+    so two eager per-batch runs differ too (13(a) prints by how much).
+    Each tensor is held to a relative norm difference of ``rel_limit``
+    (5e-3) and each weight to 2.2 x ``steps`` x ``lr`` (in its first 16
+    steps Adam (0.9, 0.999) moves a weight by at most 1.1 lr a step),
+    except the conv biases that feed a BatchNorm (true gradient 0, so they
+    follow the rounding alone), held to the second only.  Returns the worst relative
+    norm difference and the worst single difference."""
+    worst_rel, worst_abs, want = 0.0, 0.0, dict(want_model.named_parameters())
+    with torch.no_grad():
+        for name, p in got_model.named_parameters():
+            diff = (p - want[name]).abs()
+            worst_abs = max(worst_abs, float(diff.max()))
+            if float(diff.max()) > 2.2 * steps * lr:
+                raise RuntimeError(f"{label}: {name} moved {float(diff.max())} apart in {steps} "
+                                   "steps, beyond what Adam can")
+            if not name.endswith(("conv1.bias", "conv2.bias")):
+                rel = float(diff.norm() / want[name].norm())
+                if rel > rel_limit:
+                    raise RuntimeError(f"{label}: {name} differs by {rel} of its norm")
+                worst_rel = max(worst_rel, rel)
+    return worst_rel, worst_abs
+
+
+def _hold_epoch_lane(card):
+    """13(a): the teacher's graph-replayed epoch lane against the eager
+    per-batch loop from one seed, float32, TF32 off, cuDNN deterministic,
+    sf 0.1, 16x16x1, batch 8, T=10, dropout 0.3, two epochs of 8 batches;
+    the loop runs twice, and how far it lands from itself is printed
+    beside the graph's distance to it.  The draw generators must end in
+    the same state (the replays advance them as the eager steps do).
+    Tolerances: each step's loss at rtol 1e-5, the weights as
+    :func:`_hold_weights` holds them."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training.loop import run_train_epoch
+    from distillation_trajectories_torch.training.state import (
+        TorchDraws,
+        create_train_state,
+        make_teacher_epoch_fn,
+        make_teacher_train_step,
+    )
+
+    saved, det = _tf32_off(), torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg = Config(image_size=16, channels=1, batch_size=8, timesteps=10, sample_steps=10,
+                 compute_dtype="float32", dropout=0.3)
+    rng = np.random.default_rng(0)
+    images = rng.uniform(-1, 1, (EPOCH_HOLD_IMAGES, 16, 16, 1)).astype(np.float32)
+    labels = np.zeros(EPOCH_HOLD_IMAGES, np.int32)
+    dp = get_diffusion_params(10)
+    runs = {}
+    for run in ("graph", "loop", "loop again"):
+        graph = run == "graph"
+        state = create_train_state(make_unet(cfg, 0.1, seed=3), cfg, TorchDraws(11, "cuda"),
+                                   use_ema=True)
+        loader = DataLoader(images, labels, 8, shuffle=True, seed=7)
+        fn = (make_teacher_epoch_fn if graph else make_teacher_train_step)(dp, 10, ema_rate=0.999)
+        dataset = torch.from_numpy(images).cuda()
+        losses = []
+        for _ in range(EPOCH_HOLD_EPOCHS):
+            state, l, _ = run_train_epoch(
+                state, train_step=fn, loader=loader, config=cfg, device="cuda",
+                progress_desc="", log_label="", log_every=0, use_scan=graph,
+                epoch_fn=fn, dataset_dev=dataset, reduce_loss=False)
+            losses.append(l)
+        torch.cuda.synchronize()
+        if graph and not isinstance(fn.captured[0].graph, torch.cuda.CUDAGraph):
+            raise RuntimeError("13(a): the epoch lane captured no CUDA graph")
+        runs[run] = (np.concatenate(losses), state)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    torch.backends.cudnn.deterministic = det
+    steps = EPOCH_HOLD_EPOCHS * EPOCH_HOLD_IMAGES // 8
+    want_losses, want = runs["loop"]
+    spread = {}
+    for run in ("graph", "loop again"):
+        losses, state = runs[run]
+        if state.step != steps:
+            raise RuntimeError(f"13(a): {run} took {state.step} steps, not {steps}")
+        if not torch.equal(state.draws.generator.get_state(), want.draws.generator.get_state()):
+            raise RuntimeError(f"13(a): the {run} left the draw generator elsewhere than the loop")
+        np.testing.assert_allclose(losses, want_losses, rtol=1e-5, err_msg=run)
+        spread[run] = (float(np.max(np.abs(losses - want_losses) / np.abs(want_losses))),
+                       *_hold_weights(f"13(a) {run}", state.model, want.model, steps, cfg.lr))
+    print(f"13(a) teacher epoch lane, graph replayed against the eager per-batch loop (f32, TF32 "
+          f"off, cuDNN deterministic, sf 0.1, 16x16x1, batch 8, T=10, dropout 0.3, "
+          f"{EPOCH_HOLD_EPOCHS} epochs of {EPOCH_HOLD_IMAGES // 8} batches, 2 warm-up steps then "
+          f"replays): " + "; ".join(
+              f"{run}: {steps} step losses within rel {l:.3e} (rtol 1e-5), weights within rel norm "
+              f"{r:.3e} (5e-3) and abs {a:.3e} (2.2 x {steps} x lr)"
+              for run, (l, r, a) in spread.items())
+          + f"; draw generator states equal [{card}]")
+
+
+def _idle_share(run, n):
+    """The device's idle share over ``n`` calls of ``run`` under the
+    profiler (device activity only), and its busy ms a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        return None, None, 0
+    busy, window = _busy_and_window(kernels)
+    return 1 - busy / window, busy / 1e3 / n, len(kernels) // n
+
+
+def _time_lane(lane, cfg, loader, dataset, dp):
+    """13(b): one epoch of ``TRAIN_BATCHES`` through one lane from a fresh
+    seeded teacher, then ten more synchronized steps timed one by one and
+    four profiled."""
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training.loop import run_train_epoch
+    from distillation_trajectories_torch.training.state import (
+        TorchDraws,
+        create_train_state,
+        make_teacher_epoch_fn,
+        make_teacher_train_step,
+    )
+
+    state = create_train_state(make_unet(cfg, 1.0, seed=0), cfg, TorchDraws(0, "cuda"))
+    fn = (make_teacher_epoch_fn if lane == "graph" else make_teacher_train_step)(dp, cfg.timesteps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, losses, n = run_train_epoch(
+        state, train_step=fn, loader=loader, config=cfg, device="cuda", progress_desc="",
+        log_label="", log_every=0, use_scan=lane == "graph", epoch_fn=fn, dataset_dev=dataset,
+        reduce_loss=False)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    if n != TRAIN_BATCHES or not np.isfinite(losses).all():
+        raise RuntimeError(f"13(b) {lane}: {n} steps, losses {losses}")
+    if lane == "graph":
+        captured = fn.captured[0]
+        captured.i.zero_()  # replays below read the epoch's first rows again
+        step, capture_s = captured.graph.replay, captured.capture_s
+    else:
+        images = dataset[:cfg.batch_size]
+        step, capture_s = (lambda: fn(state, images)), None
+    times = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    idle, busy_ms, kernels = _idle_share(step, 4)
+    return dict(epoch_s=epoch_s, med=statistics.median(times), capture_s=capture_s, idle=idle,
+                busy_ms=busy_ms, kernels=kernels, peak=torch.cuda.max_memory_allocated(),
+                reserved=torch.cuda.memory_reserved(), loss=(float(losses[0]), float(losses[-1])))
+
+
+def _time_epoch_lanes(card):
+    """13(b): the teacher at full width (sf 1.0, the synthetic CIFAR-shaped
+    set, batch 128, T=100, bf16, dropout 0.3), ``TRAIN_BATCHES`` batches,
+    per-batch loop and graph-replayed epoch lane in turns."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader, load_dataset
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.training.loop import upload_dataset
+
+    cfg = Config(dataset="CIFAR10", timesteps=TRAIN_T, sample_steps=TRAIN_T,
+                 limit_batches_per_epoch=TRAIN_BATCHES)
+    images, labels = load_dataset(cfg)
+    loader = DataLoader(images, labels, cfg.batch_size, shuffle=True, seed=0)
+    t0 = time.perf_counter()
+    dataset = upload_dataset(loader, "cuda")
+    upload_s = time.perf_counter() - t0
+    print(f"13(b) dataset upload: {dataset.numel() * 4} bytes ({tuple(dataset.shape)} float32) "
+          f"in {upload_s:.4f} s = {dataset.numel() * 4 / upload_s / 1e9:.3f} GB/s [{card}]")
+    dp = get_diffusion_params(cfg.timesteps, cfg)
+    runs = {"loop": [], "graph": []}
+    for lane in EPOCH_TURNS:
+        runs[lane].append(_time_lane(lane, cfg, loader, dataset, dp))
+    for lane, recs in runs.items():
+        for i, r in enumerate(recs):
+            idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
+            print(f"13(b) teacher {lane} turn {i + 1} (sf 1.0, batch {cfg.batch_size}, T={TRAIN_T}, "
+                  f"bf16, dropout {cfg.dropout}): epoch of {TRAIN_BATCHES} batches {r['epoch_s']:.3f} s "
+                  f"({cfg.batch_size * TRAIN_BATCHES / r['epoch_s']:.1f} images/s"
+                  + (f", capture {r['capture_s']:.3f} s and 2 warm-up steps included" if
+                     r["capture_s"] is not None else "")
+                  + f"); median synchronized step {r['med'] * 1e3:.3f} ms "
+                  f"({cfg.batch_size / r['med']:.1f} images/s); profiled 4 steps: device busy "
+                  f"{r['busy_ms']:.3f} ms a step, {r['kernels']} kernels a step, idle share {idle}; "
+                  f"peak allocated {r['peak']} bytes = {r['peak'] / 2**30:.3f} GiB, reserved "
+                  f"{r['reserved'] / 2**30:.3f} GiB (the graph's pool included); loss "
+                  f"{r['loss'][0]:.5f} -> {r['loss'][1]:.5f} [{card}]")
+    loop = statistics.median(r["med"] for r in runs["loop"])
+    graph = statistics.median(r["med"] for r in runs["graph"])
+    print(f"13(b) median step, loop {loop * 1e3:.3f} ms against graph {graph * 1e3:.3f} ms: "
+          f"graph / loop {graph / loop:.3f} [{card}]")
+
+
+def _group_run(workdir, vmap_students):
+    """13(c): ``train_students`` on ``GROUP_SIZES`` from phase 5's teacher,
+    ``GROUP_BATCHES`` batches, float32 with TF32 off; the groups it formed,
+    each student's epoch losses and seconds, the trained models, and the
+    epoch functions it made (in the order it made them)."""
+    import shutil
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.training import students as port_students
+
+    tag = "group" if vmap_students else "sequential"
+    cfg = Config(base_dir=os.path.join(workdir, f"epoch_lanes_{tag}"), dataset="CIFAR10",
+                 epochs=1, timesteps=TRAIN_T, sample_steps=TRAIN_T,
+                 limit_batches_per_epoch=GROUP_BATCHES, num_samples_to_generate=0,
+                 compute_dtype="float32", vmap_students=vmap_students).create_directories()
+    shutil.copy(os.path.join(workdir, "output", "models", "teacher", "model_epoch_1.msgpack"),
+                cfg.teacher_models_dir)
+    groups, run_group, fns = [], port_students._distill_group, []
+
+    def record(teacher, config, size_factors, *args, **kwargs):
+        groups.append(list(size_factors))
+        return run_group(teacher, config, size_factors, *args, **kwargs)
+
+    def kept(factory):
+        def make(*args, **kwargs):
+            fns.append(factory(*args, **kwargs))
+            return fns[-1]
+        return make
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(port_students, "_distill_group", record), \
+            mock.patch.object(port_students, "make_distill_epoch_fn",
+                              kept(port_students.make_distill_epoch_fn)), \
+            mock.patch.object(port_students, "make_multi_distill_epoch_fn",
+                              kept(port_students.make_multi_distill_epoch_fn)):
+        models = port_students.train_students(cfg, custom_size_factors=list(GROUP_SIZES), seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    recs = {sf: _jsonl_records(os.path.join(cfg.results_dir, f"distill_metrics_size_{sf}.jsonl"))
+            for sf in GROUP_SIZES}
+    return dict(groups=groups, wall=wall, models=models, fns=fns,
+                losses={sf: [r["avg_loss"] for r in v] for sf, v in recs.items()},
+                seconds={sf: [r["seconds"] for r in v] for sf, v in recs.items()})
+
+
+def _hold_student_group(card, workdir):
+    """13(c): the student group against ``vmap_students=False``.  Each
+    member runs the sequential step's kernels on its row of the stacked
+    weights, but the upsample's backward adds with atomics in no fixed
+    order (on the CPU the two agree bit for bit): epoch losses at the JAX
+    contract's rtol 1e-5, weights as :func:`_hold_weights` holds them, with
+    a relative norm limit of 2e-2 (the tiny students' small tensors move
+    further apart in relative norm than the teacher's); the BatchNorm
+    statistics, whose means carry the drifting biases, are not held."""
+    saved = _tf32_off()
+    group, seq = _group_run(workdir, True), _group_run(workdir, False)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+    if group["groups"] != [[0.01, 0.05]] or seq["groups"]:
+        raise RuntimeError(f"13(c): groups {group['groups']} and {seq['groups']}")
+    worst_loss, worst_rel, worst_abs = 0.0, 0.0, 0.0
+    for sf in GROUP_SIZES:
+        np.testing.assert_allclose(group["losses"][sf], seq["losses"][sf], rtol=1e-5)
+        worst_loss = max(worst_loss, abs(group["losses"][sf][0] - seq["losses"][sf][0])
+                         / abs(seq["losses"][sf][0]))
+        rel, d = _hold_weights(f"13(c) sf {sf}", group["models"][sf], seq["models"][sf],
+                               GROUP_BATCHES, 1e-4, rel_limit=2e-2)
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, d)
+    print(f"13(c) train_students {list(GROUP_SIZES)} from phase 5's teacher, {GROUP_BATCHES} "
+          f"batches of 128, T={TRAIN_T}, f32 with TF32 off: group {group['groups']} as one step, "
+          f"0.1 alone; per-member epoch losses {group['losses']} against vmap_students=False "
+          f"{seq['losses']} (rtol 1e-5, worst rel {worst_loss:.3e}); weights within rel norm "
+          f"{worst_rel:.3e} (2e-2) and abs {worst_abs:.3e} (2.2 x {GROUP_BATCHES} x lr); "
+          f"BatchNorm statistics not held [{card}]")
+    print(f"13(c) epoch seconds (capture and warm-up included): group (0.01, 0.05) "
+          f"{group['seconds'][0.01][0]:.3f} s against sequential 0.01 "
+          f"{seq['seconds'][0.01][0]:.3f} s + 0.05 {seq['seconds'][0.05][0]:.3f} s = "
+          f"{seq['seconds'][0.01][0] + seq['seconds'][0.05][0]:.3f} s; 0.1 alone "
+          f"{group['seconds'][0.1][0]:.3f} s and {seq['seconds'][0.1][0]:.3f} s; train_students "
+          f"wall {group['wall']:.3f} s against {seq['wall']:.3f} s [{card}]")
+    # Steady state, after the holds (a replay trains on): each graph
+    # replayed 5 times from its epoch's first row, synchronized.
+    (g01, g1), (s01, s05, s1) = ([_replay_ms(fn) for fn in run["fns"]] for run in (group, seq))
+    print(f"13(c) steady replay (median of 5): group (0.01, 0.05) {g01:.3f} ms against "
+          f"sequential 0.01 {s01:.3f} ms + 0.05 {s05:.3f} ms = {s01 + s05:.3f} ms; 0.1 "
+          f"{g1:.3f} and {s1:.3f} ms [{card}]")
+
+
+def _replay_ms(epoch_fn, n=5):
+    captured = epoch_fn.captured[0]
+    captured.i.zero_()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        captured.graph.replay()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) * 1e3
+
+
+def phase_epoch_lanes(card, workdir):
+    """Phase 13: the trainers' default lanes on the card."""
+    for label, run in (("(a) hold", lambda: _hold_epoch_lane(card)),
+                       ("(b) timed turns", lambda: _time_epoch_lanes(card)),
+                       ("(c) student group", lambda: _hold_student_group(card, workdir))):
+        t0 = time.perf_counter()
+        run()
+        print(f"phase epoch lanes {label}: {time.perf_counter() - t0:.1f} s [{card}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -2839,6 +3233,9 @@ def main():
         t0 = time.perf_counter()
         bench_launches = phase_benches(card, workdir)
         print(f"phase benches: {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        phase_epoch_lanes(card, workdir)
+        print(f"phase epoch lanes: {time.perf_counter() - t0:.1f} s [{card}]")
     total = (launches + cli_launches + clis_launches + edit_launches + lane_launches
              + multi_launches + last_launches + bench_launches)
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "

@@ -62,10 +62,12 @@ class Config:
     (``torch.utils.checkpoint``).  ``pallas_cfg_update`` is kept for config
     compatibility only: the port's samplers always send the update tail
     through ``ops.cfg_update.cfg_engine_update``, whatever it says.
-    ``epoch_scan`` and ``vmap_students`` select nothing either: the trainers
-    always run the per-batch loop and train students of one architecture
-    in sequence, the semantics the JAX package holds its epoch scan and
-    vmapped group to.
+    ``epoch_scan`` selects what it selects in JAX: on one device the
+    trainers upload the dataset once and run each epoch through the epoch
+    lane (one captured CUDA graph replayed a batch on the card; also off
+    with ``DTT_EPOCH_SCAN=0``), else the per-batch loop.  ``vmap_students``
+    trains the size factors that floor to one U-Net as one group step on
+    that lane (not with ``checkpoint_sharded`` or ``sweep_parallel``).
     """
 
     # Dataset

@@ -56,6 +56,11 @@ def get_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, ctypes.c_uint64,
         ]
         lib.dtt_shuffle_indices.restype = None
+        lib.dtt_gather_normalize.argtypes = [
+            ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+            ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
+        ]
+        lib.dtt_gather_normalize.restype = None
         lib.dtt_gather_f32.argtypes = [
             ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int64),
             ctypes.c_int64, ctypes.c_int64, ctypes.POINTER(ctypes.c_float),
@@ -76,12 +81,33 @@ def shuffle_indices(n: int, seed: int) -> np.ndarray:
     return idx
 
 
+def _check_rows(idx: np.ndarray, n: int) -> None:
+    if idx.size and (idx.min() < 0 or idx.max() >= n):
+        raise IndexError("gather index out of range")
+
+
+def gather_normalize(images_u8: np.ndarray, idx: np.ndarray) -> np.ndarray:
+    """Multi-threaded gather of uint8 images by index, normalized to
+    float32 in [−1, 1] (``u8 / 255 * 2 - 1``)."""
+    images_u8 = np.ascontiguousarray(images_u8, dtype=np.uint8)
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    _check_rows(idx, images_u8.shape[0])
+    out = np.empty((idx.shape[0],) + images_u8.shape[1:], dtype=np.float32)
+    get_lib().dtt_gather_normalize(
+        images_u8.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        idx.shape[0],
+        int(np.prod(images_u8.shape[1:])),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    return out
+
+
 def gather_f32(images_f32: np.ndarray, idx: np.ndarray) -> np.ndarray:
     """Multi-threaded gather of float32 images by index."""
     images_f32 = np.ascontiguousarray(images_f32, dtype=np.float32)
     idx = np.ascontiguousarray(idx, dtype=np.int64)
-    if idx.size and (idx.min() < 0 or idx.max() >= images_f32.shape[0]):
-        raise IndexError("gather index out of range")
+    _check_rows(idx, images_f32.shape[0])
     out = np.empty((idx.shape[0],) + images_f32.shape[1:], dtype=np.float32)
     get_lib().dtt_gather_f32(
         images_f32.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),

@@ -188,9 +188,12 @@ def load_optax_adam_state(
     mu = unet_state_dict_from_variables({"params": adam["mu"]})
     nu = unet_state_dict_from_variables({"params": adam["nu"]})
     step = float(np.asarray(adam["count"]))
+    capturable = optimizer.defaults.get("capturable", False)
     for name, p in model.named_parameters():
         optimizer.state[p] = {
-            "step": torch.tensor(step, dtype=torch.float32),
+            # A capturable Adam keeps its count on the parameters' device.
+            "step": torch.tensor(step, dtype=torch.float32,
+                                 device=p.device if capturable else "cpu"),
             "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).contiguous(),
             "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).contiguous(),
         }

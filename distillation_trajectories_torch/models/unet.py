@@ -295,10 +295,13 @@ class DiffusionUNet(nn.Module):
             )
         lay = layout or DENSE
         drop = lambda h: self._dropout(h, generator)
+        # No weight-cast cache: each weight is cast once per forward anyway,
+        # and a CUDA graph capture must not keep casts across forwards.
         with torch.autocast(
             device_type=x.device.type,
             dtype=self.dtype,
             enabled=self.dtype != torch.float32,
+            cache_enabled=False,
         ):
             temb = self.time_mlp(t) + mask * self.cond_emb(cond_in)
             h = lay.enter(x.permute(0, 3, 1, 2))  # NHWC -> NCHW view, channels-last strides

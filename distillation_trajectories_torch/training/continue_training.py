@@ -3,8 +3,9 @@
 
 Weights, BatchNorm statistics and, when the checkpoint has them, the Adam
 moments are restored from a checkpoint written by either package (or the
-port's sharded lane); epochs continue as ``model_epoch_{start + i}``.
-With ``Config.mesh_shape`` the restored state is sharded over the mesh.
+port's sharded lane); epochs continue as ``model_epoch_{start + i}``,
+through the epoch lane on one device as in :mod:`.teacher`.  With
+``Config.mesh_shape`` the restored state is sharded over the mesh.
 """
 
 from __future__ import annotations
@@ -19,8 +20,14 @@ from ..models import load_optax_adam_state, load_unet_variables, make_unet
 from ..parallel.distributed import barrier
 from ..parallel.mesh import mesh_from_config, shard_train_state
 from .checkpoints import AsyncCheckpointWriter, load_checkpoint, save_epoch, variables_from_checkpoint
-from .loop import run_train_epoch
-from .state import TorchDraws, create_train_state, make_teacher_train_step
+from .loop import run_train_epoch, upload_dataset
+from .state import (
+    TorchDraws,
+    create_train_state,
+    epoch_scan_enabled,
+    make_teacher_epoch_fn,
+    make_teacher_train_step,
+)
 from .teacher import make_grid_fn, save_grid
 
 
@@ -47,7 +54,13 @@ def continue_training(config, start_epoch: int, seed: int = 0, log_every: int = 
 
     diffusion_params = get_diffusion_params(config.timesteps, config)
     loader = get_data_loader(config, seed=seed + start_epoch)
-    train_step = make_teacher_train_step(diffusion_params, config.timesteps)
+    use_scan = epoch_scan_enabled(config, mesh)
+    train_step = epoch_fn = dataset_dev = None
+    if use_scan:
+        epoch_fn = make_teacher_epoch_fn(diffusion_params, config.timesteps)
+        dataset_dev = upload_dataset(loader, device)
+    else:
+        train_step = make_teacher_train_step(diffusion_params, config.timesteps)
     grid_fn = make_grid_fn(model, config, diffusion_params)
     ckpt_writer = AsyncCheckpointWriter()
     try:
@@ -64,6 +77,9 @@ def continue_training(config, start_epoch: int, seed: int = 0, log_every: int = 
                 log_label=f"[continue] epoch {epoch + 1}",
                 log_every=log_every,
                 loss_fmt=".5f",
+                use_scan=use_scan,
+                epoch_fn=epoch_fn,
+                dataset_dev=dataset_dev,
             )
             print(f"[continue] epoch {epoch + 1} avg loss {avg_loss:.5f} "
                   f"({time.time() - t0:.1f}s)")

@@ -1,12 +1,14 @@
-"""The one-epoch loop shared by the teacher, distillation and resume
-trainers (port of the per-batch loop of JAX ``training/loop.py:89-118``).
+"""The one-epoch runner shared by the teacher, distillation and resume
+trainers (port of JAX ``training/loop.py``), in its two lanes.
 
-The JAX package's epoch scan is bitwise equal to this loop, so the loop is
-the whole contract: batches in loader order, ``limit_batches_per_epoch``
-honoured, the losses kept on the device and fetched once, and an empty
-epoch reported as 0.0.  On a mesh (``state.mesh``) every rank reads the
-same global batch and keeps its rows (``parallel.shard_batch``); the steps
-return the global batch's loss.
+The per-batch loop uploads each batch from the loader and runs the step;
+on a mesh (``state.mesh``) every rank reads the same global batch and keeps
+its rows (``parallel.shard_batch``), and the steps return the global
+batch's loss.  The epoch lane (``use_scan``) hands one epoch's
+``[n_batches, B]`` indices and the device-resident dataset to an epoch
+function (``state.make_*_epoch_fn``).  Both take the batches in loader
+order, honour ``limit_batches_per_epoch``, keep the losses on the device
+and fetch them once, and report an empty epoch as 0.0.
 """
 
 from __future__ import annotations
@@ -36,6 +38,15 @@ def progress_iter(loader, desc, config):
     )
 
 
+def upload_dataset(loader, device) -> torch.Tensor:
+    """The loader's whole image set ``[N, H, W, C]`` float32 on ``device``,
+    for the epoch lane (uploaded once, waited for)."""
+    images = torch.from_numpy(loader.images).to(device)
+    if images.device.type == "cuda":
+        torch.cuda.synchronize(images.device)
+    return images
+
+
 def run_train_epoch(
     state,
     *,
@@ -47,9 +58,28 @@ def run_train_epoch(
     log_label: str,
     log_every: int,
     loss_fmt: str = ".5f",
+    use_scan: bool = False,
+    epoch_fn=None,
+    dataset_dev=None,
+    reduce_loss: bool = True,
 ):
-    """Run one epoch of ``train_step(state, images) -> (state, loss)`` over
-    ``loader``; returns ``(state, avg_loss, n_batches)``."""
+    """Run one epoch; returns ``(state, avg_loss, n_batches)``.
+
+    Per-batch lane: ``train_step(state, images) -> (state, loss)`` on each
+    batch of ``loader``, with a running-loss print (or tqdm postfix) every
+    ``log_every`` batches.  Epoch lane (``use_scan``): one
+    ``epoch_fn(state, dataset_dev, idx) -> (state, losses)`` over the
+    epoch's indices from ``loader.epoch_indices``.  ``reduce_loss=False``
+    returns the fetched per-step losses (``[n_batches]``, or the student
+    group's ``[n_batches, N]``) in place of their mean, in either lane."""
+    if use_scan:
+        idx = loader.epoch_indices(config.limit_batches_per_epoch)
+        if not len(idx):
+            return state, (0.0 if reduce_loss else np.zeros((0,), np.float32)), 0
+        state, losses_dev = epoch_fn(state, dataset_dev, idx)
+        losses_host = losses_dev.cpu().numpy()
+        return state, (float(np.mean(losses_host)) if reduce_loss else losses_host), len(idx)
+
     losses = []
     progress = progress_iter(loader, progress_desc, config)
     batches = iter(progress)
@@ -77,8 +107,8 @@ def run_train_epoch(
         close = getattr(batches, "close", None)
         if close is not None:
             close()  # stops the loader's prefetch thread
-    if not losses:
-        return state, 0.0, 0
-    losses_host = torch.stack(losses).cpu().numpy()
-    return state, float(np.mean(losses_host)), len(losses)
+    losses_host = torch.stack(losses).cpu().numpy() if losses else np.zeros((0,), np.float32)
+    if not reduce_loss:
+        return state, losses_host, len(losses)
+    return state, float(np.mean(losses_host)) if losses else 0.0, len(losses)
 

@@ -10,13 +10,27 @@ dropout masks.  A step given none draws them from ``state.draws``, a draw
 source; the default source, :class:`TorchDraws`, is one ``torch.Generator``
 on the device seeded from the trainer's seed.  Tests pass a source (or the
 draws) holding JAX's values instead.
+
+The epoch lane (JAX ``make_teacher_epoch_fn``, ``make_distill_epoch_fn``,
+``make_multi_distill_epoch_fn``) runs the same step bodies over a
+device-resident dataset: each batch is gathered on the device by a row of
+``DataLoader.epoch_indices`` and each loss lands in a device tensor, so
+nothing waits for the host inside an epoch.  On CUDA the step is captured
+once into a ``torch.cuda.CUDAGraph`` and replayed for every batch (the
+counterpart of JAX's one ``lax.scan`` dispatch); on the CPU the same body
+runs eagerly.  Same-architecture students train as one step over a member
+axis: each member's step on its row of the stacked weights, one backward
+and one Adam step for the group.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+import os
+import time
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..diffusion.process import q_sample
@@ -105,10 +119,16 @@ class TrainState:
     mesh: Optional[object] = None
 
 
-def make_optimizer(model: torch.nn.Module, config) -> torch.optim.Adam:
+def make_optimizer(model, config) -> torch.optim.Adam:
     """Adam with torch's defaults, β=(0.9, 0.999) and eps 1e-8, as the
-    reference trainers run it (not the config's unused ``adam_beta1=0.8``)."""
-    return torch.optim.Adam(model.parameters(), lr=config.lr, betas=(0.9, 0.999), eps=1e-8)
+    reference trainers run it (not the config's unused ``adam_beta1=0.8``),
+    over a module's parameters or an iterable of tensors.  On CUDA it is
+    ``capturable`` (its step count a device tensor), so that a captured
+    step can replay it; the per-batch loop builds it so too, and both lanes
+    run the same update."""
+    params = list(model.parameters() if isinstance(model, torch.nn.Module) else model)
+    return torch.optim.Adam(params, lr=config.lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=params[0].device.type == "cuda")
 
 
 def create_train_state(model: torch.nn.Module, config, draws, use_ema: bool = False) -> TrainState:
@@ -201,10 +221,11 @@ def _global_loss(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
     return all_reduce_(loss.clone(), axis_group(state.mesh, DATA_AXIS)) / d
 
 
-def _apply_update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[float]) -> None:
+def _update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[float]) -> None:
     """Backward, the data axis's gradient mean on a mesh, the Adam step
-    and the EMA."""
-    state.optimizer.zero_grad(set_to_none=True)
+    and the EMA.  The gradients are zeroed in place, not freed, so that a
+    captured step keeps writing the buffers its graph holds."""
+    state.optimizer.zero_grad(set_to_none=False)
     loss.backward()
     if axis_size(state.mesh, DATA_AXIS) > 1:
         mean_gradients(state.model, axis_group(state.mesh, DATA_AXIS))
@@ -215,7 +236,24 @@ def _apply_update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[floa
             params = [p for _, p in state.model.named_parameters()]
             torch._foreach_mul_(ema, ema_rate)
             torch._foreach_add_(ema, params, alpha=1.0 - ema_rate)
+
+
+def _apply_update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[float]) -> None:
+    """:func:`_update` and one more step on the count."""
+    _update(state, loss, ema_rate)
     state.step += 1
+
+
+def _counted(body: Callable) -> Callable:
+    """The per-batch step ``step(state, images, draws=None) -> (state,
+    loss)`` of a step body ``body(state, images, draws) -> loss``."""
+
+    def train_step(state, images: torch.Tensor, draws: Optional[StepDraws] = None):
+        loss = body(state, images, draws)
+        state.step += 1
+        return state, loss
+
+    return train_step
 
 
 def make_teacher_train_step(diffusion_params, timesteps: int, ema_rate: Optional[float] = None):
@@ -223,9 +261,15 @@ def make_teacher_train_step(diffusion_params, timesteps: int, ema_rate: Optional
     (cond ε-MSE + uncond ε-MSE) / 2, BatchNorm statistics chained through
     both train forwards (cond first).  Returns ``step(state, images,
     draws=None) -> (state, loss)``; the gradients stay in ``.grad``."""
+    return _counted(_teacher_body(diffusion_params, timesteps, ema_rate))
+
+
+def _teacher_body(diffusion_params, timesteps: int, ema_rate: Optional[float]) -> Callable:
+    """The teacher step's body ``(state, images, draws) -> loss``, shared by
+    the per-batch step and the epoch lane; it leaves ``state.step`` alone."""
     schedules: Dict[torch.device, Dict] = {}
 
-    def train_step(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws] = None):
+    def body(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws]):
         draws = _step_draws(state, draws, images,
                             lambda like: state.draws.teacher_step(like, timesteps))
         dp = _schedule(schedules, diffusion_params, images.device)
@@ -238,10 +282,10 @@ def make_teacher_train_step(diffusion_params, timesteps: int, ema_rate: Optional
         x2, n2 = q_sample(images, draws.t, dp, noise=draws.noises[1])
         loss_uncond = _mse(model(x2, draws.t, zeros, zeros, generator=draws.generator), n2)
         loss = (loss_cond + loss_uncond) / 2.0
-        _apply_update(state, loss, ema_rate)
-        return state, _global_loss(state, loss)
+        _update(state, loss, ema_rate)
+        return _global_loss(state, loss)
 
-    return train_step
+    return body
 
 
 def make_distill_train_step(teacher_model: torch.nn.Module, teacher_diffusion_params,
@@ -251,11 +295,19 @@ def make_distill_train_step(teacher_model: torch.nn.Module, teacher_diffusion_pa
     gradients, the student's in train mode; loss = mean of the two MSEs
     between student and teacher predictions.  Returns ``step(state, images,
     draws=None) -> (state, loss)``."""
+    return _counted(_distill_body(teacher_model, teacher_diffusion_params, teacher_steps,
+                                  student_steps))
+
+
+def _distill_body(teacher_model: torch.nn.Module, teacher_diffusion_params, teacher_steps: int,
+                  student_steps: int) -> Callable:
+    """The distillation step's body ``(state, images, draws) -> loss``,
+    shared by the per-batch step and the epoch lane."""
     ratio = student_steps / teacher_steps
     teacher_fn = make_eval_model_fn(teacher_model)
     schedules: Dict[torch.device, Dict] = {}
 
-    def train_step(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws] = None):
+    def body(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws]):
         draws = _step_draws(state, draws, images,
                             lambda like: state.draws.distill_step(like, teacher_steps))
         dp = _schedule(schedules, teacher_diffusion_params, images.device)
@@ -271,7 +323,300 @@ def make_distill_train_step(teacher_model: torch.nn.Module, teacher_diffusion_pa
         student_cond = model(x_noisy, t_student, ones, ones, generator=draws.generator)
         student_uncond = model(x_noisy, t_student, zeros, zeros, generator=draws.generator)
         loss = (_mse(student_cond, teacher_cond) + _mse(student_uncond, teacher_uncond)) / 2.0
-        _apply_update(state, loss, None)
-        return state, _global_loss(state, loss)
+        _update(state, loss, None)
+        return _global_loss(state, loss)
 
-    return train_step
+    return body
+
+
+# --- The epoch lane ----------------------------------------------------------
+
+# Eager steps a state takes before its step is captured: the first builds
+# the Adam moments and the gradients, the second runs every kernel once
+# more with them in place (the capture records what runs, it runs nothing).
+CAPTURE_WARMUP_STEPS = 2
+
+
+def epoch_scan_enabled(config, mesh) -> bool:
+    """The epoch lane (JAX ``state.py::epoch_scan_enabled``): on when
+    ``config.epoch_scan`` is set, on one device (a mesh takes the per-batch
+    loop, which places each batch's rows) and ``DTT_EPOCH_SCAN`` is not
+    ``"0"``."""
+    return (
+        bool(getattr(config, "epoch_scan", True))
+        and mesh is None
+        and os.environ.get("DTT_EPOCH_SCAN", "1") != "0"
+    )
+
+
+def _draw_generators(state) -> List[torch.Generator]:
+    """The generators a captured step of ``state`` draws from: each draw
+    source's ``generator`` (a stacked state's members' too).  A source
+    without one has nothing a replay could advance, so a capture raises."""
+    sources = [m.draws for m in state.members] if isinstance(state, StackedTrainState) \
+        else [state.draws]
+    gens = [getattr(s, "generator", None) for s in sources]
+    if any(not isinstance(g, torch.Generator) for g in gens):
+        raise TypeError("a captured step draws from its draw source's torch.Generator; "
+                        f"{[type(s).__name__ for s in sources]} have none")
+    return gens
+
+
+class _CapturedStep:
+    """One state's step over one device dataset at one ``[n_batches, B]``
+    index shape, captured into a CUDA graph after its warm-up steps.
+
+    The graph reads its batch's index row from ``idx`` at the device
+    counter ``i``, gathers the images from the dataset, runs the step body
+    and writes the loss into row ``i`` of ``losses``, then advances
+    ``i``: one ``replay()`` per batch and nothing else from the host."""
+
+    def __init__(self, state, dataset: torch.Tensor, idx: torch.Tensor):
+        self.state, self.dataset = state, dataset
+        self.idx = idx.clone()
+        self.i = torch.zeros((), dtype=torch.int64, device=dataset.device)
+        self.losses = None  # [n_batches, *loss shape], from the first step
+        self.warm = 0  # eager steps taken
+        self.graph = None
+        self.capture_s = 0.0
+
+    def matches(self, state, dataset, idx) -> bool:
+        return self.state is state and self.dataset is dataset and self.idx.shape == idx.shape
+
+    def eager(self, body, i: int) -> None:
+        """Batch ``i`` eagerly, on a side stream (the warm-up CUDA graphs
+        want before a capture)."""
+        device = self.dataset.device
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            loss = body(self.state, self.dataset.index_select(0, self.idx[i]))
+            if self.losses is None:
+                self.losses = loss.new_zeros((self.idx.shape[0], *loss.shape))
+            self.losses[i].copy_(loss)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.state.step += 1
+        self.warm += 1
+
+    def capture(self, body) -> None:
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        for gen in _draw_generators(self.state):
+            graph.register_generator_state(gen)
+        # thread_local: the checkpoint writer's threads may copy to the host
+        # while this thread captures.
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            at = self.i.view(1)
+            loss = body(self.state, self.dataset.index_select(0, self.idx.index_select(0, at)[0]))
+            self.losses.index_copy_(0, at, loss.unsqueeze(0))
+            self.i.add_(1)
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, body, idx: torch.Tensor) -> torch.Tensor:
+        """One epoch over ``idx``: warm-up steps while any are due, the
+        capture, then a replay per batch.  Returns the epoch's losses."""
+        n = idx.shape[0]
+        self.idx.copy_(idx)
+        i = 0
+        while i < n and self.warm < CAPTURE_WARMUP_STEPS:
+            self.eager(body, i)
+            i += 1
+        if i < n and self.graph is None:
+            self.capture(body)
+        self.i.fill_(i)
+        for _ in range(i, n):
+            self.graph.replay()
+            self.state.step += 1
+        return self.losses.clone()
+
+
+def _epoch_fn(body: Callable) -> Callable:
+    """``epoch(state, dataset, idx) -> (state, losses)``: ``body(state,
+    images, draws=None) -> loss`` for each row of ``idx`` (``[n_batches,
+    B]``, as ``DataLoader.epoch_indices`` gives it) on the rows of
+    ``dataset`` (``[N, H, W, C]`` float32 on the device) it names, with
+    ``losses`` ``[n_batches, *loss shape]`` on the device.  On CUDA the
+    step is captured once (:class:`_CapturedStep`) and replayed; a capture
+    or replay that fails raises."""
+    captured: List[_CapturedStep] = []
+    step = lambda state, images: body(state, images, None)
+
+    def epoch(state, dataset: torch.Tensor, idx):
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(dataset.device)
+        if dataset.device.type != "cuda":
+            losses = []
+            for row in idx:
+                losses.append(step(state, dataset.index_select(0, row)))
+                state.step += 1
+            return state, torch.stack(losses)
+        if not (captured and captured[0].matches(state, dataset, idx)):
+            captured[:] = [_CapturedStep(state, dataset, idx)]
+        return state, captured[0].run(step, idx)
+
+    epoch.captured = captured  # the capture, for its timing and its graph
+    return epoch
+
+
+def make_teacher_epoch_fn(diffusion_params, timesteps: int, ema_rate: Optional[float] = None):
+    """The teacher's epoch lane (JAX ``make_teacher_epoch_fn``):
+    ``epoch(state, dataset, idx) -> (state, losses)`` runs the teacher
+    step of :func:`make_teacher_train_step` on each batch ``dataset[idx[i]]``
+    with its draws from ``state.draws`` in the per-batch loop's order, so
+    one seed gives the loop's batches, draws, losses and weights."""
+    return _epoch_fn(_teacher_body(diffusion_params, timesteps, ema_rate))
+
+
+def make_distill_epoch_fn(teacher_model: torch.nn.Module, teacher_diffusion_params,
+                          teacher_steps: int, student_steps: int):
+    """The distillation epoch lane (JAX ``make_distill_epoch_fn``): the
+    step of :func:`make_distill_train_step` over an epoch, as
+    :func:`make_teacher_epoch_fn` runs the teacher's."""
+    return _epoch_fn(_distill_body(teacher_model, teacher_diffusion_params, teacher_steps,
+                                   student_steps))
+
+
+# --- The student group --------------------------------------------------------
+
+
+@dataclasses.dataclass
+class StackedTrainState:
+    """Same-architecture students along a leading member axis: their
+    weights and BatchNorm buffers stacked by name (``[N, ...]``, each row
+    laid out as the member's own tensor), one Adam over the stacked weights
+    (Adam is elementwise, so this is N Adams), the members' own
+    :class:`TrainState`\\ s (draw sources, and the modules that
+    :func:`unstack_train_state` fills) and the shared step count."""
+
+    model: torch.nn.Module  # the architecture the rows run through
+    params: Dict[str, torch.Tensor]
+    buffers: Dict[str, torch.Tensor]
+    optimizer: torch.optim.Optimizer
+    members: List[TrainState]
+    step: int = 0
+
+    def row(self, i: int) -> Dict[str, torch.Tensor]:
+        """Member ``i``'s weights and buffers: views of row ``i``."""
+        return {k: v[i] for k, v in (*self.params.items(), *self.buffers.items())}
+
+
+def _stack(tensors: List[torch.Tensor]) -> torch.Tensor:
+    """``[N, *shape]`` whose row ``i`` holds ``tensors[i]`` with its strides
+    (a channels-last weight stays channels-last), so that a row runs the
+    member's own kernels."""
+    t0 = tensors[0]
+    out = torch.empty_strided((len(tensors), *t0.shape), (t0.numel(), *t0.stride()),
+                              dtype=t0.dtype, device=t0.device)
+    for row, t in zip(out, tensors):
+        row.copy_(t)
+    return out
+
+
+def stack_train_states(states: List[TrainState]) -> StackedTrainState:
+    """Stack same-architecture :class:`TrainState`\\ s along a leading member
+    axis (JAX ``state.py::stack_train_states``), Adam moments included."""
+    models = [s.model for s in states]
+    with torch.no_grad():
+        params = {name: _stack([m.get_parameter(name) for m in models]).requires_grad_()
+                  for name, _ in models[0].named_parameters()}
+        buffers = {name: _stack([m.get_buffer(name) for m in models])
+                   for name, _ in models[0].named_buffers()}
+        opt0 = states[0].optimizer
+        optimizer = type(opt0)(list(params.values()), **opt0.defaults)
+        for name, p in params.items():
+            per = [s.optimizer.state.get(s.model.get_parameter(name)) for s in states]
+            if all(per):
+                optimizer.state[p] = {"step": per[0]["step"].clone(),
+                                      **{k: _stack([st[k] for st in per])
+                                         for k in ("exp_avg", "exp_avg_sq")}}
+    return StackedTrainState(model=models[0], params=params, buffers=buffers,
+                             optimizer=optimizer, members=list(states), step=states[0].step)
+
+
+def unstack_train_state(states: StackedTrainState, i: int) -> TrainState:
+    """Member ``i`` of a stacked state (JAX ``state.py::unstack_train_state``):
+    its :class:`TrainState`, whose model and Adam state are set to row ``i``
+    of the stacked ones."""
+    member = states.members[i]
+    with torch.no_grad():
+        for name, p in member.model.named_parameters():
+            p.copy_(states.params[name][i])
+            st = states.optimizer.state.get(states.params[name])
+            if st:
+                member.optimizer.state[p] = {
+                    "step": st["step"].clone(),
+                    **{k: st[k][i].clone() for k in ("exp_avg", "exp_avg_sq")}}
+        for name, b in member.model.named_buffers():
+            b.copy_(states.buffers[name][i])
+    member.step = states.step
+    return member
+
+
+def _group_body(teacher_model: torch.nn.Module, teacher_diffusion_params, teacher_steps: int,
+                student_steps: int) -> Callable:
+    """The group's step body ``(states, images, draws) -> losses [N]``.
+
+    Each member runs the sequential distillation step's arithmetic on its
+    row of the stacked weights (``torch.func.functional_call``), drawing
+    from its own source in the sequential order (``t`` and the noise, then
+    the cond forward's dropout masks, then the uncond forward's); one
+    backward of the members' summed losses gives each row its member's
+    gradient, and one Adam step updates every row.  The BatchNorm
+    buffers' rows are updated in place.  (A ``vmap`` of the member's loss
+    batches the convolutions and so rounds them otherwise; Adam's first
+    steps, which move each weight by about ±lr whatever its gradient, lift
+    that rounding into the losses.)"""
+    from torch.func import functional_call
+
+    ratio = student_steps / teacher_steps
+    teacher_fn = make_eval_model_fn(teacher_model)
+    schedules: Dict[torch.device, Dict] = {}
+
+    def body(states: StackedTrainState, images: torch.Tensor, draws=None):
+        dp = _schedule(schedules, teacher_diffusion_params, images.device)
+        b = images.shape[0]
+        ones = images.new_ones((b, 1))
+        zeros = images.new_zeros((b, 1))
+        model = states.model.train()
+        names = list(states.params)
+        losses, weights = [], []
+        for i, member in enumerate(states.members):
+            d = member.draws.distill_step(images, teacher_steps)
+            t_student = torch.floor(d.t * ratio).to(torch.int64)
+            x_noisy, _ = q_sample(images, d.t, dp, noise=d.noises[0])
+            teacher_cond = teacher_fn(x_noisy, d.t, ones, ones)
+            teacher_uncond = teacher_fn(x_noisy, d.t, zeros, zeros)
+            row = states.row(i)
+            weights += [row[k] for k in names]
+            student = lambda c: functional_call(model, row, (x_noisy, t_student, c, c),
+                                                {"generator": d.generator})
+            losses.append((_mse(student(ones), teacher_cond)
+                           + _mse(student(zeros), teacher_uncond)) / 2.0)
+        losses = torch.stack(losses)
+        # Each member's gradients are taken at its rows and copied in, not
+        # scattered through the stack (a zero-filled [N, ...] a member).
+        grads = torch.autograd.grad(losses.sum(), weights)
+        for p in states.params.values():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch._foreach_copy_([states.params[k].grad[i] for i in range(len(states.members))
+                              for k in names], grads)
+        states.optimizer.step()
+        return losses.detach()
+
+    return body
+
+
+def make_multi_distill_epoch_fn(teacher_model: torch.nn.Module, teacher_diffusion_params,
+                                teacher_steps: int, student_steps: int):
+    """The student group's epoch lane (JAX
+    ``state.py::make_multi_distill_epoch_fn``): ``epoch(states, dataset,
+    idx) -> (states, losses)`` for a :class:`StackedTrainState`, ``losses``
+    ``[n_batches, N]``, one step (on CUDA, one captured graph) per batch for
+    the whole group.
+
+    Each member's arithmetic is the sequential trainer's: the shared batch
+    order (one loader seed), its own draw stream and the same step, so a
+    member ends where :func:`make_distill_epoch_fn` would have taken it."""
+    return _epoch_fn(_group_body(teacher_model, teacher_diffusion_params, teacher_steps,
+                                 student_steps))

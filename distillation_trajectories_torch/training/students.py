@@ -1,17 +1,21 @@
 """Student distillation across size factors (port of
 ``distillation_trajectories_tpu/training/students.py``, without its
-TPU-host machinery: AOT compile pool, watchdog, epoch scan).
+TPU-host machinery: AOT compile pool, watchdog).
 
 Each student trains in turn from the teacher's latest checkpoint: per batch
 two teacher forwards in eval mode and two student forwards plus one
-backward in train mode.  Size factors that floor to the same architecture
-(``Config.vmap_students``) train in sequence too; the JAX package trains
-such a group as one vmapped graph with exactly these per-member semantics:
-each member's own draw stream from ``seed + int(sf * 1000)`` and the same
-loader order (a fresh loader with the trainer's seed per student).
-With ``Config.mesh_shape`` each student's state and a copy of the teacher
-are sharded over the ``(data, model)`` mesh; ``sweep_parallel`` trains
-every student at once (``parallel/sweep.py``).
+backward in train mode.  On one device the sweep uploads the dataset once
+and each student trains through the epoch lane (``state.make_distill_epoch_fn``;
+a captured CUDA graph on the card) unless ``Config.epoch_scan`` is off or
+``DTT_EPOCH_SCAN=0``.  There, size factors that floor to the same U-Net
+(``Config.vmap_students``, not with ``checkpoint_sharded``) train as one
+group step over a member axis (``state.make_multi_distill_epoch_fn``) with
+the sequential semantics: each member's own draw stream from
+``seed + int(sf * 1000)`` and the same loader order (a fresh loader with the
+trainer's seed per student).  With ``Config.mesh_shape`` each student's
+state and a copy of the teacher are sharded over the ``(data, model)``
+mesh; ``sweep_parallel`` trains every student at once
+(``parallel/sweep.py``).
 """
 
 from __future__ import annotations
@@ -21,10 +25,14 @@ import os
 import time
 from typing import Dict, List, Optional
 
+import numpy as np
+import torch
+
 from ..config import resolve_device
 from ..data.datasets import DataLoader, load_dataset
 from ..diffusion import get_diffusion_params
 from ..models import load_unet_variables, make_unet, param_count
+from ..models.unet import DiffusionUNet
 from ..parallel.distributed import barrier
 from ..parallel.mesh import mesh_from_config, shard_params, shard_train_state
 from ..utils.profiling import MetricsLogger, dump_phase_times, phase_timer, phase_times
@@ -37,8 +45,17 @@ from .checkpoints import (
     save_epoch,
     variables_from_checkpoint,
 )
-from .loop import run_train_epoch
-from .state import TorchDraws, create_train_state, make_distill_train_step
+from .loop import run_train_epoch, upload_dataset
+from .state import (
+    TorchDraws,
+    create_train_state,
+    epoch_scan_enabled,
+    make_distill_epoch_fn,
+    make_distill_train_step,
+    make_multi_distill_epoch_fn,
+    stack_train_states,
+    unstack_train_state,
+)
 from .teacher import make_grid_fn
 
 
@@ -67,9 +84,9 @@ def load_teacher(config, epoch: Optional[int] = None):
 
 def _build_student(teacher_model, config, size_factor: float, seed: int, draws=None,
                    device=None) -> dict:
-    """The student model, its train state and step, and its grid function
-    on ``device`` (default ``config.device``); the draw source is seeded
-    from ``seed + int(size_factor * 1000)``."""
+    """The student model, its train state and step (the per-batch one),
+    and its grid function on ``device`` (default ``config.device``); the
+    draw source is seeded from ``seed + int(size_factor * 1000)``."""
     device = resolve_device(config.device if device is None else device)
     source = (draws or TorchDraws)(seed + int(size_factor * 1000), device)
     model = source.init_unet(config, size_factor)
@@ -93,13 +110,15 @@ def distill_diffusion_model(
     ckpt_writer: Optional[AsyncCheckpointWriter] = None,
     loader: Optional[DataLoader] = None,
     draws=None,
+    dataset_dev=None,
 ):
     """Distill one student of ``size_factor`` from ``teacher_model``.
 
     ``ckpt_writer`` lets a sweep share one async writer; ``loader``
     defaults to a fresh loader of ``config``'s dataset with ``seed``;
-    ``draws`` is a factory ``(seed, device) -> draw source``.  Returns the
-    trained student.
+    ``draws`` is a factory ``(seed, device) -> draw source``;
+    ``dataset_dev``, the loader's images on the device, lets a sweep
+    upload them once for the epoch lane.  Returns the trained student.
     """
     own_writer = ckpt_writer is None
     writer = ckpt_writer or AsyncCheckpointWriter()
@@ -119,6 +138,15 @@ def distill_diffusion_model(
     if loader is None:
         images, labels = load_dataset(config)
         loader = DataLoader(images, labels, config.batch_size, shuffle=True, seed=seed)
+    use_scan = epoch_scan_enabled(config, mesh)
+    epoch_fn = None
+    if use_scan:
+        epoch_fn = make_distill_epoch_fn(
+            teacher_model, get_diffusion_params(config.teacher_steps, config),
+            config.teacher_steps, config.student_steps)
+        if dataset_dev is None:
+            with phase_timer("students/dataset_upload"):
+                dataset_dev = upload_dataset(loader, built["device"])
     metrics_log = MetricsLogger(
         os.path.join(config.results_dir, f"distill_metrics_size_{size_factor}.jsonl"))
     try:
@@ -135,6 +163,9 @@ def distill_diffusion_model(
                     log_label=f"[distill sf={size_factor}] epoch {epoch + 1}",
                     log_every=log_every,
                     loss_fmt=".6f",
+                    use_scan=use_scan,
+                    epoch_fn=epoch_fn,
+                    dataset_dev=dataset_dev,
                 )
             print(f"[distill sf={size_factor}] epoch {epoch + 1}/{config.epochs} "
                   f"avg loss {avg_loss:.6f} ({time.time() - t0:.1f}s)")
@@ -163,6 +194,73 @@ def distill_diffusion_model(
             writer.close()
             barrier()
     return state.model
+
+
+def _distill_group(teacher_model, config, size_factors: List[float], seed: int, writer,
+                   loader: DataLoader, dataset_dev, draws=None) -> Dict[float, object]:
+    """Train same-architecture students as one step over a member axis
+    (JAX ``students.py::_distill_group_vmapped``): each member's metrics
+    records, checkpoints and end-of-training grid keep the sequential
+    trainer's contracts; the logged ``seconds`` is the group's epoch wall
+    time (the members train together).  Returns ``{size_factor: model}``."""
+    sfs = list(size_factors)
+    builts = [_build_student(teacher_model, config, sf, seed, draws) for sf in sfs]
+    states = stack_train_states([b["state"] for b in builts])
+    epoch_fn = make_multi_distill_epoch_fn(
+        teacher_model, get_diffusion_params(config.teacher_steps, config),
+        config.teacher_steps, config.student_steps)
+    logs = {sf: MetricsLogger(os.path.join(config.results_dir, f"distill_metrics_size_{sf}.jsonl"))
+            for sf in sfs}
+    print(f"[distill group {sfs}] one step over {len(sfs)} members of one architecture")
+    try:
+        for epoch in range(config.epochs):
+            t0 = time.time()
+            with phase_timer(f"distill_epoch_group{sfs}"):
+                states, losses, _ = run_train_epoch(
+                    states, train_step=None, loader=loader, config=config,
+                    device=builts[0]["device"], progress_desc=f"distill group {sfs}",
+                    log_label=f"[distill group {sfs}]", log_every=0, use_scan=True,
+                    epoch_fn=epoch_fn, dataset_dev=dataset_dev, reduce_loss=False)
+            secs = time.time() - t0
+            for j, sf in enumerate(sfs):
+                avg_loss = float(np.mean(losses[:, j])) if losses.size else 0.0
+                print(f"[distill sf={sf}] epoch {epoch + 1}/{config.epochs} "
+                      f"avg loss {avg_loss:.6f} ({secs:.1f}s group wall)")
+                logs[sf].log("epoch", epoch=epoch + 1, size_factor=sf, avg_loss=avg_loss,
+                             seconds=secs)
+            if (epoch + 1) % config.save_interval == 0 or epoch == config.epochs - 1:
+                for j, (sf, built) in enumerate(zip(sfs, builts)):
+                    member = unstack_train_state(states, j)
+                    save_epoch(writer, config, config.student_dir(sf), epoch + 1,
+                               member.model, optimizer=member.optimizer)
+                    if epoch == config.epochs - 1 and config.num_samples_to_generate > 0:
+                        grid_fn = built["grid_fn"]
+                        with phase_timer("students/grid"):
+                            noise, step_noise = built["draws"].sample(grid_fn.shape,
+                                                                      grid_fn.n_steps)
+                            samples = grid_fn(noise, step_noise)
+                        writer.submit(
+                            save_image_grid, samples,
+                            os.path.join(config.results_dir,
+                                         f"student_samples_size_{sf}_epoch_{epoch + 1}.png"),
+                            config.samples_grid_size,
+                        )
+    finally:
+        for log in logs.values():
+            log.close()
+    # The last epoch's save has unstacked every member into its model.
+    return {sf: built["model"] for sf, built in zip(sfs, builts)}
+
+
+def _architecture_groups(config, size_factors: List[float]) -> List[List[float]]:
+    """The size factors that floor to one U-Net (``dims`` and
+    ``time_emb_dim``), in first-seen order; groups of two or more."""
+    by_arch: Dict[tuple, List[float]] = {}
+    for sf in size_factors:
+        with torch.device("meta"):
+            m = DiffusionUNet(config.channels, size_factor=sf)
+        by_arch.setdefault((tuple(m.dims), m.time_emb_dim), []).append(sf)
+    return [sfs for sfs in by_arch.values() if len(sfs) > 1]
 
 
 def train_students(
@@ -226,15 +324,30 @@ def train_students(
         return students
     with phase_timer("students/dataset"):
         images, labels = load_dataset(config)
+    # Fresh loader views with the trainer's seed: each student's shuffle
+    # stream starts again at epoch 1, as a loader of its own would.
+    view = lambda: DataLoader(images, labels, config.batch_size, shuffle=True, seed=seed)
+    dataset_dev, groups = None, []
+    if epoch_scan_enabled(config, mesh_from_config(config)):
+        with phase_timer("students/dataset_upload"):
+            dataset_dev = upload_dataset(view(), resolve_device(config.device))
+        if config.vmap_students and not config.checkpoint_sharded:
+            groups = _architecture_groups(config, size_factors)
+    group_of = {sf: g for g in groups for sf in g}
     students: Dict[float, object] = {}
     writer = AsyncCheckpointWriter()
     try:
         for size_factor in size_factors:
+            if size_factor in students:
+                continue  # trained in an earlier member's group
             print(f"\nDistilling to student model with size factor {size_factor}...")
+            if size_factor in group_of:
+                students.update(_distill_group(teacher, config, group_of[size_factor], seed,
+                                               writer, view(), dataset_dev, draws))
+                continue
             students[size_factor] = distill_diffusion_model(
                 teacher, config, size_factor=size_factor, seed=seed,
-                ckpt_writer=writer, draws=draws,
-                loader=DataLoader(images, labels, config.batch_size, shuffle=True, seed=seed),
+                ckpt_writer=writer, draws=draws, loader=view(), dataset_dev=dataset_dev,
             )
     finally:
         with phase_timer("students/ckpt_flush"):

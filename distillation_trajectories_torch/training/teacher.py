@@ -1,8 +1,11 @@
 """Teacher training (port of ``distillation_trajectories_tpu/training/
-teacher.py``, without its TPU-host machinery: AOT compile pool, watchdog,
-epoch scan).
+teacher.py``, without its TPU-host machinery: AOT compile pool, watchdog).
 
-The sf-1.0 U-Net trains with the teacher step on ``config.device``,
+The sf-1.0 U-Net trains with the teacher step on ``config.device``: on
+one device through the epoch lane (the dataset uploaded once, each epoch
+one call of ``state.make_teacher_epoch_fn``; a captured CUDA graph on the
+card) unless ``Config.epoch_scan`` is off or ``DTT_EPOCH_SCAN=0``, else
+through the per-batch loop;
 checkpoints go to ``model_epoch_{e}.msgpack`` (``.dcp`` with
 ``Config.checkpoint_sharded``) every ``save_interval`` epochs and after
 the last, and each save also writes a sample grid
@@ -25,11 +28,13 @@ from ..parallel.mesh import mesh_from_config, shard_train_state
 from ..utils.profiling import MetricsLogger, phase_timer
 from ..utils.viz import save_image_grid
 from .checkpoints import AsyncCheckpointWriter, save_epoch
-from .loop import run_train_epoch
+from .loop import run_train_epoch, upload_dataset
 from .state import (
     TorchDraws,
     create_train_state,
+    epoch_scan_enabled,
     make_eval_model_fn,
+    make_teacher_epoch_fn,
     make_teacher_train_step,
 )
 
@@ -94,13 +99,20 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     if mesh is not None:
         state = shard_train_state(state, mesh)
         print(f"[teacher] SPMD over mesh {mesh}")
-    train_step = make_teacher_train_step(
-        diffusion_params, config.timesteps,
-        ema_rate=config.ema_rate if config.use_ema else None,
-    )
+    ema_rate = config.ema_rate if config.use_ema else None
+    use_scan = epoch_scan_enabled(config, mesh)
+    train_step = epoch_fn = dataset_dev = None
+    if use_scan:
+        epoch_fn = make_teacher_epoch_fn(diffusion_params, config.timesteps, ema_rate=ema_rate)
+    else:
+        train_step = make_teacher_train_step(diffusion_params, config.timesteps,
+                                             ema_rate=ema_rate)
     grid_fn = make_grid_fn(model, config, diffusion_params)
 
     loader = get_data_loader(config, seed=seed)
+    if use_scan:
+        with phase_timer("teacher/dataset_upload"):
+            dataset_dev = upload_dataset(loader, device)
     print(f"[teacher] dataset={config.dataset} size={config.image_size} "
           f"batches/epoch={len(loader)} epochs={config.epochs}")
     metrics_log = MetricsLogger(os.path.join(config.results_dir, "teacher_metrics.jsonl"))
@@ -119,6 +131,9 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
                     log_label=f"[teacher] epoch {epoch + 1}/{config.epochs}",
                     log_every=log_every,
                     loss_fmt=".5f",
+                    use_scan=use_scan,
+                    epoch_fn=epoch_fn,
+                    dataset_dev=dataset_dev,
                 )
             dt = time.time() - t0
             print(f"[teacher] epoch {epoch + 1}/{config.epochs} "

@@ -425,3 +425,117 @@ def test_sharded_chain_on_two_ranks_sharing_the_card(cuda):
     for rank_out in out:
         assert rank_out["launches"] == 9
         torch.testing.assert_close(rank_out["traj"], want.cpu(), rtol=2e-4, atol=1e-5)
+
+
+def _epochs(cuda, lane, family, epochs=2):
+    """Two epochs of 6 batches (sf 0.1 teacher or {0.01, 0.05} student
+    group, 16x16x1, batch 8, T=10, dropout 0.3, float32) through one lane:
+    ``graph`` (the epoch lane: 2 eager steps, one capture, replays) or
+    ``loop`` (the per-batch loop; for the group, the members in turn)."""
+    import numpy as np
+
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training import state as st
+    from distillation_trajectories_torch.training.loop import run_train_epoch
+
+    cfg = Config(image_size=16, channels=1, batch_size=8, timesteps=10, sample_steps=10,
+                 compute_dtype="float32", dropout=0.3)
+    rng = np.random.default_rng(0)
+    images = rng.uniform(-1, 1, (48, 16, 16, 1)).astype(np.float32)
+    dataset = torch.from_numpy(images).to(cuda)
+    dp = get_diffusion_params(10)
+    teacher = make_unet(cfg, 0.2, seed=9)
+    if family == "teacher":
+        states = [st.create_train_state(make_unet(cfg, 0.1, seed=3), cfg, st.TorchDraws(11, cuda),
+                                        use_ema=True)]
+        fns = [(st.make_teacher_epoch_fn if lane == "graph" else st.make_teacher_train_step)(
+            dp, 10, ema_rate=0.999)]
+    else:
+        states = [st.create_train_state(make_unet(cfg, sf, seed=int(sf * 1000)), cfg,
+                                        st.TorchDraws(int(sf * 1000), cuda)) for sf in (0.01, 0.05)]
+        if lane == "graph":
+            states = [st.stack_train_states(states)]
+            fns = [st.make_multi_distill_epoch_fn(teacher, dp, 10, 10)]
+        else:
+            fns = [st.make_distill_train_step(teacher, dp, 10, 10)] * 2
+    losses = []
+    for state, fn in zip(states, fns):
+        loader = DataLoader(images, np.zeros(48, np.int32), 8, shuffle=True, seed=7)
+        for _ in range(epochs):
+            state, l, _ = run_train_epoch(
+                state, train_step=fn, loader=loader, config=cfg, device=cuda, progress_desc="",
+                log_label="", log_every=0, use_scan=lane == "graph", epoch_fn=fn,
+                dataset_dev=dataset, reduce_loss=False)
+            losses.append(l)
+    torch.cuda.synchronize()
+    if lane == "graph":
+        assert isinstance(fns[0].captured[0].graph, torch.cuda.CUDAGraph)
+    return losses, states
+
+
+@pytest.mark.parametrize("family", ["teacher", "group"])
+def test_epoch_lane_graph_matches_eager_loop(cuda, family):
+    """The epoch lane's captured graph against the eager per-batch loop
+    from one seed (float32, TF32 off, cuDNN deterministic): the draw
+    generators end in the same state and each step's loss agrees at rtol
+    1e-5.  The upsample's backward adds with atomics in no fixed order and
+    Adam's first steps lift that rounding into the weights, so two eager
+    runs differ too (``chip_smoke.py`` 13(a) prints by how much): each
+    tensor is held to a relative norm difference of 5e-3, bar the conv
+    biases that feed a BatchNorm (true gradient 0), and each weight to 2.2
+    x steps x lr, Adam's bound on two runs' moves apart."""
+    import numpy as np
+
+    from distillation_trajectories_torch.training import state as st
+
+    saved, det = _no_tf32(), torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (g_losses, g_states), (l_losses, l_states) = (_epochs(cuda, lane, family)
+                                                      for lane in ("graph", "loop"))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cudnn.deterministic = det
+    if family == "group":  # [n, 2] member columns against each member's epochs
+        members = [st.unstack_train_state(g_states[0], i) for i in range(2)]
+        g_losses = [l[:, i] for i in range(2) for l in g_losses]
+        g_models = [m.model for m in members]
+        gens = [m.draws.generator for m in members]
+    else:
+        g_models, gens = [g_states[0].model], [g_states[0].draws.generator]
+    for got, want in zip(gens, [s.draws.generator for s in l_states]):
+        assert torch.equal(got.get_state(), want.get_state())
+    np.testing.assert_allclose(np.concatenate(g_losses), np.concatenate(l_losses), rtol=1e-5)
+    with torch.no_grad():
+        for got, want in zip(g_models, [s.model for s in l_states]):
+            ref = dict(want.named_parameters())
+            for name, p in got.named_parameters():
+                diff = (p - ref[name]).abs()
+                assert float(diff.max()) <= 2.2 * 12 * 1e-4, name
+                if not _bias_feeds_batch_norm(name):
+                    assert float(diff.norm() / ref[name].norm()) <= 5e-3, name
+
+
+def test_continue_training_resumes_adam_on_the_graph_lane(cuda, tmp_path):
+    """``continue_training`` on the card from a checkpoint with Adam state:
+    the capturable Adam takes the restored count on the device, the epoch
+    lane captures and replays, and the checkpoint it writes carries
+    optax's count (3 batches a run: 2 warm-up steps, 1 replay)."""
+    import importlib
+
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.training import load_checkpoint, teacher
+
+    resume = importlib.import_module("distillation_trajectories_torch.training.continue_training")
+    cfg = Config(dataset="MNIST", image_size=16, channels=1, batch_size=8, timesteps=10,
+                 sample_steps=10, epochs=1, limit_batches_per_epoch=3, num_samples_to_generate=0,
+                 base_dir=str(tmp_path)).create_directories()
+    teacher.train_teacher(cfg, seed=0)
+    state = resume.continue_training(cfg, 1, seed=0)
+    assert state.step == 3 and state.optimizer.defaults["capturable"]
+    assert all(st["step"].device.type == "cuda" for st in state.optimizer.state.values())
+    payload = load_checkpoint(cfg.teacher_models_dir, 2)
+    assert int(payload["opt_state"]["0"]["count"]) == 6

@@ -116,6 +116,23 @@ def test_shuffle_stream_and_batches_match_jax_loader():
             np.testing.assert_array_equal(gy, wy)
 
 
+def test_gather_normalize_matches_jax():
+    """The native uint8 gather + [-1, 1] normalisation, on the same
+    seeded images and indices as the JAX helper: equal bit for bit where
+    both call ``dtt_gather_normalize``; an index out of range raises."""
+    rng = np.random.default_rng(2)
+    images = rng.integers(0, 256, (50, 8, 8, 3), dtype=np.uint8)
+    idx = rng.integers(0, 50, 16).astype(np.int64)
+    got = native.gather_normalize(images, idx)
+    assert got.dtype == np.float32 and got.shape == (16, 8, 8, 3)
+    exact = jax_native.get_lib() is not None  # else JAX divides in numpy float64
+    np.testing.assert_allclose(got, jax_native.gather_normalize(images, idx), rtol=0,
+                               atol=0 if exact else 1e-6)
+    np.testing.assert_allclose(got, images[idx] / 255.0 * 2.0 - 1.0, atol=1e-6)
+    with pytest.raises(IndexError):
+        native.gather_normalize(images, np.array([50]))
+
+
 def test_loader_stops_its_prefetch_thread_when_closed():
     images = np.zeros((64, 2, 2, 1), np.float32)
     loader = datasets.DataLoader(images, np.zeros(64), 2, seed=0, prefetch=1)

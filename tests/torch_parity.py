@@ -162,6 +162,16 @@ def quick_plots():
         yield
 
 
+def check_losses(got, want):
+    """Per-epoch losses against JAX's: the first epoch at rtol 1e-4, later
+    ones at rtol 1e-3 (``test_torch_trainers.py``'s tolerances: Adam's
+    first steps move every weight by about ±lr whatever the size of its
+    gradient, so the gradients' rounding noise reaches later losses)."""
+    assert len(got) == len(want)
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    np.testing.assert_allclose(got[1:], want[1:], rtol=1e-3)
+
+
 def file_set(root):
     """Relative paths of every file under ``root``."""
     import os
