@@ -59,9 +59,14 @@ class Config:
     ``parallel_sampling="window"`` the sliding-window sampler of
     ``generate_trajectory`` (``paradigms_window``, ``paradigms_tol``);
     ``remat`` recomputes each U-Net block in the backward pass
-    (``torch.utils.checkpoint``).  ``pallas_cfg_update`` is kept for config
-    compatibility only: the port's samplers always send the update tail
-    through ``ops.cfg_update.cfg_engine_update``, whatever it says.
+    (``torch.utils.checkpoint``).  ``pallas_cfg_update`` selects nothing in
+    the port's samplers: in JAX it picks the fused Pallas kernel over the
+    unfused combine then ``engine_update``, and the port's fused
+    ``ops.cfg_update.cfg_engine_update`` computes that unfused tail
+    (bit-equal on the CPU), so every step goes through it under either
+    value (the Triton kernel on the card).  As in JAX, the
+    ``parallel_sampling="window"`` path says that it ignores the flag when
+    it is set.
     ``epoch_scan`` selects what it selects in JAX: on one device the
     trainers upload the dataset once and run each epoch through the epoch
     lane (one captured CUDA graph replayed a batch on the card; also off

@@ -11,7 +11,11 @@ skipped and the final state duplicated, giving ``[T+1, …]`` states with the
 starting noise first.  The JAX ``lax.scan`` becomes a Python loop over
 steps; every step's update tail (CFG combine + engine update) goes through
 :func:`..ops.cfg_update.cfg_engine_update`, which launches the Triton kernel
-on CUDA tensors and runs its plain version on CPU tensors.
+on CUDA tensors and runs its plain version on CPU tensors.  JAX's
+``use_pallas`` picks between its fused kernel and the unfused combine then
+``engine_update``; the fused function computes the unfused tail (bit-equal
+on the CPU), so the port has the one tail under either value of
+``Config.pallas_cfg_update``.
 
 Per-step noise is injectable (``step_noise``, ``[T-1, …]`` with row ``j``
 belonging to step ``t = T-1-j``), because torch cannot reproduce JAX's

@@ -10,8 +10,9 @@ of ``metrics/fid.py``).
 * :func:`fid_across_sizes` — samples the teacher once and every student
   with ``p_sample_loop``, extracts features, fetches everything to the
   host in one transfer, and writes each size's ``fid_score_size_{sf}.txt``
-  and ``fid_samples_size_{sf}.png`` (teacher row over student row, written
-  with the standard library: no plotting package).
+  and ``fid_samples_size_{sf}.png`` (teacher row over student row, the
+  JAX package's matplotlib figure; the raw grid where matplotlib does not
+  import).
 
 Draws: the teacher's sample set comes from one seeded stream and every
 student's from one second stream shared by all students, as the JAX
@@ -36,7 +37,7 @@ from ..diffusion.sampling import _generator_seed, p_sample_loop, subsampled_time
 from ..diffusion.schedules import get_diffusion_params
 from ..models.inception import create_inception, preprocess_for_inception
 from ..training.state import make_eval_model_fn
-from ..utils.viz import save_image_grid
+from ..utils.viz import image_grid, save_figure
 
 FEATURE_DIM = 2048
 Draw = Tuple[torch.Tensor, torch.Tensor]
@@ -150,17 +151,40 @@ def generate_samples(model, config, num_samples: int, draw: Optional[Draw] = Non
     return make_sample_fn(model, config, num_samples)(draw)
 
 
+def _draw_comparison(figure_cls, teacher_samples, student_samples, n_show, size_factor,
+                     path) -> None:
+    """JAX ``_fid_report``'s figure: a 2 x ``n_show`` panel, teacher row over
+    student row, titled, saved at 300 dpi (matplotlib's object API,
+    ``figure_cls`` its ``Figure``, not pyplot)."""
+    fig = figure_cls(figsize=(3 * n_show, 6))
+    axes = fig.subplots(2, n_show, squeeze=False)
+    fig.suptitle(f"Sample Comparison (Size Factor: {size_factor})", fontsize=16)
+    for row, samples, label in ((0, teacher_samples, "Teacher"), (1, student_samples, "Student")):
+        for i in range(n_show):
+            img = np.clip((samples[i] + 1) / 2.0, 0, 1)
+            if img.shape[-1] == 1:
+                img = img[..., 0]
+            axes[row, i].imshow(img, cmap="gray" if img.ndim == 2 else None)
+            axes[row, i].set_title(label)
+            axes[row, i].axis("off")
+    fig.tight_layout()
+    fig.savefig(path, dpi=300)
+
+
 def _write_artifacts(teacher_samples, student_samples, size_factor, output_dir,
                      fid_score: float) -> None:
     """``fid_samples_size_{sf}.png`` (up to five teacher samples over as
-    many student samples) and ``fid_score_size_{sf}.txt``."""
+    many student samples, drawn as JAX draws them where matplotlib imports,
+    else the raw grid: ``utils.viz.save_figure``) and
+    ``fid_score_size_{sf}.txt``."""
     n_show = min(5, len(teacher_samples), len(student_samples))
     if n_show > 0:
         rows = [np.asarray(torch.as_tensor(s[:n_show]).float().cpu())
                 for s in (teacher_samples, student_samples)]
-        save_image_grid(np.concatenate(rows),
-                        os.path.join(output_dir, f"fid_samples_size_{size_factor}.png"),
-                        nrow=n_show)
+        path = os.path.join(output_dir, f"fid_samples_size_{size_factor}.png")
+        save_figure(lambda figure_cls: _draw_comparison(figure_cls, *rows, n_show,
+                                                        size_factor, path),
+                    image_grid(np.concatenate(rows), nrow=n_show), path)
     with open(os.path.join(output_dir, f"fid_score_size_{size_factor}.txt"), "w") as f:
         f.write(f"FID Score: {fid_score:.4f}\n")
 

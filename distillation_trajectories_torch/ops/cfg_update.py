@@ -9,6 +9,11 @@ that).  :func:`cfg_engine_update` is the one entry: on CPU tensors it runs
 :func:`cfg_engine_update_reference`; on CUDA tensors it checks the operands,
 raises on what the kernel does not take, and launches the kernel.  There is
 no fallback from the kernel to the plain version.
+
+Every step of the engine samplers passes both CFG predictions and the
+guidance here, under either value of ``Config.pallas_cfg_update``: the
+fused function is JAX's unfused tail too (the combine ``u + g·(c − u)``,
+then the update), so on the card the kernel serves both of JAX's tails.
 """
 
 from __future__ import annotations

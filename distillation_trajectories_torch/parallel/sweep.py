@@ -129,6 +129,7 @@ def distill_students_parallel(
                 os.path.join(config.results_dir,
                              f"student_samples_size_{slot.size_factor}_epoch_{config.epochs}.png"),
                 config.samples_grid_size,
+                config.samples_figure_size,
             )
     finally:
         metrics_log.close()

@@ -12,10 +12,13 @@ baseline's source.
 
 Workload (``BASELINE.json``): the sf-1.0 U-Net of ``make_unet(seed=0)``,
 32x32x3, batch 256, T=50 reverse steps of the engine sampler with
-two-forward CFG at guidance 3.0, bf16 compute, every step's update tail the
-Triton kernel.  Method: one warm-up chain, then ``--iters`` timed chains,
-each with a fresh seed and ended by ``torch.cuda.synchronize()``; ``value``
-is batch x iters over their summed seconds.  Each chain's step noise is
+two-forward CFG at guidance 3.0, bf16 compute, every step's update tail
+the Triton kernel with the CFG combine fused in.  That is the port's one
+tail, whatever ``Config.pallas_cfg_update`` says, and the record and the
+ledger line name it as ``use_pallas: true`` (:data:`USE_PALLAS`).  Method:
+one warm-up chain, then ``--iters`` timed chains, each with a fresh seed
+and ended by ``torch.cuda.synchronize()``; ``value`` is batch x iters over
+their summed seconds.  Each chain's step noise is
 drawn inside its timed call, as the JAX bench draws it inside its jitted
 chain.  The metric suite's pairs/s
 (``batch_metrics_core`` over 256 pairs at T=50) is the best of 3 trials,
@@ -53,6 +56,7 @@ BATCH = 256
 GUIDANCE = 3.0
 ITERS = 5
 PAIRS = 256
+USE_PALLAS = True  # the update tail the chain runs: the CFG combine fused into the kernel
 CACHE = os.path.join(project_root, ".bench_baseline_torch.json")
 LEDGER = os.path.join(project_root, ".bench_ledger_torch.jsonl")
 METRIC_NAME = ("trajectories/sec/card (50-step CFG sampling, 32x32 teacher U-Net, "
@@ -277,6 +281,7 @@ def finish(args, result: dict, preflight: dict) -> dict:
         "preflight": preflight,
         "card": preflight.get("detail") if preflight.get("status") == "ok" else None,
         "device": args.device,
+        "use_pallas": USE_PALLAS,
         "seconds": result["seconds"],
         "pairs_per_s": round(result["pairs_per_s"], 1),
         "baseline_traj_per_s": ref,
@@ -294,6 +299,7 @@ def finish(args, result: dict, preflight: dict) -> dict:
         "pairs_per_s": record["pairs_per_s"],
         "seconds": record["seconds"],
         "card": record["card"],
+        "use_pallas": record["use_pallas"],
         "preflight": preflight,
     })
     return record

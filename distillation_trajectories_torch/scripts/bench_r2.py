@@ -16,9 +16,11 @@ Prints one JSON line per experiment and writes them all to
 ``<results_dir>/bench_r2_torch.json``.
 
 * ``pallas`` (batch 256, guidance 7.5): the chain with the Triton kernel
-  against the same chain with ``ops.cfg_update.cfg_engine_update_reference``
-  put in its place for the experiment alone, after their outputs are
-  compared on one seed (``max_abs_deviation``).
+  (the ``pallas`` arm) against the same chain with
+  ``ops.cfg_update.cfg_engine_update_reference`` put in its place for the
+  experiment alone (the ``jnp`` arm: the update tail in plain PyTorch, as
+  JAX's arm runs it in XLA), after their outputs are compared on one seed
+  (``max_abs_deviation``).  The keys are the JAX experiment's.
 * ``paradigms`` (batch 1, guidance 7.5): the sequential chain against
   ``sliding_window_trajectory`` at each window x tolerance, with the
   window's sweeps and its largest gap to the sequential chain.
@@ -103,29 +105,30 @@ def exp_pallas(args, draws):
 
     batch = args.batch or 256
     cfg, _, model_fn, alphas, noise = _flagship(args, draws, batch)
-    run = _chain(model_fn, noise, args, alphas, draws, 7.5)
+    kernel = _chain(model_fn, noise, args, alphas, draws, 7.5)
 
     def plain(seed):
         with mock.patch.object(sampling, "cfg_engine_update", cfg_engine_update_reference):
-            return run(seed)
+            return kernel(seed)
 
-    b = plain(3)  # parity on the card first
-    a = run(3)
+    arms = {"jnp": plain, "pallas": kernel}
+    a = plain(3)  # parity on the card first
+    b = kernel(3)
     max_dev = float((a - b).abs().max())
     seeds = iter(range(100, 200))
-    timed = _time_arms({"plain": plain, "kernel": run}, seeds, cfg.device, args.iters)
-    (t_plain, s_plain), (t_kernel, s_kernel) = timed["plain"], timed["kernel"]
+    timed = _time_arms(arms, seeds, cfg.device, args.iters)
+    (t_base, s_base), (t_pall, s_pall) = timed["jnp"], timed["pallas"]
     result = {
-        "exp": "triton_cfg_update",
+        "exp": "pallas_cfg_update",
         "batch": batch, "timesteps": args.timesteps,
-        "plain_seconds": round(t_plain, 4),
-        "kernel_seconds": round(t_kernel, 4),
-        "speedup": round(t_plain / t_kernel, 4),
+        "jnp_seconds": round(t_base, 4),
+        "pallas_seconds": round(t_pall, 4),
+        "speedup": round(t_base / t_pall, 4),
         "max_abs_deviation": max_dev,
-        "traj_per_s_plain": round(batch / t_plain, 1),
-        "traj_per_s_kernel": round(batch / t_kernel, 1),
-        "plain_call_seconds": s_plain,
-        "kernel_call_seconds": s_kernel,
+        "traj_per_s_jnp": round(batch / t_base, 1),
+        "traj_per_s_pallas": round(batch / t_pall, 1),
+        "jnp_call_seconds": s_base,
+        "pallas_call_seconds": s_pall,
     }
     print(json.dumps(result))
     return result

@@ -22,7 +22,9 @@ def main(argv=None):
     parser.add_argument("--teacher_epoch", type=int, default=None,
                         help="Teacher checkpoint epoch (latest when omitted)")
     parser.add_argument("--sweep_parallel", action="store_true",
-                        help="One student per device (not ported: raises)")
+                        help="Distribute the size-factor sweep itself across devices "
+                        "(one student per device, concurrent steps) instead of the "
+                        "reference's sequential loop")
     parser.add_argument("--skip_existing", action="store_true",
                         help="Skip size factors whose final-epoch checkpoint exists")
     add_model_flags(parser)

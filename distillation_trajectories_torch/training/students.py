@@ -187,6 +187,7 @@ def distill_diffusion_model(
                         os.path.join(config.results_dir,
                                      f"student_samples_size_{size_factor}_epoch_{epoch + 1}.png"),
                         config.samples_grid_size,
+                        config.samples_figure_size,
                     )
     finally:
         metrics_log.close()
@@ -244,6 +245,7 @@ def _distill_group(teacher_model, config, size_factors: List[float], seed: int, 
                             os.path.join(config.results_dir,
                                          f"student_samples_size_{sf}_epoch_{epoch + 1}.png"),
                             config.samples_grid_size,
+                            config.samples_figure_size,
                         )
     finally:
         for log in logs.values():

@@ -69,7 +69,8 @@ def save_grid(grid_fn, draws, path, config, params=None) -> None:
     if config.num_samples_to_generate > 0:
         samples = grid_fn(noise, step_noise, params)
         if is_main_process():
-            save_image_grid(samples, path, nrow=config.samples_grid_size)
+            save_image_grid(samples, path, nrow=config.samples_grid_size,
+                            figsize=config.samples_figure_size)
 
 
 def generate_sample_grid(model, config, diffusion_params, draws, path) -> None:

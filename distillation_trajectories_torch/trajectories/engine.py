@@ -108,7 +108,8 @@ def generate_trajectory(
     sliding-window ParaDiGMS sampler
     (:func:`..diffusion.parallel_sampling.sliding_window_trajectory`, window
     ``paradigms_window``, tolerance ``paradigms_tol``), whose update is
-    plain torch: it launches no kernel.
+    plain torch: it launches no kernel.  As in JAX, it says on stdout that
+    ``Config.pallas_cfg_update`` is ignored when that is set.
     """
     device = _entry_device(config, device)
     _check_model_device(model, device)
@@ -123,8 +124,9 @@ def generate_trajectory(
     if config is not None and getattr(config, "parallel_sampling", "off") == "window":
         from ..diffusion.parallel_sampling import sliding_window_trajectory
 
-        print("[engine] parallel_sampling='window' has no kernel update path; "
-              "the CFG-update kernel is not used for this trajectory")
+        if getattr(config, "pallas_cfg_update", False):
+            print("[engine] parallel_sampling='window' has no fused update path; "
+                  "pallas_cfg_update is ignored for this trajectory")
         traj, _ = sliding_window_trajectory(
             model_fn, noise, timesteps, dp["alphas"], seed,
             guidance_scale=guidance_scale,

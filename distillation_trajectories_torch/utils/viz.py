@@ -1,19 +1,55 @@
 """Sample-grid images (port of the JAX package's ``utils/viz.py``).
 
-The JAX package renders its grid through a matplotlib figure.  The port
-writes the grid itself as an 8-bit RGB PNG with the standard library
-(``zlib`` + ``struct``), one image pixel per PNG pixel, so the trainers need
-no plotting package; ``read_png`` reads such files back, and the 8-bit
-PNGs other writers make, without PIL.
+:func:`save_figure` is the one place that picks a PNG writer: where
+matplotlib imports, the caller's drawing code renders a matplotlib figure
+as the JAX package does, pixel for pixel (:func:`save_image_grid`, and the
+FID comparison figure of ``metrics/fid.py``); elsewhere the raw grid is
+written as an 8-bit RGB PNG with the standard library (``zlib`` +
+``struct``, :func:`write_png`), one image pixel per PNG pixel, so that the
+trainers run on a host without a plotting package.  Each process says once
+which of the two writers ran, and counts their files in ``png_writes``.
+``read_png`` reads either kind of file back without PIL.
 """
 
 from __future__ import annotations
 
+import collections
 import os
 import struct
+import threading
 import zlib
 
 import numpy as np
+
+MATPLOTLIB_WRITER = "matplotlib (Agg figure, as the JAX package)"
+RAW_WRITER = "raw grid (no matplotlib on this host)"
+# PNGs written in this process, by writer.
+png_writes = collections.Counter()
+_png_writes_lock = threading.Lock()
+
+
+def save_figure(draw, raw_grid: np.ndarray, path: str) -> None:
+    """Write the PNG ``path``: ``draw(Figure)`` draws and saves it with
+    matplotlib's ``Figure`` class (the object API, not pyplot) where
+    matplotlib imports; elsewhere ``raw_grid`` (``[H, W, 3]`` in [0, 1]) is
+    rounded to 8 bits and written by :func:`write_png`.  That fallback
+    changes only the file's format, not the samples in it.  The file is
+    counted in ``png_writes`` under its writer, which is named on stdout
+    the first time it writes in this process."""
+    try:
+        import matplotlib  # noqa: F401  (None in sys.modules hides it)
+        from matplotlib.figure import Figure
+    except ImportError:
+        write_png(path, np.round(raw_grid * 255.0).astype(np.uint8))
+        writer = RAW_WRITER
+    else:
+        draw(Figure)
+        writer = MATPLOTLIB_WRITER
+    with _png_writes_lock:
+        png_writes[writer] += 1
+        first = png_writes[writer] == 1
+    if first:
+        print(f"[viz] PNG writer: {writer}")
 
 
 def make_grid(images: np.ndarray, nrow: int = 4, padding: int = 2) -> np.ndarray:
@@ -130,16 +166,38 @@ def read_png(path: str) -> np.ndarray:
     return image[..., 0] if c == 1 else image
 
 
-def save_image_grid(images, path: str, nrow: int = 4, denormalize: bool = True) -> None:
+def save_image_grid(images, path: str, nrow: int = 4, figsize=(10, 10),
+                    denormalize: bool = True) -> None:
     """Save NHWC images (numpy or a tensor on any device) in [−1, 1] (or
-    [0, 1] without ``denormalize``) as a grid PNG: clipped, tiled, rounded
-    to 8 bits, one channel repeated to three."""
+    [0, 1] without ``denormalize``) as a grid PNG: clipped, tiled, one
+    channel repeated to three.
+
+    Through :func:`save_figure`: where matplotlib imports, the grid is
+    drawn as the JAX package draws it, an Agg ``Figure(figsize=figsize)``
+    (the object API, since the student trainers write grids on the
+    checkpoint writer's threads), the axes off, saved with
+    ``bbox_inches="tight"``; elsewhere the raw grid.
+    """
+    grid = image_grid(images, nrow, denormalize)
+
+    def draw(figure_cls):
+        fig = figure_cls(figsize=figsize)
+        ax = fig.add_subplot(111)
+        ax.imshow(grid)
+        ax.axis("off")
+        fig.savefig(path, bbox_inches="tight")
+
+    save_figure(draw, grid, path)
+
+
+def image_grid(images, nrow: int = 4, denormalize: bool = True) -> np.ndarray:
+    """NHWC images (numpy or a tensor on any device) in [−1, 1] (or [0, 1]
+    without ``denormalize``) as one ``[H, W, 3]`` float grid in [0, 1]:
+    clipped, tiled, one channel repeated to three."""
     if hasattr(images, "detach"):
         images = images.detach().float().cpu().numpy()
     images = np.asarray(images, dtype=np.float32)
     if denormalize:
         images = (images + 1.0) / 2.0
     grid = make_grid(np.clip(images, 0.0, 1.0), nrow=nrow)
-    if grid.shape[-1] == 1:
-        grid = np.repeat(grid, 3, axis=-1)
-    write_png(path, np.round(grid * 255.0).astype(np.uint8))
+    return np.repeat(grid, 3, axis=-1) if grid.shape[-1] == 1 else grid

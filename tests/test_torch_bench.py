@@ -150,8 +150,10 @@ def test_main_on_the_cpu_writes_the_record_and_the_ledger(port_bench, capsys, mo
     assert rec["value"] > 0 and rec["vs_baseline"] > 0 and len(rec["seconds"]) == 1
     assert rec["preflight"]["status"] == "skipped" and rec["card"] is None
     assert rec["baseline_source"].startswith("port DiffusionUNet")
+    assert rec["use_pallas"] is True  # the port's one tail: the CFG combine in the kernel
     lines = open(port_bench.LEDGER).read().splitlines()
     assert len(lines) == 1 and json.loads(lines[0])["value"] == rec["value"]
+    assert json.loads(lines[0])["use_pallas"] is True
     assert json.load(open(port_bench.CACHE))["ref_traj_per_sec_cpu"] > 0
 
 

@@ -35,9 +35,10 @@ def test_pallas_arms_are_one_chain_on_the_cpu(tmp_path):
     out = bench_r2.run(args)
     res = out["pallas"]
     assert out["preflight"]["status"] == "skipped"
-    assert res["max_abs_deviation"] == 0.0 and res["exp"] == "triton_cfg_update"
-    assert res["plain_seconds"] > 0 and res["kernel_seconds"] > 0
-    assert len(res["plain_call_seconds"]) == len(res["kernel_call_seconds"]) == 1
+    assert res["max_abs_deviation"] == 0.0 and res["exp"] == "pallas_cfg_update"
+    assert res["jnp_seconds"] > 0 and res["pallas_seconds"] > 0
+    assert res["traj_per_s_jnp"] > 0 and res["traj_per_s_pallas"] > 0
+    assert len(res["jnp_call_seconds"]) == len(res["pallas_call_seconds"]) == 1
 
 
 def test_paradigms_window_at_tol_0_is_the_jax_chain():

@@ -3,7 +3,8 @@ its plain version, and a train step, the InceptionV3 trunk, AlexNet-LPIPS,
 the noise-prediction compute half, the sweep function's averaged chains,
 the editing chain, the progressive steps, the int8 lane's padded
 ``torch._int_mm`` product, its conv and forward, and the sliding-window
-sampler on the card against the CPU; and a CFG chain sharded over two
+sampler on the card against the CPU; the engine's kernel launches under
+either value of ``Config.pallas_cfg_update``; and a CFG chain sharded over two
 ranks that share the card against the unsharded chain there.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
@@ -390,6 +391,39 @@ def test_window_sampler_on_card_matches_sequential_chain(cuda):
         torch.cuda.synchronize()
         assert cfg_engine_update.launches == before and sweeps == 9
         torch.testing.assert_close(win, seq, rtol=1e-4, atol=1e-5)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+def test_engine_launches_the_kernel_each_step_under_either_flag(cuda, monkeypatch):
+    """``Config.pallas_cfg_update`` False (the default) and True on the
+    card: ``generate_trajectory`` launches the kernel once a step (9 a T=10
+    chain) and never calls the plain version, and the flag changes nothing
+    (sf 0.1, 16x16x1, CFG at 3.0, float32, TF32 off)."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.ops import cfg_update
+    from distillation_trajectories_torch.trajectories import generate_trajectory
+
+    plain_calls = []
+    monkeypatch.setattr(cfg_update, "cfg_engine_update_reference",
+                        lambda *args: plain_calls.append(args))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        kw = dict(device="cuda", image_size=16, channels=1, compute_dtype="float32")
+        model = make_unet(Config(**kw), size_factor=0.1, seed=0)
+        noise = torch.randn((2, 16, 16, 1), device=cuda,
+                            generator=torch.Generator(device=cuda).manual_seed(4))
+        trajs, made = {}, {}
+        for flag in (False, True):
+            before = cfg_engine_update.launches
+            trajs[flag] = generate_trajectory(model, noise, 10, seed=9, guidance_scale=3.0,
+                                              config=Config(pallas_cfg_update=flag, **kw))
+            made[flag] = cfg_engine_update.launches - before
+        torch.cuda.synchronize()
+        assert made == {False: 9, True: 9} and not plain_calls
+        assert torch.equal(trajs[True], trajs[False])
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 

@@ -116,8 +116,13 @@ def test_config_parallel_sampling_window_switch(capsys):
     wcfg = dataclasses.replace(tcfg, parallel_sampling="window", paradigms_tol=0.0,
                                paradigms_window=3)
     win = generate_trajectory(model, noise, T, seed=2, config=wcfg)
-    assert "has no kernel update path" in capsys.readouterr().out
+    assert "pallas_cfg_update is ignored" not in capsys.readouterr().out
     _close(win, seq)
+    # The note follows the flag, as in JAX: said only when it is set.
+    fused = generate_trajectory(model, noise, T, seed=2,
+                                config=dataclasses.replace(wcfg, pallas_cfg_update=True))
+    assert "pallas_cfg_update is ignored for this trajectory" in capsys.readouterr().out
+    assert torch.equal(fused, win)
     stored = generate_trajectory(model, noise, T, seed=2,
                                  config=dataclasses.replace(wcfg, trajectory_store_dtype="bfloat16"))
     assert stored.dtype == torch.bfloat16 and torch.equal(stored, win.to(torch.bfloat16))

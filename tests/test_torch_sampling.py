@@ -150,3 +150,38 @@ def test_default_step_noise_depends_only_on_seed_and_t():
     assert torch.equal(pair[:, 1], alone[:, 0])
     assert not torch.equal(pair[:, 0], pair[:, 1])
     assert not torch.equal(pair[0], pair[1])
+
+
+@pytest.mark.parametrize("gs", [None, 3.0], ids=["nocfg", "cfg"])
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["unfused", "fused"])
+def test_scan_matches_jax_under_either_use_pallas(use_pallas, gs):
+    """The port's one tail (the fused entry) against both of JAX's: the jnp
+    combine then ``engine_update``, and the Pallas kernel in interpret mode."""
+    st = _setup()
+    step_noise = _jax_step_noise([SEED], st["noise"].shape)[:, 0]
+    got = generate_trajectory_scan(
+        st["port_fn"], torch.from_numpy(st["noise"]), T, st["alphas"], SEED,
+        guidance_scale=gs, step_noise=torch.from_numpy(step_noise),
+    )
+    want = np.asarray(jax_scan(
+        st["jax_fn"], jnp.asarray(st["noise"]), T, st["alphas"], SEED,
+        guidance_scale=gs, use_pallas=use_pallas,
+    ))
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("pairs, gs", [(CFG_COND_PAIRS, 3.0), (NOCFG_COND_PAIRS, 1.0)],
+                         ids=["cfg", "nocfg"])
+@pytest.mark.parametrize("use_pallas", [False, True], ids=["unfused", "fused"])
+def test_batch_scan_matches_jax_under_either_use_pallas(use_pallas, pairs, gs):
+    st = _setup()
+    seeds = np.array([42, 43], dtype=np.int32)
+    want = np.asarray(jax_batch_scan(
+        st["jax_fn"], jnp.asarray(st["noise"]), T, st["alphas"], jnp.asarray(seeds),
+        jnp.asarray(pairs), jnp.float32(gs), use_pallas=use_pallas,
+    ))
+    got = generate_trajectory_batch_scan(
+        st["port_fn"], torch.from_numpy(st["noise"]), T, st["alphas"], seeds, pairs, gs,
+        step_noise=torch.from_numpy(_jax_step_noise(seeds, (16, 16, 1))),
+    )
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=1e-5)

@@ -86,3 +86,14 @@ def test_default_device_is_cuda(tmp_path):
         pytest.skip("a GPU is present: the default device would train there")
     with pytest.raises(RuntimeError, match="cuda"):
         train_teacher.main(_flags(tmp_path, "--epochs", "1"))
+
+
+def test_train_students_help_says_what_sweep_parallel_does(capsys):
+    """``--sweep_parallel`` trains (``test_unported_lanes_raise``), so its
+    help gives JAX's meaning and no longer says that it raises."""
+    with pytest.raises(SystemExit) as exit_info:
+        train_students.main(["--help"])
+    assert exit_info.value.code == 0
+    text = " ".join(capsys.readouterr().out.split())
+    assert "one student per device, concurrent steps" in text
+    assert "raises" not in text and "not ported" not in text

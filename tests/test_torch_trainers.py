@@ -16,6 +16,7 @@ import importlib
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -82,10 +83,11 @@ def _files(root):
                   for d, _, files in os.walk(root) for f in files)
 
 
-def _check_png(path, n_images, size, nrow):
-    pixels = np.asarray(Image.open(path))
-    want = jax_make_grid(np.zeros((n_images, size, size, 3), np.float32), nrow=nrow)
-    assert pixels.dtype == np.uint8 and pixels.shape == want.shape
+def _check_png(path, want_path):
+    """The port's grid PNG has the shape of JAX's grid PNG of the same run
+    (both drawn through a ``samples_figure_size`` matplotlib figure)."""
+    pixels, want = np.asarray(Image.open(path)), np.asarray(Image.open(want_path))
+    assert pixels.dtype == want.dtype == np.uint8 and pixels.shape == want.shape
 
 
 class _LossRecorder:
@@ -102,7 +104,10 @@ class _LossRecorder:
         return out
 
 
-def test_grid_png_holds_jax_make_grid_pixels(tmp_path):
+def test_grid_png_holds_jax_make_grid_pixels(tmp_path, monkeypatch):
+    """Without matplotlib, the raw writer's PNG is JAX's ``make_grid``
+    rounded to 8 bits (with it, ``test_torch_viz.py`` holds the figure)."""
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
     images = np.random.default_rng(0).uniform(-1.5, 1.5, (5, 6, 7, 1)).astype(np.float32)
     path = str(tmp_path / "grid.png")
     save_image_grid(torch.from_numpy(images), path, nrow=2)
@@ -121,7 +126,8 @@ def test_train_teacher_and_continue_training_match_jax(pair, monkeypatch):
     assert _files(tcfg.output_dir) == _files(jcfg.output_dir)
     assert os.listdir(tcfg.teacher_models_dir) and sorted(os.listdir(tcfg.teacher_models_dir)) == \
         ["model_epoch_1.msgpack", "model_epoch_2.msgpack"]
-    _check_png(os.path.join(tcfg.results_dir, "samples_epoch_2.png"), 4, 16, 2)
+    _check_png(os.path.join(tcfg.results_dir, "samples_epoch_2.png"),
+               os.path.join(jcfg.results_dir, "samples_epoch_2.png"))
 
     # Resume both from the JAX-written epoch-2 checkpoint, Adam state included.
     shutil.copy(os.path.join(jcfg.teacher_models_dir, "model_epoch_2.msgpack"),
@@ -155,7 +161,8 @@ def test_train_students_match_jax(pair):
     for sf in sfs:
         name = f"distill_metrics_size_{sf}.jsonl"
         _check_records(os.path.join(tcfg.results_dir, name), os.path.join(jcfg.results_dir, name))
-        _check_png(os.path.join(tcfg.results_dir, f"student_samples_size_{sf}_epoch_2.png"), 4, 16, 2)
+        grid = f"student_samples_size_{sf}_epoch_2.png"
+        _check_png(os.path.join(tcfg.results_dir, grid), os.path.join(jcfg.results_dir, grid))
     assert _files(tcfg.output_dir) == _files(jcfg.output_dir)
 
     # skip_existing loads the finished students instead of training them.
@@ -174,6 +181,6 @@ def test_train_students_match_jax(pair):
     for sf in sfs:
         for (k, v), w in zip(par[sf].state_dict().items(), out[sf].state_dict().values()):
             assert torch.equal(v, w), k
-        _check_png(os.path.join(par_cfg.results_dir, f"student_samples_size_{sf}_epoch_2.png"),
-                   4, 16, 2)
+        grid = f"student_samples_size_{sf}_epoch_2.png"
+        _check_png(os.path.join(par_cfg.results_dir, grid), os.path.join(jcfg.results_dir, grid))
         assert os.path.exists(os.path.join(par_cfg.student_dir(sf), "model_epoch_2.msgpack"))
