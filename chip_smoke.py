@@ -11,7 +11,9 @@ on first use.  Phases, each printing its own lines:
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. the fused CFG-update kernel against its plain PyTorch version on the
    card: ``[256, 32, 32, 3]`` in float32 and bfloat16 and the odd
-   ``(1, 7, 5, 1)`` shape, with errors, device times and the memory bound;
+   ``(1, 7, 5, 1)`` shape, through its row entry (the four scalars a
+   ``[4]`` float32 row in device memory, as the chains call it; the float
+   entry checked equal), with errors, device times and the memory bound;
 3. the sampler with the kernel tail (the kernel launched once a step, the
    plain version never called) against the plain tail on the card
    (float32, TF32 off, sf 0.1, T=10), and a small sweep on the card
@@ -20,7 +22,11 @@ on first use.  Phases, each printing its own lines:
    and students {0.1, 0.5} (seeded random weights), 32x32x3, 256 samples,
    T=50, guidance scales (1.0, 3.0), bf16 compute — with the kernel's
    launch count checked, the plain version checked unused, metrics checked
-   finite, and traj/s, pairs/s and peak memory printed;
+   finite, and traj/s, pairs/s and peak memory printed (each maker's key is
+   called once a sweep, so the sweep's chains run eagerly); then the
+   teacher CFG chain through its maker, captured (an eager warm-up, the
+   capture), best of 3 replays and one replay profiled, with peak reserved
+   memory and the sampler pool's bytes;
 5. training: one teacher step and one distillation step on the card
    against the CPU (float32, TF32 off, sf 0.1, 16x16x1, batch 8, T=10,
    dropout 0, shared weights and draws); then ``train_teacher`` at full
@@ -44,7 +50,8 @@ on first use.  Phases, each printing its own lines:
    CLI's ``run`` half with the full sweep's two jobs (``heatmaps``: 10
    guidance scales, 10 samples, T=100; ``trio``: T=50), the kernel's launch
    count checked and every transformed metric checked in [0, 1], with
-   wall seconds, traj/s, peak memory and a profiled T=100 teacher chain;
+   wall seconds, traj/s and peak memory (its T=100 teacher chain is timed
+   in both lanes in 14(b));
    (c) the FID CLI's ``run`` half (50 samples per model, 100 sampling
    steps, InceptionV3 at 299x299 in batches of 32), FIDs checked finite
    and stamped ``seeded-random``, the comparison figures' PNG writer
@@ -63,8 +70,8 @@ on first use.  Phases, each printing its own lines:
    the count derived from each CLI's arguments, wall seconds, traj/s and
    peak memory printed, and the outputs checked (finite chains, distances
    and metrics, cosines in [-1, 1], variance ratios in [0, 1], the text
-   and npz files written); (c) one batch-1 T=100 paired call timed and
-   profiled.  Nothing here imports matplotlib either;
+   and npz files written) (its batch-1 T=100 paired call is timed in both
+   lanes in 14(b)).  Nothing here imports matplotlib either;
 8. editing and progressive distillation: (a) the editing chain (engine
    mode, inpainting ``post_step``) and the plain, guided and
    ``teacher_guided`` progressive steps on the card against the CPU, in
@@ -110,7 +117,8 @@ on first use.  Phases, each printing its own lines:
 11. the last entry points, on phase 5's outputs: (a) the sampler profiler's
    ``capture`` and ``summarize`` at the JAX script's defaults (sf 1.0, batch
    256, 32x32x3, T=50, guidance 3.0, bf16: one warm-up and three traced
-   chains), its table's top 10 rows and the device's idle share printed,
+   replays, after an eager warm-up and the capture), its table's top 10
+   rows and the device's idle share printed,
    the kernel's 147 traced launches checked; (b) the seven-stage smoke
    suite on ``cuda``, 7/7; (c) ``run_on_cpu train_teacher`` at tiny flags:
    the child reports that CUDA sees no card and writes a checkpoint, and
@@ -122,7 +130,8 @@ on first use.  Phases, each printing its own lines:
    defaults (full width: sf 1.0, 32x32x3, bf16), the kernel's launches
    checked against the count each bench's arguments give and its JSON
    record printed with the card's name and power limit: (a) ``bench`` (the
-   main path's traj/s over 5 timed chains, the metric suite's pairs/s, the
+   main path's traj/s over 5 timed replays of the captured chain, the eager
+   chain's seconds beside them, the metric suite's pairs/s, the
    CPU baseline, the update tail it ran, ``use_pallas`` true, in its record
    and its ledger line in the workdir; then its chain timed again in
    turns with the step noise drawn inside and before each timed call, the
@@ -151,10 +160,25 @@ on first use.  Phases, each printing its own lines:
    from phase 5's teacher, 10 batches, float32 with TF32 off: {0.01, 0.05}
    as one group step and 0.1 alone, held against ``vmap_students=False``
    (losses rtol 1e-5), with the group's epoch seconds against the two
-   sequential ones.
+   sequential ones;
+14. the samplers' captured lane (each maker captures its chain into a
+   CUDA graph on the second call for a key and replays it): (a) the main
+   path's chain through ``make_sweep_trajectory_fn`` (sf-1.0 teacher,
+   batch 256, 32x32x3, T=50, bf16): one graph serves gs 2.0, 3.0 and 7.5,
+   each replay equal to the eager body bit for bit with 49 launches
+   counted, a replay after the weights change in place equal to the eager
+   chain with them, 49 launches of the kernel in a traced replay's device
+   events and no host-to-device copy, the plain version never called, and
+   the int8 lane's chain (batch 8, T=10) replayed equal to its eager body; (b)
+   three chains in both lanes in turns (eager, graph, graph, eager, 2
+   calls a turn): the main path's, the CFG-sweep CLI's teacher chain
+   (phase 5's teacher, batch 10, T=100, gs 3.0) and a batch-1 T=100 paired
+   call (phase 5's teacher and sf-0.5 student, no CFG): median seconds,
+   device busy ms and idle share over 4 profiled chains, capture seconds,
+   the shared pool's bytes and peak reserved memory.
 
 The kernel record counts the launches of phases 4, 6(b), 7(b), 8(b), 9(d),
-10 (the ranks' included), 11 and 12.  The last
+10 (the ranks' included), 11, 12 and 14.  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -219,10 +243,13 @@ def phase_kernel(card):
     from distillation_trajectories_torch.ops.cfg_update import (
         cfg_engine_update,
         cfg_engine_update_reference,
+        cfg_engine_update_row,
     )
 
     alphas = get_diffusion_params(MAIN_T)["alphas"]
     scalars = (*_engine_scalars(alphas[25], alphas[24]), 3.0)
+    # The chains' form: the scalars as a [4] float32 row in device memory.
+    row = torch.tensor(np.array(scalars, dtype=np.float32), device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(0)
     record = {}
     for label, shape, dtype, tol in (
@@ -236,23 +263,25 @@ def phase_kernel(card):
             [torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4)]
             for _ in range(8)
         ]
-        got = cfg_engine_update(*sets[0], *scalars)
+        got = cfg_engine_update_row(*sets[0], row)
         torch.cuda.synchronize()
         want = cfg_engine_update_reference(*sets[0], *scalars)
         max_abs = compare(f"kernel vs plain {label} {shape}", got, want, tol, tol)
+        if not torch.equal(cfg_engine_update(*sets[0], *scalars), got):
+            raise RuntimeError("the float entry and the row entry disagree")
         if label == "f32-odd":
             continue
         ring = itertools.cycle(sets)
         kernel_ms = device_time_ms(
-            lambda: cfg_engine_update(*next(ring), *scalars), 100)
+            lambda: cfg_engine_update_row(*next(ring), row), 100)
         plain_ms = device_time_ms(
             lambda: cfg_engine_update_reference(*next(ring), *scalars), 100)
         numel = int(np.prod(shape))
-        bytes_moved = 5 * numel * torch.finfo(dtype).bits // 8
+        bytes_moved = 5 * numel * torch.finfo(dtype).bits // 8 + 16  # and the scalar row
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = 8 * numel / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
-        print(f"cfg_engine_update {label} {shape}: kernel_ms={kernel_ms:.5f} "
+        print(f"cfg_engine_update (row entry) {label} {shape}: kernel_ms={kernel_ms:.5f} "
               f"plain_ms={plain_ms:.5f} bound_ms={bound_ms:.5f} "
               f"(bytes {bytes_moved} at 3.35 TB/s; bound by "
               f"{'bytes' if bytes_ms >= ops_ms else 'operations'}) "
@@ -294,7 +323,7 @@ def phase_sampler(card):
     from distillation_trajectories_torch.models import make_unet
     from distillation_trajectories_torch.ops.cfg_update import (
         cfg_engine_update,
-        cfg_engine_update_reference,
+        cfg_engine_update_row_reference,
     )
     from distillation_trajectories_torch.training import make_eval_model_fn
     from distillation_trajectories_torch.trajectories import sweep_compare_trajectories
@@ -322,7 +351,7 @@ def phase_sampler(card):
     if made != 9 or plain_calls.count:
         raise RuntimeError("the sampler did not launch the kernel once a step, or the plain "
                            "version ran on the card")
-    with mock.patch.object(sampling, "cfg_engine_update", cfg_engine_update_reference):
+    with mock.patch.object(sampling, "cfg_engine_update_row", cfg_engine_update_row_reference):
         plain_traj = run()
     compare("sampler kernel tail vs plain tail [8, 11, 32, 32, 3]",
             kernel_traj, plain_traj, 2e-5, 1e-5, card)
@@ -392,6 +421,17 @@ def profile_breakdown(run, chain_s, card, label="one teacher CFG chain"):
         print(f"  top kernel {t / 1e3:.3f} ms x{n}: {name[:110]}")
 
 
+def _pool_bytes():
+    """Bytes of device memory the sampler graphs' shared pool holds."""
+    from distillation_trajectories_torch.utils import graphs
+
+    pool = graphs._SAMPLER_POOL["handle"]
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
 def phase_main_path(card):
     from distillation_trajectories_torch import Config
     from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
@@ -424,6 +464,7 @@ def phase_main_path(card):
     first_s = time.perf_counter() - t0
     launches = cfg_engine_update.launches
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     chains = len(MAIN_GS) * (1 + len(STUDENTS))
     print(f"main path kernel launches: {launches} (expected {MAIN_T - 1} x "
           f"{chains} chains = {(MAIN_T - 1) * chains}), the plain version called "
@@ -456,7 +497,8 @@ def phase_main_path(card):
     seeds = np.arange(42, 42 + SAMPLES)
     run = lambda: chain(draws.noises, seeds, CFG_COND_PAIRS, 3.0,
                         step_noise=draws.step_noise)
-    run()
+    run()  # eager: the warm-up
+    run()  # the capture, then a replay
     torch.cuda.synchronize()
     times = []
     for _ in range(3):
@@ -467,14 +509,20 @@ def phase_main_path(card):
     if tuple(traj.shape) != (SAMPLES, MAIN_T + 1, 32, 32, 3) or not torch.isfinite(traj).all():
         raise RuntimeError("teacher chain output is not finite or has the wrong shape")
     chain_s = min(times)
-    print(f"teacher CFG chain (sf 1.0, gs 3.0, T={MAIN_T}, {SAMPLES} samples): "
-          f"{SAMPLES / chain_s:.2f} traj/s, best of {[round(t, 4) for t in times]} s [{card}]")
-    profile_breakdown(run, chain_s, card)
+    (graph,) = chain.graphs.graphs.values()
+    print(f"teacher CFG chain, captured lane (sf 1.0, gs 3.0, T={MAIN_T}, {SAMPLES} samples; "
+          f"capture {graph.capture_s:.3f} s): {SAMPLES / chain_s:.2f} traj/s, best of "
+          f"{[round(t, 4) for t in times]} s [{card}]")
+    profile_breakdown(run, chain_s, card, label="one replay of the teacher CFG chain")
     print(f"sweep ({pairs} pairs: {len(STUDENTS)} students x {len(MAIN_GS)} scales x "
-          f"{SAMPLES} samples, {chains} chains, draws and scoring included): "
+          f"{SAMPLES} samples, {chains} chains, draws and scoring included; each maker's key "
+          f"called once a sweep, so its chains run eagerly): "
           f"first call {first_s:.3f} s = {pairs / first_s:.2f} pairs/s; "
           f"second call {second_s:.3f} s = {pairs / second_s:.2f} pairs/s [{card}]")
-    print(f"peak device memory (first sweep): {peak} bytes = {peak / 2**30:.3f} GiB [{card}]")
+    print(f"peak device memory (first sweep): {peak} bytes = {peak / 2**30:.3f} GiB "
+          f"allocated, {peak_reserved} bytes reserved; after the captured chain "
+          f"{torch.cuda.max_memory_reserved()} bytes reserved, the sampler pool "
+          f"{_pool_bytes()} bytes [{card}]")
     return launches
 
 
@@ -954,9 +1002,6 @@ def phase_analysis_sweep(card, workdir):
     checkpoints phase 5 wrote."""
     from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
     from distillation_trajectories_torch.scripts import analyze_trajectory_metrics as cli
-    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
-    from distillation_trajectories_torch.trajectories import make_sweep_trajectory_fn
-    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
 
     args = cli.parse_args(["--base_dir", workdir, "--jobs", json.dumps(SWEEP_JOBS),
                            "--device", "cuda"])
@@ -983,6 +1028,7 @@ def phase_analysis_sweep(card, workdir):
     wall = time.perf_counter() - t0
     launches = cfg_engine_update.launches
     peak = torch.cuda.max_memory_allocated()
+    peak_reserved = torch.cuda.max_memory_reserved()
     print(f"CFG-sweep CLI kernel launches: {launches} (expected {expected}: T-1 per chain over "
           f"{len(teacher_chains)} teacher chains, each (T, scale) once, and "
           f"{len(student_chains)} student chains) [{card}]")
@@ -1004,26 +1050,9 @@ def phase_analysis_sweep(card, workdir):
     print(f"CFG-sweep CLI run (checkpoint loading, draws, {chains} chains, scoring): "
           f"{wall:.3f} s, {trajectories} trajectories = {trajectories / wall:.2f} traj/s at "
           f"batch {specs[0]['num_samples']}; peak device memory {peak} bytes = "
-          f"{peak / 2**30:.3f} GiB [{card}]")
+          f"{peak / 2**30:.3f} GiB allocated, {peak_reserved} bytes reserved (the captured "
+          f"chains' one shared pool included) [{card}]")
 
-    teacher = load_teacher_from_arg(config)
-    chain = make_sweep_trajectory_fn(teacher, 100, config)
-    draws = _sweep_inputs(config, 10, 42, 100, "cuda")
-    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
-
-    run = lambda: chain(draws.noises, np.arange(42, 52), CFG_COND_PAIRS, 3.0,
-                        step_noise=draws.step_noise)
-    run()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    print(f"CLI teacher chain (sf 1.0, T=100, batch 10, gs 3.0): best of "
-          f"{[round(t, 4) for t in times]} s = {10 / min(times):.2f} traj/s [{card}]")
-    profile_breakdown(run, min(times), card, label="one CLI teacher chain, T=100, batch 10")
     return launches
 
 
@@ -1345,35 +1374,6 @@ def phase_cli_runs(card, workdir):
     return total
 
 
-def phase_cli_profile(card, workdir):
-    """Phase 7(c): one batch-1 T=100 paired call, the dimensionality CLI's
-    unit, timed and profiled."""
-    from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion.sampling import draw_step_noise, seeded_normal
-    from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
-    from distillation_trajectories_torch.trajectories import make_paired_trajectory_fn
-
-    cfg = Config(base_dir=workdir)  # bf16, cuda, teacher_steps 100
-    fn = make_paired_trajectory_fn(load_teacher_from_arg(cfg), load_student(cfg, 0.5),
-                                   cfg.teacher_steps, cfg, use_cfg=False)
-    noise = seeded_normal([(0, 0)], (32, 32, 3), "cuda")
-    step_noise = draw_step_noise([0], cfg.teacher_steps, (32, 32, 3), "cuda")
-    run = lambda: fn(noise, [0], 1.0, step_noise=step_noise)
-    run()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    print(f"paired call (teacher sf 1.0 + student sf 0.5, batch 1, T={cfg.teacher_steps}, "
-          f"no CFG, {2 * (cfg.teacher_steps - 1)} forwards): best of "
-          f"{[round(t, 4) for t in times]} s [{card}]")
-    profile_breakdown(run, min(times), card,
-                      label=f"one batch-1 T={cfg.teacher_steps} paired call")
-
-
 def phase_clis(card, workdir):
     t0 = time.perf_counter()
     phase_cli_check(card, workdir)
@@ -1381,9 +1381,6 @@ def phase_clis(card, workdir):
     t0 = time.perf_counter()
     launches = phase_cli_runs(card, workdir)
     print(f"phase CLIs (b) five run halves: {time.perf_counter() - t0:.1f} s [{card}]")
-    t0 = time.perf_counter()
-    phase_cli_profile(card, workdir)
-    print(f"phase CLIs (c) profiled paired call: {time.perf_counter() - t0:.1f} s [{card}]")
     if "matplotlib" in sys.modules:
         raise RuntimeError("the analysis CLIs imported matplotlib")
     return launches
@@ -2533,8 +2530,9 @@ def phase_profile_sampler(card, workdir):
     if tuple(out.shape) != (MAIN_T + 1, SAMPLES, 32, 32, 3) or not torch.isfinite(out).all():
         raise RuntimeError("the profiled chain's output is not finite or has the wrong shape")
     print(f"profile_sampler.capture (sf 1.0, batch {SAMPLES}, 32x32x3, T={MAIN_T}, gs "
-          f"{profile_sampler.GUIDANCE}, bf16; one warm-up and three traced chains, CUDA "
-          f"activity): {capture_s:.3f} s, trace {os.path.getsize(path)} bytes [{card}]")
+          f"{profile_sampler.GUIDANCE}, bf16; two warm-ups, eager and the capture, and three "
+          f"traced replays, CUDA activity): {capture_s:.3f} s, trace "
+          f"{os.path.getsize(path)} bytes [{card}]")
     t0 = time.perf_counter()
     summary = profile_sampler.summarize(logdir, top=10)
     print(card)
@@ -2653,8 +2651,9 @@ def phase_real_samples(card, workdir):
 
 def phase_last_entry_points(card, workdir):
     """Phase 11; returns the kernel's launches, checked against 11(a)'s
-    warm-up and three traced chains (the smoke suite samples through
-    ``p_sample_loop``, and the dispatched child runs on the CPU)."""
+    two warm-ups (eager, then the capture) and three traced replays (the
+    smoke suite samples through ``p_sample_loop``, and the dispatched child
+    runs on the CPU)."""
     from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
 
     cfg_engine_update.launches = 0
@@ -2667,9 +2666,9 @@ def phase_last_entry_points(card, workdir):
         run()
         print(f"phase last entry points {label}: {time.perf_counter() - t0:.1f} s [{card}]")
     launches = cfg_engine_update.launches
-    print(f"last entry points kernel launches: {launches} (expected 4 x {MAIN_T - 1} = "
-          f"{4 * (MAIN_T - 1)})")
-    if launches != 4 * (MAIN_T - 1):
+    print(f"last entry points kernel launches: {launches} (expected 5 x {MAIN_T - 1} = "
+          f"{5 * (MAIN_T - 1)})")
+    if launches != 5 * (MAIN_T - 1):
         raise RuntimeError("phase 11 did not launch the kernel once a step of each chain")
     return launches
 
@@ -2714,8 +2713,10 @@ def phase_bench(card, workdir):
     ledger = os.path.join(workdir, "bench_ledger.jsonl")
     with mock.patch.multiple(bench, LEDGER=ledger,
                              CACHE=os.path.join(workdir, "bench_baseline.json")):
+        # Two warm-up chains (eager, then the capture), the timed replays
+        # and the eager chains on the same seeds.
         rec, launches = _bench_run(
-            "bench", bench, [], lambda a: (1 + a.iters) * (a.timesteps - 1), card)
+            "bench", bench, [], lambda a: (2 + 2 * a.iters) * (a.timesteps - 1), card)
     with open(ledger) as f:
         lines = f.read().splitlines()
     if rec["preflight"]["status"] != "ok" or rec["card"] != card or len(lines) != 1:
@@ -2723,11 +2724,15 @@ def phase_bench(card, workdir):
                            f"{len(lines)} ledger lines")
     if rec["use_pallas"] is not True or json.loads(lines[0])["use_pallas"] is not True:
         raise RuntimeError("bench did not record its update tail (use_pallas true)")
-    _finite("bench", rec["value"], rec["pairs_per_s"], rec["vs_baseline"], *rec["seconds"])
-    print(f"bench: {rec['value']} traj/s (calls {rec['seconds']} s), {rec['pairs_per_s']} "
+    _finite("bench", rec["value"], rec["pairs_per_s"], rec["vs_baseline"], *rec["seconds"],
+            *rec["eager_seconds"])
+    if "eager_seconds" not in json.loads(lines[0]):
+        raise RuntimeError("bench's ledger line lacks the eager chain's seconds")
+    print(f"bench: {rec['value']} traj/s (captured chain; calls {rec['seconds']} s; the eager "
+          f"chain {rec['eager_seconds']} s), {rec['pairs_per_s']} "
           f"pairs/s, x{rec['vs_baseline']} {rec['baseline_source']}; update tail "
           f"use_pallas={rec['use_pallas']} (record and ledger line) [{card}]")
-    return launches + _bench_method_split(card)
+    return launches + _bench_method_split(card, turns=1)
 
 
 class _PreDrawn:
@@ -2767,11 +2772,11 @@ def _bench_method_split(card, turns=2):
         for label in seconds:
             pre = (None if label == "inside" else
                    _PreDrawn(draws, range(args.iters + 1), args.timesteps, shape))
-            seconds[label] += bench.bench_main_path(args, pre)[1]
-            draw_s += pre.seconds[1:] if pre else []  # seed 0's draw is the warm-up's
+            seconds[label] += bench.bench_main_path(args, pre)[1]  # the captured chain's
+            draw_s += pre.seconds[1:] if pre else []  # seed 0's draw is the warm-ups'
             del pre
     launches = cfg_engine_update.launches - before
-    want = 2 * turns * (1 + args.iters) * (args.timesteps - 1)
+    want = 2 * turns * (2 + 2 * args.iters) * (args.timesteps - 1)
     rate = {label: (args.batch * len(s) / sum(s), args.batch / min(s))
             for label, s in seconds.items()}
     print(f"bench method split ({turns} turns of {args.iters} timed chains each, batch "
@@ -3043,22 +3048,32 @@ def _hold_epoch_lane(card):
           + f"; draw generator states equal [{card}]")
 
 
-def _idle_share(run, n):
-    """The device's idle share over ``n`` calls of ``run`` under the
-    profiler (device activity only), and its busy ms a call."""
+def _device_events(run):
+    """``(name, start µs, end µs)`` of the device's activity during
+    ``run()`` under the profiler (device activity only), read from the raw
+    Kineto results: building the profiler's event tree takes minutes for
+    the 10^5 events of a few eager T=100 chains."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            run()
+        run()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
+    return [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+
+
+def _idle_share(run, n):
+    """The device's idle share over ``n`` calls of ``run`` under the
+    profiler (device activity only), and its busy ms a call."""
+    from distillation_trajectories_torch.utils.profiling import busy_and_window
+
+    events = _device_events(lambda: [run() for _ in range(n)])
+    if not events:
         return None, None, 0
-    busy, window = _busy_and_window(kernels)
-    return 1 - busy / window, busy / 1e3 / n, len(kernels) // n
+    busy, window = busy_and_window((start, end) for _, start, end in events)
+    return 1 - busy / window, busy / 1e3 / n, len(events) // n
 
 
 def _time_lane(lane, cfg, loader, dataset, dp):
@@ -3260,6 +3275,201 @@ def phase_epoch_lanes(card, workdir):
         print(f"phase epoch lanes {label}: {time.perf_counter() - t0:.1f} s [{card}]")
 
 
+GRAPH_GS = (2.0, 3.0, 7.5)  # 14(a): one graph serves each
+GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # 14(b)
+GRAPH_CALLS_A_TURN = 2
+GRAPH_PROFILED = 4  # chains under the profiler, a lane
+
+
+def _hold_sampler_graph(card):
+    """14(a): the main path's chain through its maker (sf-1.0 teacher,
+    batch 256, 32x32x3, T=50, bf16): the replay against the eager body at
+    three guidance scales on one graph and after an in-place weight
+    change, the launches by the counter and by device events, no host copy
+    in a replay, the plain version never called.  Returns the chain's
+    maker and its call for 14(b)."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.trajectories import make_sweep_trajectory_fn
+    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
+    from distillation_trajectories_torch.utils import graphs
+
+    cfg = Config(timesteps=MAIN_T, sample_steps=MAIN_T)  # 32x32x3, bf16, cuda
+    teacher = make_unet(cfg, size_factor=1.0, seed=0)
+    draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, "cuda")
+    seeds = np.arange(42, 42 + SAMPLES)
+    chain = make_sweep_trajectory_fn(teacher, MAIN_T, cfg)
+    call = lambda fn, gs: fn(draws.noises, seeds, CFG_COND_PAIRS, gs,  # noqa: E731
+                             step_noise=draws.step_noise)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # earlier phases' cached blocks out of the peaks below
+    torch.cuda.reset_peak_memory_stats()
+    print(f"14(a) at the start: {torch.cuda.memory_allocated()} bytes allocated, "
+          f"{torch.cuda.memory_reserved()} reserved, {graphs._SAMPLER_POOL['graphs']} sampler "
+          f"graphs alive [{card}]")
+    with _PlainCalls() as plain_calls:
+        call(chain, 3.0)  # eager, on a side stream: the warm-up
+        torch.cuda.synchronize()
+        reserved = [torch.cuda.max_memory_reserved()]
+        call(chain, 3.0)  # the capture, then a replay
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.max_memory_reserved())
+        for gs in GRAPH_GS:
+            before = cfg_engine_update.launches
+            got = call(chain, gs)
+            made = cfg_engine_update.launches - before
+            want = call(chain._eager, gs)
+            torch.cuda.synchronize()
+            gap = float((got.float() - want.float()).abs().max())
+            print(f"14(a) replay vs eager at gs {gs}: max abs gap {gap:.3e} (limit 0: the same "
+                  f"kernels in the same order), {made} launches counted [{card}]")
+            if not torch.equal(got, want) or made != MAIN_T - 1:
+                raise RuntimeError(f"the replay at gs {gs} is not the eager chain, or it "
+                                   f"counted {made} launches")
+        saved = {k: v.clone() for k, v in teacher.state_dict().items()}
+        unchanged = call(chain, 3.0)
+        with torch.no_grad():
+            for p in teacher.parameters():
+                p.mul_(1.01)
+        got = call(chain, 3.0)
+        want = call(chain._eager, 3.0)
+        torch.cuda.synchronize()
+        gap = float((got.float() - want.float()).abs().max())
+        moved = float((got.float() - unchanged.float()).abs().max())
+        teacher.load_state_dict(saved)
+        print(f"14(a) after the weights x1.01 in place: replay vs eager max abs gap {gap:.3e}, "
+              f"{moved:.3e} from the replay before the change [{card}]")
+        if not torch.equal(got, want) or moved == 0.0:
+            raise RuntimeError("a replay after an in-place weight change is not the eager chain")
+    if len(chain.graphs.graphs) != 1 or plain_calls.count:
+        raise RuntimeError(f"{len(chain.graphs.graphs)} graphs for one key, the plain version "
+                           f"called {plain_calls.count} times")
+    (graph,) = chain.graphs.graphs.values()
+    events = _device_events(lambda: call(chain, 3.0))
+    updates = sum("cfg_engine_update_kernel" in name for name, _, _ in events)
+    htod = sorted({name for name, _, _ in events if "HtoD" in name})
+    print(f"14(a) one graph for gs {list(GRAPH_GS)} (capture {graph.capture_s:.3f} s, "
+          f"{graph.launches[0]} launches a replay by the counter); a traced replay: "
+          f"{len(events)} device events, {updates} of cfg_engine_update_kernel, host-to-device "
+          f"copies {htod or 'none'}; the plain version called {plain_calls.count} times; peak "
+          f"reserved {reserved[0]} bytes after the eager chain, {reserved[1]} after the "
+          f"capture, the sampler pool {_pool_bytes()} bytes [{card}]")
+    if updates != MAIN_T - 1 or htod:
+        raise RuntimeError("a replay did not launch the kernel once a step, or copied from "
+                           "the host")
+    # The int8 lane's chain captures too (torch._int_mm inside the graph).
+    qcfg = Config(timesteps=10, sample_steps=10, sampler_quant="int8")
+    qchain = make_sweep_trajectory_fn(teacher, 10, qcfg)
+    qdraws = _sweep_inputs(qcfg, 8, 7, 10, "cuda")
+    qcall = lambda fn: fn(qdraws.noises, np.arange(7, 15), CFG_COND_PAIRS, 3.0,  # noqa: E731
+                          step_noise=qdraws.step_noise)
+    qcall(qchain)
+    got, want = qcall(qchain), qcall(qchain._eager)
+    torch.cuda.synchronize()
+    gap = float((got.float() - want.float()).abs().max())
+    print(f"14(a) int8 lane (Config.sampler_quant='int8', batch 8, T=10, gs 3.0): "
+          f"{len(qchain.graphs.graphs)} graph, replay vs eager max abs gap {gap:.3e} [{card}]")
+    if len(qchain.graphs.graphs) != 1 or not torch.equal(got, want):
+        raise RuntimeError("the int8 lane's replay is not its eager chain")
+    return {"main path (sf 1.0, batch 256, T=50, gs 3.0, CFG)": (
+        chain, lambda: call(chain, 3.0), lambda: call(chain._eager, 3.0))}
+
+
+def _graph_lane_chains(workdir):
+    """14(b)'s small-batch chains on phase 5's checkpoints: the CFG-sweep
+    CLI's teacher chain (batch 10, T=100, gs 3.0) and the dimensionality
+    CLI's unit, a batch-1 T=100 paired call (teacher and sf 0.5, no CFG)."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion.sampling import (
+        CFG_COND_PAIRS,
+        draw_step_noise,
+        seeded_normal,
+    )
+    from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
+    from distillation_trajectories_torch.trajectories import (
+        make_paired_trajectory_fn,
+        make_sweep_trajectory_fn,
+    )
+    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
+
+    cfg = Config(base_dir=workdir)  # bf16, cuda, teacher_steps 100
+    teacher = load_teacher_from_arg(cfg)
+    t = cfg.teacher_steps
+    sweep = make_sweep_trajectory_fn(teacher, t, cfg)
+    draws = _sweep_inputs(cfg, 10, 42, t, "cuda")
+    sweep_call = lambda fn: fn(draws.noises, np.arange(42, 52), CFG_COND_PAIRS,  # noqa: E731
+                               3.0, step_noise=draws.step_noise)
+    paired = make_paired_trajectory_fn(teacher, load_student(cfg, 0.5), t, cfg, use_cfg=False)
+    noise = seeded_normal([(0, 0)], (32, 32, 3), "cuda")
+    step_noise = draw_step_noise([0], t, (32, 32, 3), "cuda")
+    paired_call = lambda fn: fn(noise, [0], 1.0, step_noise=step_noise)  # noqa: E731
+    return {
+        f"CFG CLI chain (sf 1.0, batch 10, T={t}, gs 3.0, CFG)": (
+            sweep, lambda: sweep_call(sweep), lambda: sweep_call(sweep._eager)),
+        f"paired call (sf 1.0 + sf 0.5, batch 1, T={t}, no CFG)": (
+            paired, lambda: paired_call(paired), lambda: paired_call(paired._eager)),
+    }
+
+
+def _time_graph_lane(label, maker, graph_call, eager_call, card):
+    """14(b): one chain through both lanes in turns (eager, graph, graph,
+    eager): median seconds, device busy ms and idle share (profiler), the
+    capture's seconds and the shared pool's bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_reserved()
+    graph_call()
+    graph_call()  # eager warm-up, then the capture (the main path's: replays)
+    torch.cuda.synchronize()
+    graphs = maker.graphs if isinstance(maker.graphs, tuple) else (maker.graphs,)
+    captured = [g for calls in graphs for g in calls.graphs.values()]
+    if not captured:
+        raise RuntimeError(f"{label}: nothing was captured")
+    lanes = {"eager": eager_call, "graph": graph_call}
+    seconds = {lane: [] for lane in lanes}
+    for lane in GRAPH_TURNS:
+        for _ in range(GRAPH_CALLS_A_TURN):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lanes[lane]()
+            torch.cuda.synchronize()
+            seconds[lane].append(time.perf_counter() - t0)
+    out = {}
+    for lane, run in lanes.items():
+        med = statistics.median(seconds[lane])
+        idle, busy_ms, kernels = _idle_share(run, GRAPH_PROFILED)
+        out[lane] = med
+        print(f"14(b) {label}, {lane}: median {med:.5f} s of {len(seconds[lane])} "
+              f"{[round(x, 5) for x in seconds[lane]]}; device busy {busy_ms:.3f} ms a chain, "
+              f"{kernels} kernels a chain, idle share {1 - busy_ms / 1e3 / med:.4f} of the "
+              f"unprofiled median ({idle:.4f} of the profiled window, {GRAPH_PROFILED} chains) "
+              f"[{card}]")
+    print(f"14(b) {label}: graph x{out['eager'] / out['graph']:.3f} the eager median; capture "
+          f"{sum(g.capture_s for g in captured):.3f} s ({len(captured)} graphs); sampler pool "
+          f"{_pool_bytes()} bytes; reserved {before} bytes before, peak "
+          f"{torch.cuda.max_memory_reserved()} after [{card}]")
+
+
+def phase_sampler_graphs(card, workdir):
+    """Phase 14: the samplers' captured lane on the card; returns its
+    launches of the kernel."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+
+    cfg_engine_update.launches = 0
+    t0 = time.perf_counter()
+    chains = _hold_sampler_graph(card)
+    print(f"phase sampler graphs (a) holds: {time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    chains.update(_graph_lane_chains(workdir))
+    for label, (maker, graph_call, eager_call) in chains.items():
+        _time_graph_lane(label, maker, graph_call, eager_call, card)
+    print(f"phase sampler graphs (b) timed turns: {time.perf_counter() - t0:.1f} s [{card}]")
+    return cfg_engine_update.launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this check needs "
@@ -3315,15 +3525,19 @@ def main():
         t0 = time.perf_counter()
         phase_epoch_lanes(card, workdir)
         print(f"phase epoch lanes: {time.perf_counter() - t0:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        graph_launches = phase_sampler_graphs(card, workdir)
+        print(f"phase sampler graphs: {time.perf_counter() - t0:.1f} s [{card}]")
     total = (launches + cli_launches + clis_launches + edit_launches + lane_launches
-             + multi_launches + last_launches + bench_launches)
+             + multi_launches + last_launches + bench_launches + graph_launches)
     print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
           f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) + "
           f"{edit_launches} (editing demo, phase 8) + {lane_launches} (the window dispatch's "
           f"sequential chain, phase 9) + {multi_launches} "
           f"(sharded sweep and spatial chains, both ranks, and their references, phase 10) + "
           f"{last_launches} (sampler profiler's warm-up and traced chains, phase 11) + "
-          f"{bench_launches} (the five benches, phase 12) = {total}")
+          f"{bench_launches} (the five benches, phase 12) + {graph_launches} (the captured "
+          f"lane's holds and timed turns, both lanes, phase 14) = {total}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     print(card)

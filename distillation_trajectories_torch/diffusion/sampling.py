@@ -10,8 +10,15 @@ The engine formulation: a DDIM-like c1/c2/σ update on *per-step* alphas over
 skipped and the final state duplicated, giving ``[T+1, …]`` states with the
 starting noise first.  The JAX ``lax.scan`` becomes a Python loop over
 steps; every step's update tail (CFG combine + engine update) goes through
-:func:`..ops.cfg_update.cfg_engine_update`, which launches the Triton kernel
-on CUDA tensors and runs its plain version on CPU tensors.  JAX's
+:func:`..ops.cfg_update.cfg_engine_update_row`, which launches the Triton
+kernel on CUDA tensors and runs its plain version on CPU tensors, with its
+scalars in row ``j`` of a ``[T-1, 4]`` table that goes to the device once
+a chain.  JAX compiles each chain into one program under ``jax.jit``; the
+port's counterparts are :func:`make_batch_chain_fn` and
+:func:`make_loop_fn`, which the makers (trajectory engine, manager, grid,
+FID) return: on the card each captures its chain into a CUDA graph on its
+second call for a key and replays it from then on
+(``utils/graphs.py``, which also lists what stays eager).  JAX's
 ``use_pallas`` picks between its fused kernel and the unfused combine then
 ``engine_update``; the fused function computes the unfused tail (bit-equal
 on the CPU), so the port has the one tail under either value of
@@ -27,12 +34,13 @@ identical noise.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..ops.cfg_update import cfg_engine_update
+from ..ops.cfg_update import cfg_engine_update, cfg_engine_update_row
+from ..utils.graphs import CapturedCall, host_to_device
 from .schedules import extract
 
 ModelFn = Callable[..., torch.Tensor]
@@ -52,7 +60,9 @@ def subsampled_timestep_indices(sample_steps: int, num_timesteps: int) -> np.nda
 
 
 def _cfg_output(model_fn, x, t, guidance_scale):
-    """Two-pass CFG: cond=1 against the reference's cond=None (mask 0)."""
+    """Two-pass CFG: cond=1 against the reference's cond=None (mask 0).
+    ``guidance_scale`` is a float or a 0-d float32 tensor on ``x``'s
+    device (the same bits)."""
     b = x.shape[0]
     ones = torch.ones((b, 1), dtype=x.dtype, device=x.device)
     zeros = torch.zeros((b, 1), dtype=x.dtype, device=x.device)
@@ -61,34 +71,76 @@ def _cfg_output(model_fn, x, t, guidance_scale):
     return uncond_out + guidance_scale * (cond_out - uncond_out)
 
 
+def _reference_update(x, eps, noise, betas_t, sqrt_omac_t, sqrt_recip_alphas_t,
+                      posterior_var_t=None):
+    pred_direction = (1.0 - sqrt_omac_t) * eps
+    return sqrt_recip_alphas_t * (x - pred_direction) + noise * betas_t
+
+
+def _ancestral_update(x, eps, noise, betas_t, sqrt_omac_t, sqrt_recip_alphas_t,
+                      posterior_var_t):
+    mean = sqrt_recip_alphas_t * (x - betas_t / sqrt_omac_t * eps)
+    return mean + torch.sqrt(posterior_var_t) * noise
+
+
+# The schedule columns of a loop step, in the updates' argument order.
+_LOOP_COLUMNS = ("betas", "sqrt_one_minus_alphas_cumprod", "sqrt_recip_alphas",
+                 "posterior_variance")
+
+
 def p_sample(model_fn, x, t, t_index: int, diffusion_params, noise,
              guidance_scale: float = 1.0) -> torch.Tensor:
     """One reverse step in the reference's non-standard formulation,
     ``x ← 1/√α·(x − (1−√(1−ᾱ))·ε̂) + noise·β``; ``noise`` is dropped at
     ``t_index == 0``."""
-    betas_t = extract(diffusion_params["betas"], t, x.shape)
-    sqrt_omac_t = extract(diffusion_params["sqrt_one_minus_alphas_cumprod"], t, x.shape)
-    sqrt_recip_alphas_t = extract(diffusion_params["sqrt_recip_alphas"], t, x.shape)
+    coefs = [extract(diffusion_params[k], t, x.shape) for k in _LOOP_COLUMNS[:3]]
     model_output = _cfg_output(model_fn, x, t, guidance_scale)
-    pred_direction = (1.0 - sqrt_omac_t) * model_output
     if t_index == 0:
         noise = torch.zeros_like(x)
-    return sqrt_recip_alphas_t * (x - pred_direction) + noise * betas_t
+    return _reference_update(x, model_output, noise, *coefs)
 
 
 def p_sample_ancestral(model_fn, x, t, t_index: int, diffusion_params, noise,
                        guidance_scale: float = 1.0) -> torch.Tensor:
     """Textbook DDPM ancestral step (Ho et al. 2020, Eq. 11):
     ``1/√α_t·(x_t − β_t/√(1−ᾱ_t)·ε̂) + √β̃_t·z``."""
-    betas_t = extract(diffusion_params["betas"], t, x.shape)
-    sqrt_omac_t = extract(diffusion_params["sqrt_one_minus_alphas_cumprod"], t, x.shape)
-    sqrt_recip_alphas_t = extract(diffusion_params["sqrt_recip_alphas"], t, x.shape)
-    posterior_var_t = extract(diffusion_params["posterior_variance"], t, x.shape)
+    coefs = [extract(diffusion_params[k], t, x.shape) for k in _LOOP_COLUMNS]
     eps = _cfg_output(model_fn, x, t, guidance_scale)
-    mean = sqrt_recip_alphas_t * (x - betas_t / sqrt_omac_t * eps)
     if t_index == 0:
         noise = torch.zeros_like(x)
-    return mean + torch.sqrt(posterior_var_t) * noise
+    return _ancestral_update(x, eps, noise, *coefs)
+
+
+def _loop_table(diffusion_params, indices) -> np.ndarray:
+    """``[n_steps, 5]`` float32: row ``j`` holds the four schedule
+    coefficients of step ``indices[j]`` (clamped, as ``extract`` clamps)
+    and, in column 4, the guidance scale (1.0 here)."""
+    cols = []
+    for k in _LOOP_COLUMNS:
+        a = diffusion_params[k]
+        a = np.asarray(a.detach().cpu() if torch.is_tensor(a) else a, dtype=np.float32)
+        cols.append(a[np.clip(indices, 0, a.shape[0] - 1)])
+    cols.append(np.ones(len(indices), dtype=np.float32))
+    return np.stack(cols, axis=1)
+
+
+def _loop_chain(model_fn, x, table, step_noise, indices, mode: str, track_trajectory: bool):
+    """The reverse loop from ``x`` on ``table``'s rows (a ``[n_steps, 5]``
+    :func:`_loop_table` on ``x``'s device, the guidance in column 4), so
+    that nothing crosses from the host between steps."""
+    update = _ancestral_update if mode == "ancestral" else _reference_update
+    states = [x]
+    for j, t_index in enumerate(indices):
+        t = torch.full((x.shape[0],), int(t_index), dtype=torch.int32, device=x.device)
+        row = table[j].unbind()
+        eps = _cfg_output(model_fn, x, t, row[4])
+        noise = torch.zeros_like(x) if t_index == 0 else step_noise[j]
+        x = update(x, eps, noise, *row[:4])
+        if track_trajectory:
+            states.append(x)
+    if track_trajectory:
+        return x, torch.stack(states)
+    return x
 
 
 def p_sample_loop(
@@ -111,12 +163,12 @@ def p_sample_loop(
     (``[n_steps, *shape]``) feeds step ``j``; each one missing is drawn
     from ``generator`` on ``device``.  ``mode="ancestral"`` uses the DDPM
     update.  Returns ``img`` or ``(img, trajectory)`` with trajectory
-    ``[n_steps + 1, *shape]``.
+    ``[n_steps + 1, *shape]``.  The schedule coefficients and the guidance
+    go to the device once, as one table, so the steps make no host copy.
     """
     if num_timesteps is None:
         num_timesteps = sample_steps
     indices = subsampled_timestep_indices(sample_steps, num_timesteps)
-    step_fn = p_sample_ancestral if mode == "ancestral" else p_sample
     if noise is None:
         noise = torch.randn(shape, generator=generator, device=device)
     if step_noise is None:
@@ -125,17 +177,62 @@ def p_sample_loop(
     if tuple(step_noise.shape) != (len(indices), *shape):
         raise ValueError(f"step_noise has shape {tuple(step_noise.shape)}, "
                          f"expected {(len(indices), *shape)}")
-    x = noise
-    states = [x]
-    for j, t_index in enumerate(indices):
-        t = torch.full((shape[0],), int(t_index), dtype=torch.int32, device=x.device)
-        x = step_fn(model_fn, x, t, int(t_index), diffusion_params,
-                    step_noise[j].to(x.device), guidance_scale)
-        if track_trajectory:
-            states.append(x)
-    if track_trajectory:
-        return x, torch.stack(states)
-    return x
+    table = _loop_table(diffusion_params, indices)
+    table[:, 4] = guidance_scale
+    return _loop_chain(model_fn, noise, host_to_device(table, noise.device),
+                       step_noise.to(noise.device), indices, mode, track_trajectory)
+
+
+def make_loop_fn(make_model_fn, shape, sample_steps: int, diffusion_params, *,
+                 captures: Callable[[torch.device], bool],
+                 num_timesteps: Optional[int] = None, mode: str = "reference"):
+    """The samplers' compiled loop (JAX's jitted ``p_sample_loop``, as the
+    grid and FID makers use it, at guidance 1.0): ``fn(noise, step_noise,
+    params=None) -> img`` over ``make_model_fn(params)``'s forward,
+    ``params`` (tensors by name) standing in for the model's weights.
+
+    Where ``captures(device)`` holds, each key (the ``params`` names, the
+    inputs' shapes and dtypes) runs eagerly on its first call, is captured
+    into a CUDA graph on its second and replayed from then on
+    (:class:`..utils.graphs.CapturedCall`): the start noise, the step
+    noise, the coefficient table (the guidance in its column 4) and
+    ``params`` are the graph's inputs, copied into it each call, so a
+    replay sees the weights it is given (and ``params=None``, the model's
+    own weights, changed in place).  ``fn._eager`` is the eager body."""
+    indices = subsampled_timestep_indices(
+        sample_steps, sample_steps if num_timesteps is None else num_timesteps)
+    host_table = _loop_table(diffusion_params, indices)
+    tables: Dict[torch.device, torch.Tensor] = {}
+    graphs = CapturedCall()
+
+    def eager(noise, step_noise, params=None):
+        return p_sample_loop(make_model_fn(params), tuple(shape), sample_steps, diffusion_params,
+                             noise=noise, step_noise=step_noise, num_timesteps=num_timesteps,
+                             mode=mode)
+
+    def fn(noise, step_noise, params=None):
+        device = noise.device
+        if not captures(device):
+            return eager(noise, step_noise, params)
+        if tuple(noise.shape) != tuple(shape) or \
+                tuple(step_noise.shape) != (len(indices), *shape):
+            raise ValueError(f"noise {tuple(noise.shape)} and step_noise "
+                             f"{tuple(step_noise.shape)} do not fit {tuple(shape)}")
+        if device not in tables:
+            tables[device] = host_to_device(host_table, device)
+        names = None if params is None else tuple(params)
+
+        def body(x, n, tab, *values):
+            model_fn = make_model_fn(None if names is None else dict(zip(names, values)))
+            return _loop_chain(model_fn, x, tab, n, indices, mode, False)
+
+        values = [] if names is None else [params[k] for k in names]
+        make_model_fn(params)  # its effect on the model (eval mode), on a replay too
+        return graphs(names, body, noise, step_noise.to(device), tables[device], *values)
+
+    fn._eager = eager
+    fn.graphs = graphs
+    return fn
 
 
 def _engine_scalars(alpha_t, alpha_prev) -> Tuple[np.float32, np.float32, np.float32]:
@@ -188,10 +285,21 @@ def draw_step_noise(seeds, timesteps: int, shape, device, dtype=torch.float32):
     )
 
 
-def _engine_chain(model_fn, x, timesteps, alphas, cond_pairs, g, step_noise, states):
-    """Run the chain from ``x``, writing the ``T+1`` states into
-    ``states`` (a ``[T+1, B, …]`` view, possibly of another dtype)."""
+def _engine_table(timesteps: int, alphas, g=1.0) -> np.ndarray:
+    """``[T-1, 4]`` float32: row ``j`` holds c1, c2, σ of step
+    ``t = T-1-j`` (:func:`_engine_scalars`, the same bits) and ``g``."""
     alphas = np.asarray(alphas, dtype=np.float32)
+    rows = [(*_engine_scalars(alphas[t], alphas[t - 1]), g)
+            for t in range(timesteps - 1, 0, -1)]
+    return np.array(rows, dtype=np.float32).reshape(-1, 4)
+
+
+def _engine_chain(model_fn, x, table, cond_pairs, step_noise, states):
+    """Run the chain from ``x`` on ``table``'s scalars (an
+    :func:`_engine_table` on ``x``'s device: step ``j`` launches the kernel
+    on row ``j``, so nothing crosses from the host between steps), writing
+    the ``T+1`` states into ``states`` (a ``[T+1, B, …]`` view, possibly of
+    another dtype)."""
     pairs = np.asarray(cond_pairs, dtype=np.float32)
     b = x.shape[0]
     conds = [
@@ -202,16 +310,26 @@ def _engine_chain(model_fn, x, timesteps, alphas, cond_pairs, g, step_noise, sta
         for c, m in pairs
     ]
     one_forward = bool(np.array_equal(pairs[0], pairs[1]))
-    g = float(g)
+    timesteps = table.shape[0] + 1
     states[0] = x
     for j, t in enumerate(range(timesteps - 1, 0, -1)):
         tvec = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
         uncond = model_fn(x, tvec, *conds[0])
         cond = uncond if one_forward else model_fn(x, tvec, *conds[1])
-        c1, c2, sigma = _engine_scalars(alphas[t], alphas[t - 1])
-        x = cfg_engine_update(x, uncond, cond, step_noise[j], c1, c2, sigma, g)
+        x = cfg_engine_update_row(x, uncond, cond, step_noise[j], table[j])
         states[j + 1] = x
     states[timesteps] = x
+
+
+def _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype):
+    """``[S, T+1, H, W, C]`` states of the batched chain from ``noises``."""
+    out = torch.empty(
+        (noises.shape[0], table.shape[0] + 2, *noises.shape[1:]),
+        dtype=store_dtype or noises.dtype,
+        device=noises.device,
+    )
+    _engine_chain(model_fn, noises, table, cond_pairs, step_noise, out.transpose(0, 1))
+    return out
 
 
 def _step_noise_for(step_noise, timesteps, x):
@@ -253,7 +371,8 @@ def generate_trajectory_scan(
         device=noise.device,
     )
     pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
-    _engine_chain(model_fn, noise, timesteps, alphas, pairs, g, step_noise, states)
+    table = host_to_device(_engine_table(timesteps, alphas, g), noise.device)
+    _engine_chain(model_fn, noise, table, pairs, step_noise, states)
     return states
 
 
@@ -278,13 +397,50 @@ def generate_trajectory_batch_scan(
     if step_noise is None:
         step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], noises.device)
     step_noise = _step_noise_for(step_noise, timesteps, noises)
-    out = torch.empty(
-        (noises.shape[0], timesteps + 1, *noises.shape[1:]),
-        dtype=store_dtype or noises.dtype,
-        device=noises.device,
-    )
-    _engine_chain(
-        model_fn, noises, timesteps, alphas, cond_pairs, guidance_scale,
-        step_noise, out.transpose(0, 1),
-    )
-    return out
+    table = host_to_device(_engine_table(timesteps, alphas, float(guidance_scale)),
+                           noises.device)
+    return _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype)
+
+
+def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
+                        captures: Callable[[torch.device], bool]):
+    """The makers' compiled chain (JAX's jitted
+    :func:`generate_trajectory_batch_scan`): ``fn(noises, seeds,
+    cond_pairs, gs, step_noise=None) -> [S, T+1, H, W, C]`` of one model
+    forward at one T and store dtype.
+
+    Where ``captures(device)`` holds, each key (the cond pairs, so CFG on
+    or off, and the inputs' shapes and dtypes) runs eagerly on its first
+    call, is captured into a CUDA graph on its second and replayed from
+    then on (:class:`..utils.graphs.CapturedCall`): the noises, the step
+    noise and the scalar table are the graph's inputs, and ``gs`` is
+    written into the table's column 3 before each replay, so one graph
+    serves every guidance scale.  The step noise is drawn outside the
+    graph (:func:`draw_step_noise` seeds a generator from the host per
+    ``(seed, t)``).  ``fn._eager`` is the eager body."""
+    host_table = _engine_table(timesteps, alphas)
+    tables: Dict[torch.device, torch.Tensor] = {}
+    graphs = CapturedCall(counted=(cfg_engine_update,))
+
+    def eager(noises, seeds, cond_pairs, gs, step_noise=None):
+        return generate_trajectory_batch_scan(model_fn, noises, timesteps, alphas, seeds,
+                                              cond_pairs, gs, store_dtype, step_noise)
+
+    def fn(noises, seeds, cond_pairs, gs, step_noise=None):
+        device = noises.device
+        if not captures(device):
+            return eager(noises, seeds, cond_pairs, gs, step_noise)
+        if step_noise is None:
+            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+        step_noise = _step_noise_for(step_noise, timesteps, noises)
+        if device not in tables:
+            tables[device] = host_to_device(host_table, device)
+        table = tables[device].clone()
+        table[:, 3].fill_(float(gs))
+        pairs = np.asarray(cond_pairs, dtype=np.float32)
+        body = lambda x, n, tab: _batch_states(model_fn, x, tab, pairs, n, store_dtype)
+        return graphs(pairs.tobytes(), body, noises, step_noise, table)
+
+    fn._eager = eager
+    fn.graphs = graphs
+    return fn

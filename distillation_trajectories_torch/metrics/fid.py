@@ -33,10 +33,11 @@ import torch
 from scipy import linalg
 
 from ..config import resolve_device
-from ..diffusion.sampling import _generator_seed, p_sample_loop, subsampled_timestep_indices
+from ..diffusion.sampling import _generator_seed, make_loop_fn, subsampled_timestep_indices
 from ..diffusion.schedules import get_diffusion_params
 from ..models.inception import create_inception, preprocess_for_inception
 from ..training.state import make_eval_model_fn
+from ..utils.graphs import sampler_lane_captures
 from ..utils.viz import image_grid, save_figure
 
 FEATURE_DIM = 2048
@@ -124,15 +125,20 @@ def make_sample_fn(model, config, num_samples: int):
     of ``model``'s architecture over ``config.sample_steps`` from a
     ``(noise, step_noise)`` draw; ``params`` (parameters and buffers by
     name) stand in for ``model``'s own, so one sampler serves every model
-    of the architecture."""
+    of the architecture.  The counterpart of JAX's jitted sampler, which
+    takes the variables as arguments: on the card (a model not sharded over
+    a mesh) its loop is captured on the second call and replayed, the
+    weights given copied into the graph before each replay
+    (:func:`..diffusion.sampling.make_loop_fn`)."""
     dp = get_diffusion_params(config.sample_steps, config)
-    shape = _shape(config, num_samples)
+    loop = make_loop_fn(
+        lambda params: make_eval_model_fn(model, params), _shape(config, num_samples),
+        config.sample_steps, dp, num_timesteps=config.timesteps,
+        captures=lambda device: sampler_lane_captures(device, model))
 
     def sample(draw: Draw, params=None) -> torch.Tensor:
         noise, step_noise = draw
-        return p_sample_loop(make_eval_model_fn(model, params), shape, config.sample_steps, dp,
-                             noise=noise, step_noise=step_noise,
-                             num_timesteps=config.timesteps)
+        return loop(noise, step_noise, params)
 
     return sample
 

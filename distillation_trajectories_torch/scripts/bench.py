@@ -7,20 +7,24 @@ counterpart of the repository's ``bench.py``).
 
 Prints ONE JSON line on stdout: ``metric``, ``value`` (traj/s), ``unit``,
 ``vs_baseline``, ``preflight``, the card's name and power limit
-(``card``), every timed call's seconds, the metric suite's pairs/s and the
-baseline's source.
+(``card``), every timed call's seconds (``seconds``; the eager chain's in
+``eager_seconds``), the metric suite's pairs/s and the baseline's source.
 
 Workload (``BASELINE.json``): the sf-1.0 U-Net of ``make_unet(seed=0)``,
 32x32x3, batch 256, T=50 reverse steps of the engine sampler with
 two-forward CFG at guidance 3.0, bf16 compute, every step's update tail
 the Triton kernel with the CFG combine fused in.  That is the port's one
 tail, whatever ``Config.pallas_cfg_update`` says, and the record and the
-ledger line name it as ``use_pallas: true`` (:data:`USE_PALLAS`).  Method:
-one warm-up chain, then ``--iters`` timed chains, each with a fresh seed
-and ended by ``torch.cuda.synchronize()``; ``value`` is batch x iters over
-their summed seconds.  Each chain's step noise is
-drawn inside its timed call, as the JAX bench draws it inside its jitted
-chain.  The metric suite's pairs/s
+ledger line name it as ``use_pallas: true`` (:data:`USE_PALLAS`).  The
+chain is the makers' compiled chain, as the JAX bench times its jitted
+one: on the card a CUDA graph captured during the warm-up and replayed
+(``diffusion/sampling.py::make_batch_chain_fn``).  Method: two warm-up
+chains (the first eager, the second the capture), then ``--iters`` timed
+chains, each with a fresh seed and ended by ``torch.cuda.synchronize()``;
+``value`` is batch x iters over their summed seconds.  Then the eager
+chain on the same seeds, its seconds kept as ``eager_seconds`` beside
+``seconds``.  Each chain's step noise is drawn inside its timed call, as
+the JAX bench draws it inside its jitted chain.  The metric suite's pairs/s
 (``batch_metrics_core`` over 256 pairs at T=50) is the best of 3 trials,
 each with fresh Wasserstein subsample keys.
 
@@ -119,12 +123,18 @@ def _emit_stale_and_exit(reason: str) -> None:
 
 
 def bench_main_path(args, draws=None):
-    """traj/s of the main path: ``(value, per-call seconds, the last timed
-    chain [T+1, batch, H, W, C])``."""
+    """traj/s of the main path's compiled chain: ``(value, per-call
+    seconds, the last timed chain [T+1, batch, H, W, C], the eager chain's
+    per-call seconds)``.  The chain is the makers' (on the card a CUDA
+    graph: its first warm-up call runs eagerly, the second captures), timed
+    as the JAX bench times its jitted chain; then its eager body on the
+    same seeds."""
     from ..config import Config, resolve_device
-    from ..diffusion import generate_trajectory_scan, get_diffusion_params
+    from ..diffusion import get_diffusion_params
+    from ..diffusion.sampling import CFG_COND_PAIRS, make_batch_chain_fn
     from ..models import make_unet
     from ..training import make_eval_model_fn
+    from ..utils.graphs import sampler_lane_captures
 
     dev = resolve_device(args.device)
     draws = draws or BenchDraws(dev)
@@ -135,16 +145,22 @@ def bench_main_path(args, draws=None):
     alphas = get_diffusion_params(args.timesteps, config)["alphas"]
     shape = (args.batch, args.image_size, args.image_size, config.channels)
     noise = draws.noise(1, shape).to(dev)
+    chain = make_batch_chain_fn(model_fn, args.timesteps, alphas, captures=sampler_lane_captures)
     out = []
 
-    def run(seed):
-        out[:] = [generate_trajectory_scan(
-            model_fn, noise, args.timesteps, alphas, seed, guidance_scale=GUIDANCE,
-            step_noise=draws.step_noise(seed, args.timesteps, shape))]
+    def call(fn, seed):
+        return fn(noise, None, CFG_COND_PAIRS, GUIDANCE,
+                  step_noise=draws.step_noise(seed, args.timesteps, shape)).transpose(0, 1)
 
-    timed_calls(run, [0], dev)  # warm-up: the Triton build and cuDNN's choices
+    def run(seed):
+        out[:] = [call(chain, seed)]
+
+    # Warm-up: the Triton build and cuDNN's choices, then the capture.
+    timed_calls(run, [0, 0], dev)
     seconds = timed_calls(run, range(1, args.iters + 1), dev)
-    return args.batch * args.iters / sum(seconds), seconds, out[0]
+    eager_seconds = timed_calls(lambda seed: call(chain._eager, seed),
+                                range(1, args.iters + 1), dev)
+    return args.batch * args.iters / sum(seconds), seconds, out[0], eager_seconds
 
 
 def bench_metric_suite(args, draws=None):
@@ -260,11 +276,12 @@ def measure(args, draws=None) -> dict:
     """The device half: the main path's traj/s and the metric suite's pairs/s."""
     import torch
 
-    ours, seconds, traj = bench_main_path(args, draws)
+    ours, seconds, traj, eager_seconds = bench_main_path(args, draws)
     pairs_per_s, sums = bench_metric_suite(args, draws)
     if not bool(torch.isfinite(traj).all()):
         raise RuntimeError("the main path's chain is not finite")
-    return {"ours": ours, "seconds": seconds, "pairs_per_s": pairs_per_s, "metric_sums": sums}
+    return {"ours": ours, "seconds": seconds, "eager_seconds": eager_seconds,
+            "pairs_per_s": pairs_per_s, "metric_sums": sums}
 
 
 def finish(args, result: dict, preflight: dict) -> dict:
@@ -283,6 +300,7 @@ def finish(args, result: dict, preflight: dict) -> dict:
         "device": args.device,
         "use_pallas": USE_PALLAS,
         "seconds": result["seconds"],
+        "eager_seconds": result["eager_seconds"],
         "pairs_per_s": round(result["pairs_per_s"], 1),
         "baseline_traj_per_s": ref,
         "baseline_source": source,
@@ -298,6 +316,7 @@ def finish(args, result: dict, preflight: dict) -> dict:
         "vs_baseline": record["vs_baseline"],
         "pairs_per_s": record["pairs_per_s"],
         "seconds": record["seconds"],
+        "eager_seconds": record["eager_seconds"],
         "card": record["card"],
         "use_pallas": record["use_pallas"],
         "preflight": preflight,

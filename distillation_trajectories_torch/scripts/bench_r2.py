@@ -17,7 +17,7 @@ Prints one JSON line per experiment and writes them all to
 
 * ``pallas`` (batch 256, guidance 7.5): the chain with the Triton kernel
   (the ``pallas`` arm) against the same chain with
-  ``ops.cfg_update.cfg_engine_update_reference`` put in its place for the
+  ``ops.cfg_update.cfg_engine_update_row_reference`` put in its place for the
   experiment alone (the ``jnp`` arm: the update tail in plain PyTorch, as
   JAX's arm runs it in XLA), after their outputs are compared on one seed
   (``max_abs_deviation``).  The keys are the JAX experiment's.
@@ -101,14 +101,14 @@ def _chain(model_fn, noise, args, alphas, draws, guidance):
 
 def exp_pallas(args, draws):
     from ..diffusion import sampling
-    from ..ops.cfg_update import cfg_engine_update_reference
+    from ..ops.cfg_update import cfg_engine_update_row_reference
 
     batch = args.batch or 256
     cfg, _, model_fn, alphas, noise = _flagship(args, draws, batch)
     kernel = _chain(model_fn, noise, args, alphas, draws, 7.5)
 
     def plain(seed):
-        with mock.patch.object(sampling, "cfg_engine_update", cfg_engine_update_reference):
+        with mock.patch.object(sampling, "cfg_engine_update_row", cfg_engine_update_row_reference):
             return kernel(seed)
 
     arms = {"jnp": plain, "pallas": kernel}
@@ -193,7 +193,9 @@ def exp_ablate(args, draws):
     sampler's loop shape, and per-step costs come out of differences."""
     import torch
 
-    from ..diffusion.sampling import engine_update
+    from ..diffusion.sampling import _engine_table
+    from ..ops.cfg_update import cfg_engine_update_row
+    from ..utils.graphs import host_to_device
     from ..utils.profiling import conv_flops
 
     batch = args.batch or 256
@@ -225,11 +227,14 @@ def exp_ablate(args, draws):
             return model(x, t, cond, cond_mask, layout=nearest)
 
     def tail_only(seed):
-        """The update tail alone: the step's draw and the kernel."""
+        """The update tail alone, as the chain runs it: the step's draw,
+        the scalar table once, and the kernel on its row a step."""
         x = noise
         step_noise = draws.step_noise(seed, args.timesteps, noise.shape)
-        for j, t in enumerate(range(args.timesteps - 1, 0, -1)):
-            x = engine_update(x, x * 1e-3, step_noise[j], alphas[t], alphas[t - 1])
+        table = host_to_device(_engine_table(args.timesteps, alphas), dev)
+        for j in range(args.timesteps - 1):
+            eps = x * 1e-3
+            x = cfg_engine_update_row(x, eps, eps, step_noise[j], table[j])
         return x
 
     timed = _time_arms({

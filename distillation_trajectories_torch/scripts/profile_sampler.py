@@ -4,11 +4,12 @@ port's counterpart of the repository's ``scripts/profile_sampler.py``).
     python -m distillation_trajectories_torch.scripts.profile_sampler [--logdir /tmp/dtt_profile]
 
 ``capture`` runs the sf-1.0 teacher's two-forward CFG chain (batch 256,
-32x32x3, T=50, guidance 3.0, bf16) once as a warm-up, then three chains
-(seeds 1-3) under ``torch.profiler``: device activity on the card, CPU
-operators on the CPU (``--device cpu``).  Every chain's update tail is the
-Triton kernel ``cfg_engine_update_kernel`` on the card (T-1 launches a
-chain).  The trace is written as ``sampler_trace.json`` under ``--logdir``.
+32x32x3, T=50, guidance 3.0, bf16), the makers' compiled chain, twice as a
+warm-up (on the card the first runs eagerly, the second captures the CUDA
+graph), then three chains (seeds 1-3, on the card three replays) under
+``torch.profiler``: device activity on the card, CPU operators on the CPU
+(``--device cpu``).  Every chain's update tail is the Triton kernel
+``cfg_engine_update_kernel`` on the card (T-1 launches a chain).  The trace is written as ``sampler_trace.json`` under ``--logdir``.
 ``summarize`` reads the newest trace there and prints one row per name
 (launches, total ms, share of the busy time), longest first, with the busy
 time and the idle share of the traced window.
@@ -43,9 +44,11 @@ def capture(logdir, batch=256, device="cuda", size_factor=1.0, image_size=32, ti
     from torch.profiler import ProfilerActivity, profile
 
     from ..config import Config, resolve_device
-    from ..diffusion import generate_trajectory_scan, get_diffusion_params
+    from ..diffusion import get_diffusion_params
+    from ..diffusion.sampling import CFG_COND_PAIRS, draw_step_noise, make_batch_chain_fn
     from ..models import make_unet
     from ..training import make_eval_model_fn
+    from ..utils.graphs import sampler_lane_captures
 
     dev = resolve_device(device)
     config = Config(timesteps=timesteps, sample_steps=timesteps, image_size=image_size,
@@ -58,12 +61,15 @@ def capture(logdir, batch=256, device="cuda", size_factor=1.0, image_size=32, ti
                             generator=gen, device=dev)
     noise = noise.to(dev)
 
+    chain = make_batch_chain_fn(model_fn, timesteps, alphas, captures=sampler_lane_captures)
+
     def run(seed):
-        return generate_trajectory_scan(
-            model_fn, noise, timesteps, alphas, seed, guidance_scale=GUIDANCE,
-            step_noise=None if step_noise is None else step_noise[seed])
+        draw = (draw_step_noise([seed], timesteps, noise.shape, dev)[:, 0]
+                if step_noise is None else step_noise[seed])
+        return chain(noise, None, CFG_COND_PAIRS, GUIDANCE, step_noise=draw).transpose(0, 1)
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    run(0)
     run(0)
     sync()
     activity = ProfilerActivity.CUDA if dev.type == "cuda" else ProfilerActivity.CPU

@@ -37,6 +37,7 @@ from ..diffusion.process import q_sample
 from ..diffusion.schedules import schedule_on
 from ..parallel.collectives import all_reduce_, mean_gradients
 from ..parallel.mesh import DATA_AXIS, axis_group, axis_size, shard_batch
+from ..utils.graphs import capture, on_side_stream
 
 
 @dataclasses.dataclass
@@ -386,31 +387,27 @@ class _CapturedStep:
     def eager(self, body, i: int) -> None:
         """Batch ``i`` eagerly, on a side stream (the warm-up CUDA graphs
         want before a capture)."""
-        device = self.dataset.device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+
+        def step():
             loss = body(self.state, self.dataset.index_select(0, self.idx[i]))
             if self.losses is None:
                 self.losses = loss.new_zeros((self.idx.shape[0], *loss.shape))
             self.losses[i].copy_(loss)
-        torch.cuda.current_stream(device).wait_stream(side)
+
+        on_side_stream(step, self.dataset.device)
         self.state.step += 1
         self.warm += 1
 
     def capture(self, body) -> None:
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        for gen in _draw_generators(self.state):
-            graph.register_generator_state(gen)
-        # thread_local: the checkpoint writer's threads may copy to the host
-        # while this thread captures.
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+
+        def step():
             at = self.i.view(1)
             loss = body(self.state, self.dataset.index_select(0, self.idx.index_select(0, at)[0]))
             self.losses.index_copy_(0, at, loss.unsqueeze(0))
             self.i.add_(1)
-        self.graph = graph
+
+        self.graph, _ = capture(step, generators=_draw_generators(self.state))
         self.capture_s = time.perf_counter() - t0
 
     def run(self, body, idx: torch.Tensor) -> torch.Tensor:

@@ -22,10 +22,12 @@ import time
 
 from ..config import resolve_device
 from ..data import get_data_loader
-from ..diffusion import get_diffusion_params, p_sample_loop, subsampled_timestep_indices
+from ..diffusion import get_diffusion_params, subsampled_timestep_indices
+from ..diffusion.sampling import make_loop_fn
 from ..parallel.distributed import barrier, is_main_process
 from ..parallel.mesh import mesh_from_config, shard_train_state
 from ..utils.profiling import MetricsLogger, phase_timer
+from ..utils.graphs import sampler_lane_captures
 from ..utils.viz import save_image_grid
 from .checkpoints import AsyncCheckpointWriter, save_epoch
 from .loop import run_train_epoch, upload_dataset
@@ -44,20 +46,25 @@ def make_grid_fn(model, config, diffusion_params, sample_steps=None):
     ``config.num_samples_to_generate``-image sample grid of ``model`` (or
     of ``params``, e.g. EMA weights) by ``p_sample_loop`` in
     ``config.sample_mode``.  ``grid_fn.shape`` and ``grid_fn.n_steps`` give
-    the draws it takes."""
+    the draws it takes.  The counterpart of JAX's jitted grid, which takes
+    the variables as arguments: on the card (a model not sharded over a
+    mesh) its loop is captured on the second call and replayed, with the
+    weights given (or the model's own, which training changes in place)
+    (:func:`..diffusion.sampling.make_loop_fn`)."""
     sample_steps = config.sample_steps if sample_steps is None else sample_steps
     shape = (config.num_samples_to_generate, config.image_size, config.image_size,
              config.channels)
+    loop = make_loop_fn(
+        lambda params: make_eval_model_fn(model, params), shape, sample_steps,
+        diffusion_params, num_timesteps=config.timesteps, mode=config.sample_mode,
+        captures=lambda device: sampler_lane_captures(device, model))
 
     def grid_fn(noise, step_noise, params=None):
-        return p_sample_loop(
-            make_eval_model_fn(model, params), shape, sample_steps, diffusion_params,
-            noise=noise, step_noise=step_noise, num_timesteps=config.timesteps,
-            mode=config.sample_mode,
-        )
+        return loop(noise, step_noise, params)
 
     grid_fn.shape = shape
     grid_fn.n_steps = len(subsampled_timestep_indices(sample_steps, config.timesteps))
+    grid_fn.loop = loop
     return grid_fn
 
 

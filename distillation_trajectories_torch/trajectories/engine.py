@@ -4,9 +4,12 @@
 A sweep runs one chain per (model, guidance scale) over all samples at once
 (samples ride the U-Net's batch axis), with the teacher chains generated once
 per (T, scale, draws) and shared by every student, and scores each pair
-batch with the metric suite on the device.  The JAX package's TPU host
-machinery (AOT compile pool, ``CompiledWithFallback``, the watchdog) has no
-counterpart: PyTorch runs eagerly.
+batch with the metric suite on the device.  The makers
+(:func:`make_sweep_trajectory_fn`, :func:`make_batch_trajectory_fn`,
+:func:`make_paired_trajectory_fn`) are the counterparts of JAX's jitted
+ones: on the card each captures its chain into a CUDA graph on its second
+call for a key and replays it.  The JAX package's TPU host machinery (AOT
+compile pool, ``CompiledWithFallback``, the watchdog) has no counterpart.
 
 The three random draws of a sweep — starting noises, per-step noise and the
 Wasserstein subsample keys — form one :class:`SweepDraws`, injectable as
@@ -34,14 +37,15 @@ from ..diffusion.sampling import (
     CFG_COND_PAIRS,
     NOCFG_COND_PAIRS,
     draw_step_noise,
-    generate_trajectory_batch_scan,
     generate_trajectory_scan,
+    make_batch_chain_fn,
     seeded_normal,
 )
 from ..diffusion.schedules import get_diffusion_params
 from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, batch_metrics_core
 from ..parallel.mesh import DATA_AXIS, axis_size, gather_batch, mesh_from_config, shard_batch
 from ..training.state import make_eval_fn_from_config
+from ..utils.graphs import sampler_lane_captures
 
 
 @dataclasses.dataclass
@@ -156,19 +160,26 @@ def make_batch_trajectory_fn(model, timesteps: int, config=None, use_cfg: bool =
     Samples ride the U-Net's batch axis.  ``use_cfg`` selects the two CFG
     forwards (cond 0 and cond 1, both with mask 1) combined at ``gs``, or
     one cond-0 mask-0 forward.  The default step noise draws sample ``i``
-    at step ``t`` from the generator of ``(seeds[i], t)``."""
+    at step ``t`` from the generator of ``(seeds[i], t)``.  The chain is
+    :func:`make_sweep_trajectory_fn`'s: captured on the card, one graph
+    for every ``gs``; ``fn._eager`` runs its eager body."""
     device = _entry_device(config, device)
     _check_model_device(model, device)
     sweep = make_sweep_trajectory_fn(model, timesteps, config)
     pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
 
-    def fn(noises, seeds, gs, step_noise=None):
-        noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
-        if step_noise is None:
-            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
-        return sweep(noises, seeds, pairs, float(gs) if use_cfg else 1.0,
-                     step_noise=step_noise)
+    def through(chain):
+        def fn(noises, seeds, gs, step_noise=None):
+            noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
+            if step_noise is None:
+                step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+            return chain(noises, seeds, pairs, float(gs) if use_cfg else 1.0,
+                         step_noise=step_noise)
+        return fn
 
+    fn = through(sweep)
+    fn._eager = through(sweep._eager)
+    fn.graphs = sweep.graphs
     return fn
 
 
@@ -179,36 +190,49 @@ def make_paired_trajectory_fn(teacher_model, student_model, timesteps: int, conf
 
     Both chains start from the same noises and take the same per-step
     noise (drawn once, by default paired in ``(seed, t)``), as the
-    reference reseeds both chains alike."""
+    reference reseeds both chains alike.  Each model's chain is captured on
+    the card (:func:`make_batch_trajectory_fn`); ``fn._eager`` runs both
+    eagerly."""
     teacher = make_batch_trajectory_fn(teacher_model, timesteps, config, use_cfg, device)
     student = make_batch_trajectory_fn(student_model, timesteps, config, use_cfg, device)
     device = _entry_device(config, device)
 
-    def fn(noises, seeds, gs, step_noise=None):
-        noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
-        if step_noise is None:
-            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
-        return (teacher(noises, seeds, gs, step_noise=step_noise),
-                student(noises, seeds, gs, step_noise=step_noise))
+    def through(t_chain, s_chain):
+        def fn(noises, seeds, gs, step_noise=None):
+            noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
+            if step_noise is None:
+                step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+            return (t_chain(noises, seeds, gs, step_noise=step_noise),
+                    s_chain(noises, seeds, gs, step_noise=step_noise))
+        return fn
 
+    fn = through(teacher, student)
+    fn._eager = through(teacher._eager, student._eager)
+    fn.graphs = (teacher.graphs, student.graphs)
     return fn
 
 
 def make_sweep_trajectory_fn(model, timesteps: int, config=None):
     """``fn(noises [S,H,W,C], seeds [S], cond_pairs [2,2], gs, step_noise=None)
     -> trajs [S, T+1, H, W, C]`` for one model; CFG or not is the runtime
-    ``cond_pairs`` input."""
+    ``cond_pairs`` input.
+
+    The counterpart of JAX's jitted sweep function: on the card (unless the
+    forward is spatially partitioned or the model sharded over a mesh,
+    ``utils/graphs.py::sampler_lane_captures``) each key — CFG on or off,
+    the noises' shape and dtype — runs eagerly on its first call, is
+    captured into a CUDA graph on its second and replayed from then on
+    (:func:`..diffusion.sampling.make_batch_chain_fn`), ``gs`` written
+    into the graph's scalar table, so one graph serves every guidance
+    scale.  A replay reads the model's weights where they are, so it sees
+    them changed in place.  Each call returns fresh storage.
+    ``fn._eager`` is the eager body."""
     alphas = get_diffusion_params(timesteps, config)["alphas"]
     model_fn = make_eval_fn_from_config(model, config)
-    store = _store_dtype(config)
-
-    def fn(noises, seeds, cond_pairs, gs, step_noise=None):
-        return generate_trajectory_batch_scan(
-            model_fn, noises, timesteps, alphas, seeds, cond_pairs, gs,
-            store_dtype=store, step_noise=step_noise,
-        )
-
-    return fn
+    return make_batch_chain_fn(
+        model_fn, timesteps, alphas, _store_dtype(config),
+        captures=lambda device: sampler_lane_captures(device, model, config),
+    )
 
 
 def _sweep_inputs(config, num_samples: int, base_seed: int, timesteps: int,

@@ -66,15 +66,20 @@ class TrajectoryManager:
         self.size_factor = size_factor
         self.fixed_samples = fixed_samples
         self.device = _entry_device(config, device)
+        self._pair_fn = None
         os.makedirs(config.trajectory_dir, exist_ok=True)
 
     # -- generation -----------------------------------------------------
 
     def _pairs(self, noises, seeds, step_noise=None):
-        fn = make_paired_trajectory_fn(
-            self.teacher_model, self.student_model, self.config.teacher_steps,
-            self.config, use_cfg=False, device=self.device)
-        return fn(noises, seeds, 1.0, step_noise=step_noise)
+        # One paired function a manager, as JAX jits its vmapped pair once
+        # (``manager.py:82``): on the card its chains are captured on the
+        # second call for a shape and replayed from then on.
+        if self._pair_fn is None:
+            self._pair_fn = make_paired_trajectory_fn(
+                self.teacher_model, self.student_model, self.config.teacher_steps,
+                self.config, use_cfg=False, device=self.device)
+        return self._pair_fn(noises, seeds, 1.0, step_noise=step_noise)
 
     def _shape(self) -> Tuple[int, int, int]:
         cfg = self.config

@@ -1,0 +1,174 @@
+"""CUDA graphs of the port's compiled lanes: the counterparts of the JAX
+package's ``jax.jit`` programs.
+
+Two lanes capture: the trainers' epoch step
+(``training/state.py::_CapturedStep``, JAX's ``lax.scan`` epoch) and the
+samplers' chains (:class:`CapturedCall`, behind the sampler makers, JAX's
+jitted ``lax.scan`` chains).  What they share is here: the eager warm-up
+on a side stream (a capture records what runs and runs nothing, so
+Triton's build, cuDNN's algorithm choices and cuBLAS's workspace must come
+before it), the capture itself, the memory pool the sampler graphs share,
+and a host-to-device copy that does not synchronize the host.
+
+The captured sampler lane is the rule on the card; these stay eager, each
+for its reason (:func:`sampler_lane_captures` decides):
+
+* the CPU, which has no graphs;
+* the spatial layout's forward (``Config.spatial_shape``), whose halo
+  all-gathers run inside the forward, and a model sharded over a mesh,
+  whose collectives do;
+* the window sampler (``diffusion/parallel_sampling.py``), which tests its
+  convergence on the host between sweeps;
+* one-off calls not made through a maker (``generate_trajectory``,
+  ``generate_trajectory_scan``, ``p_sample_loop``,
+  ``editing/core.py::denoise_with_trajectory``): a capture that is never
+  replayed costs an eager chain plus the graph's instantiation.
+"""
+
+from __future__ import annotations
+
+import time
+import weakref
+from typing import Callable, Dict, Hashable, Sequence
+
+import numpy as np
+import torch
+
+
+def host_to_device(a: np.ndarray, device) -> torch.Tensor:
+    """A small host array on ``device``.  On the card the copy goes through
+    pinned memory and is ordered on the current stream, so the host does
+    not wait for the device; elsewhere it is a plain copy."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def on_side_stream(fn: Callable, device):
+    """``fn()`` eagerly on a side stream that starts after the current
+    stream's work and that the current stream's later work waits for: the
+    warm-up PyTorch asks for before a capture."""
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        out = fn()
+    current.wait_stream(side)
+    return out
+
+
+def capture(fn: Callable, pool=None, generators: Sequence[torch.Generator] = ()):
+    """``(graph, fn()'s result)``: ``fn`` captured into a new CUDA graph, in
+    ``pool`` (a private pool when None), with each generator's state
+    registered so that its replays advance it.  ``thread_local``: other
+    threads (a checkpoint writer's) may copy to the host meanwhile."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = fn()
+    return graph, out
+
+
+# The sampler graphs' pool handle and the count of live graphs in it.
+_SAMPLER_POOL = {"handle": None, "graphs": 0}
+
+
+def sampler_pool():
+    """The one memory pool of the sampler graphs alive in the process.  A
+    graph's activations are dead between its replays, and the sampler
+    graphs replay one after another on one stream, so they may share
+    memory: a sweep that captures a graph per student size does not
+    multiply its pools.  Once every graph of a pool is gone, the next
+    capture takes a new handle: PyTorch's allocator refuses to capture
+    into a pool that no graph holds while a block of it (cuBLAS's
+    workspace, allocated during a capture) lives on."""
+    if _SAMPLER_POOL["handle"] is None:
+        _SAMPLER_POOL["handle"] = torch.cuda.graph_pool_handle()
+    return _SAMPLER_POOL["handle"]
+
+
+def _pool_graph_gone() -> None:
+    _SAMPLER_POOL["graphs"] -= 1
+    if _SAMPLER_POOL["graphs"] == 0:
+        _SAMPLER_POOL["handle"] = None
+
+
+def sampler_lane_captures(device, model=None, config=None) -> bool:
+    """Whether a sampler maker's chains are captured: on the card, unless
+    the forward runs collectives (the spatial layout, a model sharded over
+    a mesh).  Everything else stays eager by the rules above."""
+    if torch.device(device).type != "cuda":
+        return False
+    if config is not None and getattr(config, "spatial_shape", None):
+        return False
+    return model is None or getattr(model, "mesh", None) is None
+
+
+class _Graph:
+    """One captured call: static copies of its inputs, the graph, its
+    static output, and the launches of each counted wrapper a replay
+    makes."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], counted):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            self.inputs = [a.detach().clone() for a in inputs]
+        self.counted = counted
+        before = [c.launches for c in counted]
+        try:
+            self.graph, self.output = capture(lambda: fn(*self.inputs), pool=sampler_pool())
+        except BaseException:
+            if _SAMPLER_POOL["graphs"] == 0:  # no graph holds the pool
+                _SAMPLER_POOL["handle"] = None
+            raise
+        finally:
+            # The capture recorded these launches; the replays make them.
+            self.launches = [c.launches - b for c, b in zip(counted, before)]
+            for c, b in zip(counted, before):
+                c.launches = b
+        _SAMPLER_POOL["graphs"] += 1
+        weakref.finalize(self, _pool_graph_gone)
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
+        with torch.no_grad():
+            for static, a in zip(self.inputs, inputs):
+                static.copy_(a)
+        self.graph.replay()
+        for c, n in zip(self.counted, self.launches):
+            c.launches += n
+        return self.output.clone()
+
+
+class CapturedCall:
+    """``fn(*inputs) -> tensor`` as a CUDA graph, one per key.
+
+    The first call for a key (the caller's key and the inputs' shapes,
+    dtypes and devices) runs ``fn`` eagerly on a side stream, its warm-up;
+    the second captures ``fn`` on static copies of the inputs, in
+    :func:`sampler_pool`, and replays it; every later call copies its
+    inputs into the static copies and replays.  Whatever ``fn`` reads
+    besides its inputs (a model's weights) it reads where it was captured,
+    so such state must change in place.  Each result is a fresh copy of the
+    static output: no two calls share storage.  ``counted`` are kernel
+    wrappers with a ``launches`` count: the launches recorded while
+    capturing are taken back and added again at each replay, so the counts
+    stay the device's.  A capture or replay that fails raises."""
+
+    def __init__(self, counted=()):
+        self.counted = tuple(counted)
+        self.graphs: Dict[Hashable, _Graph] = {}
+        self._warm = set()
+
+    def __call__(self, key: Hashable, fn: Callable, *inputs: torch.Tensor) -> torch.Tensor:
+        key = (key, tuple((tuple(a.shape), a.dtype, a.device) for a in inputs))
+        entry = self.graphs.get(key)
+        if entry is None and key not in self._warm:
+            self._warm.add(key)
+            return on_side_stream(lambda: fn(*inputs), inputs[0].device)
+        if entry is None:
+            entry = self.graphs[key] = _Graph(fn, inputs, self.counted)
+        return entry(inputs)

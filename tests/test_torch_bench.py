@@ -108,8 +108,9 @@ def test_main_path_chain_matches_jax():
     """``bench_main_path`` in float32 on JAX's draws: its last timed chain
     (seed 1) is JAX's chain of the same weights, noise and seed."""
     args = bench.parse_args(TINY)
-    value, seconds, traj = bench.bench_main_path(args, JaxBenchDraws())
-    assert value > 0 and len(seconds) == 1 and traj.shape == (5, 2, 16, 16, 3)
+    value, seconds, traj, eager_seconds = bench.bench_main_path(args, JaxBenchDraws())
+    assert value > 0 and len(seconds) == len(eager_seconds) == 1
+    assert traj.shape == (5, 2, 16, 16, 3)
     jcfg = JaxConfig(image_size=16, timesteps=4, sample_steps=4, compute_dtype="float32")
     port = make_unet(Config(image_size=16, compute_dtype="float32", device="cpu"),
                      size_factor=0.1, seed=0)
@@ -145,7 +146,7 @@ def test_main_on_the_cpu_writes_the_record_and_the_ledger(port_bench, capsys, mo
     assert port_bench.main(TINY) == 0
     rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     for key in ("metric", "value", "unit", "vs_baseline", "preflight", "card", "seconds",
-                "pairs_per_s", "baseline_source"):
+                "eager_seconds", "pairs_per_s", "baseline_source"):
         assert key in rec, key
     assert rec["value"] > 0 and rec["vs_baseline"] > 0 and len(rec["seconds"]) == 1
     assert rec["preflight"]["status"] == "skipped" and rec["card"] is None

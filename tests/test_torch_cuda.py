@@ -4,8 +4,11 @@ the noise-prediction compute half, the sweep function's averaged chains,
 the editing chain, the progressive steps, the int8 lane's padded
 ``torch._int_mm`` product, its conv and forward, and the sliding-window
 sampler on the card against the CPU; the engine's kernel launches under
-either value of ``Config.pallas_cfg_update``; and a CFG chain sharded over two
-ranks that share the card against the unsharded chain there.
+either value of ``Config.pallas_cfg_update``; a CFG chain sharded over two
+ranks that share the card against the unsharded chain there; and the
+samplers' captured lane (a maker's CUDA graph against its eager body: one
+graph for three guidance scales, weights changed in place or given per
+call, 9 launches counted a T=10 replay).
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -573,3 +576,97 @@ def test_continue_training_resumes_adam_on_the_graph_lane(cuda, tmp_path):
     assert all(st["step"].device.type == "cuda" for st in state.optimizer.state.values())
     payload = load_checkpoint(cfg.teacher_models_dir, 2)
     assert int(payload["opt_state"]["0"]["count"]) == 6
+
+
+def _graph_lane_makers(cuda):
+    """An sf-0.1 teacher (16x16x1, T=10, float32) and its two captured
+    makers: the sweep chain and the sample grid (the loop lane)."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training.teacher import make_grid_fn
+    from distillation_trajectories_torch.trajectories import make_sweep_trajectory_fn
+
+    cfg = Config(device="cuda", image_size=16, channels=1, timesteps=10, sample_steps=10,
+                 compute_dtype="float32", num_samples_to_generate=4)
+    model = make_unet(cfg, size_factor=0.1, seed=5)
+    return model, make_sweep_trajectory_fn(model, 10, cfg), make_grid_fn(
+        model, cfg, get_diffusion_params(10, cfg))
+
+
+def _chain_inputs(cuda, seed, n=4, steps=9):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (torch.randn((n, 16, 16, 1), device=cuda, generator=gen),
+            torch.randn((steps, n, 16, 16, 1), device=cuda, generator=gen))
+
+
+def test_captured_chain_replays_the_eager_chain(cuda):
+    """The sweep maker's captured chain on the card (T=10, float32, TF32
+    off): the first call eager, the second captures; one CUDA graph then
+    serves guidance 2.0, 3.0 and 7.5, each replay equal to the eager body
+    bit for bit with 9 kernel launches counted and the plain version never
+    called; a weight changed in place is seen by the next replay; two
+    calls share no storage."""
+    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+    from distillation_trajectories_torch.ops import cfg_update
+
+    plain = []
+    saved = _no_tf32()
+    try:
+        model, sweep, _ = _graph_lane_makers(cuda)
+        noises, step_noise = _chain_inputs(cuda, 1)
+        seeds = list(range(4))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cfg_update, "cfg_engine_update_reference",
+                       lambda *args: plain.append(args))
+            first = sweep(noises, seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise)
+            assert not sweep.graphs.graphs  # the first call runs eagerly
+            for gs in (2.0, 3.0, 7.5):
+                before = cfg_update.cfg_engine_update.launches
+                got = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise)
+                made = cfg_update.cfg_engine_update.launches - before
+                want = sweep._eager(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise)
+                torch.cuda.synchronize()
+                assert made == 9 and torch.equal(got, want), gs
+            assert not plain
+        (graph,) = sweep.graphs.graphs.values()
+        assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9]
+        assert torch.equal(first, sweep._eager(noises, seeds, CFG_COND_PAIRS, 3.0,
+                                               step_noise=step_noise))
+        assert first.untyped_storage().data_ptr() != got.untyped_storage().data_ptr()
+        with torch.no_grad():
+            for p in model.parameters():
+                p.mul_(1.01)
+        got = sweep(noises, seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise)
+        want = sweep._eager(noises, seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise)
+        assert torch.equal(got, want) and not torch.equal(got, first)
+        assert len(sweep.graphs.graphs) == 1
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_captured_grid_sees_the_weights_it_is_given(cuda):
+    """The sample grid's captured loop (``p_sample_loop``, T=10, float32,
+    TF32 off): its replays equal the eager body on the model's own weights
+    and on a weight dict given per call (as EMA weights are), and a
+    replay after the given weights change equals the eager body with the
+    new ones."""
+    saved = _no_tf32()
+    try:
+        model, _, grid = _graph_lane_makers(cuda)
+        noise, step_noise = _chain_inputs(cuda, 2, n=4, steps=grid.n_steps)
+        ema = {k: p.detach() * 0.99 for k, p in model.named_parameters()}
+        for params in (None, ema):
+            for _ in range(3):  # eager, capture, replay
+                got = grid(noise, step_noise, params)
+            want = grid.loop._eager(noise, step_noise, params)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+        assert len(grid.loop.graphs.graphs) == 2
+        assert all(isinstance(g.graph, torch.cuda.CUDAGraph)
+                   for g in grid.loop.graphs.graphs.values())
+        ema = {k: v * 1.02 for k, v in ema.items()}
+        got = grid(noise, step_noise, ema)
+        assert torch.equal(got, grid.loop._eager(noise, step_noise, ema))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

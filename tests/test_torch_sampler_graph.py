@@ -1,0 +1,238 @@
+"""The samplers' compiled chain on the CPU: the update kernel's row entry,
+the chains' scalar tables, and each maker JAX puts under ``jax.jit``
+against that jitted maker (float32, 16x16x1, sf 1.0 teacher and sf 0.1
+student, T=6, JAX's draws injected; rtol 2e-5 / atol 1e-5, the tree's
+sampler tolerance, ``tests/test_ops.py:60``) under either value of
+``Config.pallas_cfg_update``.  On the CPU the makers run their eager body
+(there are no graphs); ``tests/test_torch_cuda.py`` holds the captured
+lane to it on the card."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from distillation_trajectories_tpu.diffusion import get_diffusion_params as jax_params
+from distillation_trajectories_tpu.metrics.fid import make_sample_fn as jax_make_sample_fn
+from distillation_trajectories_tpu.models import make_unet as jax_make_unet
+from distillation_trajectories_tpu.training.teacher import make_grid_fn as jax_make_grid_fn
+from distillation_trajectories_tpu.trajectories import TrajectoryManager as JaxManager
+from distillation_trajectories_tpu.trajectories import (
+    make_batch_trajectory_fn as jax_make_batch_trajectory_fn,
+)
+from distillation_trajectories_tpu.trajectories import (
+    make_paired_trajectory_fn as jax_make_paired_trajectory_fn,
+)
+from distillation_trajectories_tpu.trajectories import (
+    make_sweep_trajectory_fn as jax_make_sweep_trajectory_fn,
+)
+from distillation_trajectories_torch.diffusion import get_diffusion_params, sampling
+from distillation_trajectories_torch.diffusion.schedules import extract
+from distillation_trajectories_torch.metrics.fid import make_sample_fn
+from distillation_trajectories_torch.models import make_unet
+from distillation_trajectories_torch.ops.cfg_update import (
+    cfg_engine_update,
+    cfg_engine_update_row,
+    cfg_engine_update_row_reference,
+)
+from distillation_trajectories_torch.training.teacher import make_grid_fn
+from distillation_trajectories_torch.trajectories import (
+    TrajectoryManager,
+    make_batch_trajectory_fn,
+    make_paired_trajectory_fn,
+    make_sweep_trajectory_fn,
+)
+from torch_parity import configs, jax_noises, jax_step_noise, jax_variables, sample_draws
+
+torch.set_num_threads(2)
+
+T = 6
+SHAPE = (16, 16, 1)
+TRAJ_TOL = dict(rtol=2e-5, atol=1e-5)
+FLAGS = pytest.mark.parametrize("flag", [False, True], ids=["unfused", "fused"])
+
+
+def _bits(a):
+    return np.asarray(a, dtype=np.float32).view(np.uint32)
+
+
+@pytest.mark.parametrize("timesteps", [2, 10, 50, 100])
+@pytest.mark.parametrize("g", [1.0, 3.0, 7.5])
+def test_engine_table_rows_are_the_engine_scalars(timesteps, g):
+    """Row ``j`` of a chain's table: step ``t = T-1-j``'s c1, c2, σ from
+    ``_engine_scalars`` and g, bit for bit."""
+    alphas = get_diffusion_params(timesteps)["alphas"]
+    table = sampling._engine_table(timesteps, alphas, g)
+    assert table.dtype == np.float32 and table.shape == (timesteps - 1, 4)
+    for j, t in enumerate(range(timesteps - 1, 0, -1)):
+        want = (*sampling._engine_scalars(alphas[t], alphas[t - 1]), np.float32(g))
+        np.testing.assert_array_equal(_bits(table[j]), _bits(want))
+
+
+@pytest.mark.parametrize("sample_steps, num_timesteps", [(10, 10), (100, 10), (7, 3)])
+def test_loop_table_rows_are_the_extracted_coefficients(sample_steps, num_timesteps):
+    """The loop's table holds what ``extract`` gathers a step, bit for bit."""
+    dp = get_diffusion_params(sample_steps)
+    indices = sampling.subsampled_timestep_indices(sample_steps, num_timesteps)
+    table = sampling._loop_table(dp, indices)
+    for j, t_index in enumerate(indices):
+        t = torch.full((2,), int(t_index), dtype=torch.int32)
+        want = [float(extract(dp[k], t, (2, 1))[0, 0]) for k in sampling._LOOP_COLUMNS]
+        np.testing.assert_array_equal(_bits(table[j, :4]), _bits(want))
+    np.testing.assert_array_equal(table[:, 4], 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g", [1.0, 3.0, 7.5])
+def test_row_entry_equals_the_float_call_bit_for_bit(dtype, g):
+    """The plain version fed a table row (the chains' form) equals the
+    float call, bit for bit, at every step of a T=10 table."""
+    rng = np.random.default_rng(int(g * 10))
+    ops = [torch.from_numpy(rng.standard_normal((2, 5, 3, 1)).astype(np.float32)).to(dtype)
+           for _ in range(4)]
+    alphas = get_diffusion_params(10)["alphas"]
+    table = torch.from_numpy(sampling._engine_table(10, alphas, g))
+    for j, t in enumerate(range(9, 0, -1)):
+        scalars = (*sampling._engine_scalars(alphas[t], alphas[t - 1]), g)
+        want = cfg_engine_update(*ops, *scalars)
+        assert torch.equal(cfg_engine_update_row(*ops, table[j]), want)
+        assert torch.equal(cfg_engine_update_row_reference(*ops, table[j]), want)
+    assert cfg_engine_update.launches == 0
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Teacher sf 1.0 and student sf 0.1: port weights, carried into JAX."""
+    _, tcfg = configs(timesteps=T, sample_steps=T)
+    out = {}
+    for name, sf, seed in (("teacher", 1.0, 0), ("student", 0.1, 1)):
+        port = make_unet(tcfg, size_factor=sf, seed=seed, device="cpu")
+        out[name] = (sf, port, jax_variables(port))
+    return out
+
+
+def _pair(models, flag):
+    jcfg, tcfg = configs(timesteps=T, sample_steps=T, pallas_cfg_update=flag)
+    jax_models = {k: (jax_make_unet(jcfg, size_factor=sf), v)
+                  for k, (sf, _, v) in models.items()}
+    return jcfg, tcfg, jax_models
+
+
+def _draws(seeds):
+    return jax_noises(seeds, SHAPE), torch.from_numpy(jax_step_noise(seeds, T, SHAPE))
+
+
+@FLAGS
+def test_sweep_and_batch_makers_match_jax(models, flag):
+    """``make_sweep_trajectory_fn`` (CFG at 3.0 and at 5.0 through one
+    maker, then no-CFG) and ``make_batch_trajectory_fn`` against JAX's
+    jitted makers."""
+    jcfg, tcfg, jm = _pair(models, flag)
+    seeds = np.array([3, 11])
+    noises, step_noise = _draws(seeds)
+    jax_sweep = jax_make_sweep_trajectory_fn(*jm["teacher"], T, jcfg)
+    sweep = make_sweep_trajectory_fn(models["teacher"][1], T, tcfg)
+    for pairs, gs in ((sampling.CFG_COND_PAIRS, 3.0), (sampling.CFG_COND_PAIRS, 5.0),
+                      (sampling.NOCFG_COND_PAIRS, 1.0)):
+        want = jax_sweep(noises, seeds, pairs, np.float32(gs))
+        got = sweep(torch.from_numpy(noises), seeds, pairs, gs, step_noise=step_noise)
+        assert got.shape == (2, T + 1, *SHAPE)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+
+    want = jax_make_batch_trajectory_fn(*jm["student"], T, jcfg, use_cfg=True)(
+        noises, seeds, np.float32(7.5))
+    got = make_batch_trajectory_fn(models["student"][1], T, tcfg, use_cfg=True)(
+        noises, seeds, 7.5, step_noise=step_noise)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+
+
+@FLAGS
+def test_paired_maker_and_manager_match_jax(models, flag, tmp_path):
+    """``make_paired_trajectory_fn`` (two calls of one maker) and the
+    manager's paired chains (no CFG, its one paired function serving two
+    seeds) against JAX's jitted ones."""
+    jcfg, tcfg, jm = _pair(models, flag)
+    fn = jax_make_paired_trajectory_fn(*jm["teacher"], *jm["student"], T, jcfg, use_cfg=True)
+    port = make_paired_trajectory_fn(models["teacher"][1], models["student"][1], T, tcfg,
+                                     use_cfg=True)
+    for seeds, gs in (([3, 11], 3.0), ([5, 6], 2.0)):
+        noises, step_noise = _draws(seeds)
+        want = fn(noises, np.array(seeds), np.float32(gs))
+        got = port(noises, seeds, gs, step_noise=step_noise)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TRAJ_TOL)
+
+    jcfg.teacher_steps = tcfg.teacher_steps = T
+    jcfg.base_dir, tcfg.base_dir = str(tmp_path / "jax"), str(tmp_path / "port")
+    (jt, tv), (js, sv) = jm["teacher"], jm["student"]
+    jax_manager = JaxManager(jt, js, jcfg, size_factor=0.1, teacher_variables=tv,
+                             student_variables=sv)
+    manager = TrajectoryManager(models["teacher"][1], models["student"][1], tcfg,
+                                size_factor=0.1, device="cpu")
+    for seed in (2, 9):
+        noise, step_noise = _draws([seed])
+        got = manager.generate_trajectory(seed, noise=torch.from_numpy(noise[0]),
+                                          step_noise=step_noise[:, 0])
+        for g, w in zip(got, jax_manager.generate_trajectory(seed)):
+            np.testing.assert_allclose(g, w, **TRAJ_TOL)
+
+
+@FLAGS
+def test_loop_makers_match_jax(models, flag):
+    """The FID sampler and the sample grid (``p_sample_loop`` under JAX's
+    ``jax.jit``, weights as arguments) against JAX's: the maker's own
+    model, then another model's weights through the same maker."""
+    jcfg, tcfg, jm = _pair(models, flag)
+    teacher, student = models["teacher"][1], models["student"][1]
+    other = make_unet(tcfg, size_factor=1.0, seed=7, device="cpu")
+    n = 2
+    n_steps = len(sampling.subsampled_timestep_indices(tcfg.sample_steps, tcfg.timesteps))
+    jax_sample = jax_make_sample_fn(jm["teacher"][0], jcfg, n)
+    sample = make_sample_fn(teacher, tcfg, n)
+    tcfg.num_samples_to_generate = jcfg.num_samples_to_generate = n
+    grid = make_grid_fn(student, tcfg, get_diffusion_params(T, tcfg))
+    jax_grid = jax_make_grid_fn(jm["student"][0], jcfg, jax_params(T, jcfg))
+    student_b = make_unet(tcfg, size_factor=0.1, seed=8, device="cpu")
+    for key, params, model in ((0, None, teacher), (1, other, other)):
+        k = jax.random.PRNGKey(key)
+        want = jax_sample(jax_variables(model), k)
+        by_name = None if params is None else {**dict(params.named_parameters()),
+                                               **dict(params.named_buffers())}
+        got = sample(sample_draws(k, (n, *SHAPE), n_steps), by_name)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+    for key, model in ((2, student), (3, student_b)):
+        k = jax.random.PRNGKey(key)
+        # The grid's params are parameters only: the buffers stay the
+        # maker's model's, on both sides.
+        want = jax_grid(jax_variables(model)["params"], jax_variables(student)["batch_stats"], k)
+        params = None if model is student else dict(model.named_parameters())
+        noise, step_noise = sample_draws(k, (n, *SHAPE), n_steps)
+        got = grid(noise, step_noise, params)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+
+
+def test_successive_calls_share_no_storage(models):
+    """Two calls of each maker return tensors that share no storage, and
+    the first result is unchanged after the second."""
+    _, tcfg = configs(timesteps=T, sample_steps=T)
+    tcfg.num_samples_to_generate = 2
+    teacher, student = models["teacher"][1], models["student"][1]
+    sweep = make_sweep_trajectory_fn(student, T, tcfg)
+    paired = make_paired_trajectory_fn(teacher, student, T, tcfg, use_cfg=True)
+    sample = make_sample_fn(student, tcfg, 2)
+    grid = make_grid_fn(student, tcfg, get_diffusion_params(T, tcfg))
+    n_steps = len(sampling.subsampled_timestep_indices(T, T))
+    calls = {
+        "sweep": lambda s: sweep(torch.from_numpy(_draws(s)[0]), s, sampling.CFG_COND_PAIRS,
+                                 3.0, step_noise=_draws(s)[1]),
+        "paired": lambda s: paired(_draws(s)[0], s, 3.0, step_noise=_draws(s)[1])[0],
+        "sample": lambda s: sample(sample_draws(jax.random.PRNGKey(s[0]), (2, *SHAPE),
+                                                n_steps)),
+        "grid": lambda s: grid(*sample_draws(jax.random.PRNGKey(s[0]), (2, *SHAPE), n_steps)),
+    }
+    for name, call in calls.items():
+        first = call([1, 2])
+        kept = first.clone()
+        second = call([3, 4])
+        assert first.untyped_storage().data_ptr() != second.untyped_storage().data_ptr(), name
+        assert torch.equal(first, kept) and not torch.equal(first, second), name

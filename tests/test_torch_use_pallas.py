@@ -1,7 +1,8 @@
 """``Config.pallas_cfg_update`` in the port: JAX's flag picks its fused
 Pallas kernel or the unfused combine then ``engine_update``; the port's one
 tail, the fused ``ops.cfg_update.cfg_engine_update``, computes both.  A spy
-on ``diffusion.sampling.cfg_engine_update`` shows every engine entry JAX
+on ``diffusion.sampling.cfg_engine_update_row`` (the row form the chains
+call) shows every engine entry JAX
 passes the flag from handing it both CFG predictions and the guidance,
 T−1 calls a chain, under either value; and the engine's chain under either
 value is JAX's under that value (float32, sf 0.1, 16x16x1, T=10, JAX's
@@ -37,16 +38,16 @@ KW = dict(image_size=16, channels=1, timesteps=T, sample_steps=T, compute_dtype=
 
 
 class _Spy:
-    """Records ``(uncond is cond, g)`` of every ``cfg_engine_update`` call
-    and forwards it."""
+    """Records ``(uncond is cond, g)`` of every ``cfg_engine_update_row``
+    call (the chains' entry, ``g`` in the row's column 3) and forwards it."""
 
     def __init__(self, monkeypatch):
-        self.calls, self._fn = [], sampling.cfg_engine_update
-        monkeypatch.setattr(sampling, "cfg_engine_update", self)
+        self.calls, self._fn = [], sampling.cfg_engine_update_row
+        monkeypatch.setattr(sampling, "cfg_engine_update_row", self)
 
-    def __call__(self, x, uncond, cond, noise, c1, c2, sigma, g):
-        self.calls.append((uncond is cond, float(g)))
-        return self._fn(x, uncond, cond, noise, c1, c2, sigma, g)
+    def __call__(self, x, uncond, cond, noise, row):
+        self.calls.append((uncond is cond, float(row[3])))
+        return self._fn(x, uncond, cond, noise, row)
 
     def take(self):
         calls, self.calls = self.calls, []
