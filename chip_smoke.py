@@ -127,7 +127,12 @@ on first use.  Phases, each printing its own lines:
    decoded with ``zlib``; (e) ``show_real_samples.run`` on the synthetic
    stand-in;
 12. the bench entry points, each through its module's ``run`` at its
-   defaults (full width: sf 1.0, 32x32x3, bf16), the kernel's launches
+   defaults (full width: sf 1.0, 32x32x3, bf16; ``--iters 2`` for
+   ``bench_r2``, ``bench_quant``, ``bench_progressive`` and
+   ``bench_fast``), every arm timed on
+   its captured chain (the replays of a CUDA graph, its first call eager
+   and its second the capture) and its eager body on the same seeds, both
+   printed, the kernel's launches
    checked against the count each bench's arguments give and its JSON
    record printed with the card's name and power limit: (a) ``bench`` (the
    main path's traj/s over 5 timed replays of the captured chain, the eager
@@ -139,7 +144,8 @@ on first use.  Phases, each printing its own lines:
    (the kernel against the plain tail in turns, batch 256, T=50, bf16,
    each arm's seconds printed and the chains' deviation held under
    ``PALLAS_CHAIN_ATOL``), ``ablate`` (batch 256) and
-   ``paradigms`` (B=1, windows {4, 8, 16} x tol {1e-3, 3e-3, 1e-2});
+   ``paradigms`` (B=1, windows {4, 8, 16} x tol {1e-3, 3e-3, 1e-2}; the
+   window sampler eager, against the eager sequential chain);
    (c) ``bench_quant --use_checkpoint`` on phase 5's teacher (the five
    arms, the int8 census); (d) ``bench_progressive --measure_only`` on
    phase 8(c)'s plain steps_25 and guided steps_50 students against phase
@@ -169,12 +175,19 @@ on first use.  Phases, each printing its own lines:
    counted, a replay after the weights change in place equal to the eager
    chain with them, 49 launches of the kernel in a traced replay's device
    events and no host-to-device copy, the plain version never called, and
-   the int8 lane's chain (batch 8, T=10) replayed equal to its eager body; (b)
+   the int8 lane's chain (batch 8, T=10) replayed equal to its eager body,
+   and each bench's chain maker at full width (batch 256, T=50, bf16):
+   ``bench_r2``'s ``pallas`` kernel arm (gs 7.5) and ``bench_fast``'s
+   teacher arm (gs 3.0), the same chain on one graph, ``bench_quant``'s
+   ``int8_static_mixed`` arm (gs 3.0) and ``bench_progressive``'s guided
+   student at w 2.0 and 5.0 on one graph (its ``w`` a tensor set in
+   place), each replay equal to the eager body bit for bit with 49
+   launches counted and the plain version never called; (b)
    three chains in both lanes in turns (eager, graph, graph, eager, 2
    calls a turn): the main path's, the CFG-sweep CLI's teacher chain
    (phase 5's teacher, batch 10, T=100, gs 3.0) and a batch-1 T=100 paired
    call (phase 5's teacher and sf-0.5 student, no CFG): median seconds,
-   device busy ms and idle share over 4 profiled chains, capture seconds,
+   device busy ms and idle share over 2 profiled chains, capture seconds,
    the shared pool's bytes and peak reserved memory.
 
 The kernel record counts the launches of phases 4, 6(b), 7(b), 8(b), 9(d),
@@ -2700,6 +2713,12 @@ def _bench_run(label, module, flags, expected, card):
     return record, launches
 
 
+def _tps(batch, seconds):
+    """traj/s of calls of ``batch`` trajectories: batch x calls over their
+    summed seconds (the benches' method)."""
+    return batch * len(seconds) / sum(seconds)
+
+
 def _finite(label, *values):
     if not all(v is not None and np.isfinite(v) for v in values):
         raise RuntimeError(f"{label}: a value is not finite: {values}")
@@ -2754,8 +2773,9 @@ class _PreDrawn:
         return self.steps[seed]
 
 
-def _bench_method_split(card, turns=2):
-    """``bench_main_path`` at its defaults, in turns with its step noise
+def _bench_method_split(card, turns=2, iters=2):
+    """``bench_main_path`` at its defaults but ``iters`` timed chains, in
+    turns with its step noise
     drawn inside each timed call (as ``bench`` and the JAX bench draw it)
     and before it: the traj/s of each from the mean call (``bench``'s
     method) and from the best call (phase 4's); returns the launches."""
@@ -2763,7 +2783,7 @@ def _bench_method_split(card, turns=2):
     from distillation_trajectories_torch.scripts import bench
     from distillation_trajectories_torch.scripts._common import BenchDraws
 
-    args = bench.parse_args([])
+    args = bench.parse_args(["--iters", str(iters)])
     shape = (args.batch, args.image_size, args.image_size, 3)
     draws = BenchDraws("cuda")
     before = cfg_engine_update.launches
@@ -2800,6 +2820,9 @@ def _bench_method_split(card, turns=2):
 # The limit is ten times the 9.465e-4 this comparison read on an H100
 # (700 W) before it was held.
 PALLAS_CHAIN_ATOL = 1e-2
+# Timed calls an arm, in each lane, for the four benches of 12(b)-(e)
+# (their defaults are 5 and 3): every arm is timed captured and eager.
+BENCH_ITERS = 2
 
 
 def phase_bench_r2(card, workdir):
@@ -2807,32 +2830,44 @@ def phase_bench_r2(card, workdir):
     the full 3x3 grid of windows and tolerances)."""
     from distillation_trajectories_torch.scripts import bench_r2
 
-    flags = ["--exp", "pallas,ablate,paradigms", "--base_dir", workdir]
+    flags = ["--exp", "pallas,ablate,paradigms", "--iters", str(BENCH_ITERS), "--base_dir",
+             workdir]
+    # Each arm: two warm-ups (eager, then the capture) and the timed calls,
+    # in both lanes; pallas's kernel arm and the sequential chain one call
+    # more (the deviation, the window's reference); the plain tail and the
+    # window sampler launch no kernel.
     out, launches = _bench_run(
         "bench_r2", bench_r2, flags,
-        lambda a: (2 + a.iters + 2 * (1 + a.iters) + 2 + a.iters) * (a.timesteps - 1), card)
+        lambda a: (2 * (5 + 2 * a.iters) + 4 * (2 + a.iters)) * (a.timesteps - 1), card)
     pallas, ablate, par = out["pallas"], out["ablate"], out["paradigms"]
     _finite("bench_r2", pallas["max_abs_deviation"], pallas["speedup"], ablate["mfu_vs_bf16_peak"],
             *(r["max_abs_dev_vs_exact"] for r in par["rows"]))
     if len(par["rows"]) != 9 or not 0 < ablate["mfu_vs_bf16_peak"] < 1:
         raise RuntimeError(f"bench_r2: {len(par['rows'])} window rows, "
                            f"MFU {ablate['mfu_vs_bf16_peak']}")
+    eager = {k: statistics.median(v) for k, v in pallas["eager_seconds"].items()}
     print(f"bench_r2 pallas (batch 256, gs 7.5, T=50, bf16), the plain tail: "
-          f"{pallas['jnp_seconds']} s a chain = {pallas['traj_per_s_jnp']} traj/s "
-          f"(calls {[round(x, 4) for x in pallas['jnp_call_seconds']]}) [{card}]")
+          f"{pallas['jnp_seconds']} s a captured chain = {pallas['traj_per_s_jnp']} traj/s "
+          f"(calls {[round(x, 4) for x in pallas['jnp_call_seconds']]}); eager {eager['jnp']:.4f} "
+          f"s [{card}]")
     print(f"bench_r2 pallas (batch 256, gs 7.5, T=50, bf16), the Triton kernel: "
-          f"{pallas['pallas_seconds']} s a chain = {pallas['traj_per_s_pallas']} traj/s "
+          f"{pallas['pallas_seconds']} s a captured chain = {pallas['traj_per_s_pallas']} traj/s "
           f"(calls {[round(x, 4) for x in pallas['pallas_call_seconds']]}); x{pallas['speedup']} "
           f"the plain tail, max abs deviation {pallas['max_abs_deviation']:.3e} (limit "
-          f"{PALLAS_CHAIN_ATOL:g}) [{card}]")
+          f"{PALLAS_CHAIN_ATOL:g}); eager {eager['pallas']:.4f} s, "
+          f"x{eager['jnp'] / eager['pallas']:.4f} the eager plain tail [{card}]")
     if not pallas["max_abs_deviation"] <= PALLAS_CHAIN_ATOL:
         raise RuntimeError("bench_r2 pallas: the kernel's chain left the plain tail's by "
                            f"{pallas['max_abs_deviation']:.3e}")
-    print(f"bench_r2 ablate (batch 256, gs 3.0): {ablate['ms_per_step_full']} ms a step, two "
-          f"forwards {ablate['two_fwd_share']}, upsample {ablate['upsample_cost_share']}, tail "
-          f"{ablate['update_tail_share']} of the chain; {ablate['per_step_flops']} conv FLOPs a "
-          f"step, MFU {ablate['mfu_vs_bf16_peak']} of 989 TFLOP/s [{card}]")
-    print(f"bench_r2 paradigms (B=1, gs 7.5): sequential {par['sequential_seconds']} s; " + "; ".join(
+    print(f"bench_r2 ablate (batch 256, gs 3.0, captured): {ablate['ms_per_step_full']} ms a "
+          f"step, two forwards {ablate['two_fwd_share']}, upsample "
+          f"{ablate['upsample_cost_share']}, tail {ablate['update_tail_share']} of the chain; "
+          f"{ablate['per_step_flops']} conv FLOPs a step, MFU {ablate['mfu_vs_bf16_peak']} of 989 "
+          f"TFLOP/s; eager medians (s) " + ", ".join(
+              f"{k} {statistics.median(v):.4f}" for k, v in ablate["eager_seconds"].items())
+          + f" [{card}]")
+    print(f"bench_r2 paradigms (B=1, gs 7.5): sequential {par['sequential_seconds']} s captured, "
+          f"{par['sequential_eager_seconds']} s eager (the windows' x against it); " + "; ".join(
         f"W={r['window']} tol={r['tol']:g}: {r['sweeps_at_seed3']} sweeps, {r['seconds']} s, "
         f"x{r['speedup_vs_scan']}, gap {r['max_abs_dev_vs_exact']:.2e}" for r in par["rows"])
         + f" [{card}]")
@@ -2843,9 +2878,12 @@ def phase_bench_quant(card, workdir):
     """12(c): ``bench_quant --use_checkpoint`` on phase 5's teacher."""
     from distillation_trajectories_torch.scripts import bench_quant
 
+    # Each arm: two warm-ups and the timed calls in both lanes; the
+    # calibration chain once.
     rec, launches = _bench_run(
-        "bench_quant", bench_quant, ["--use_checkpoint", "--base_dir", workdir],
-        lambda a: (len(a.arm_list) * (1 + a.iters) + 1) * (a.timesteps - 1), card)
+        "bench_quant", bench_quant,
+        ["--use_checkpoint", "--iters", str(BENCH_ITERS), "--base_dir", workdir],
+        lambda a: (len(a.arm_list) * (2 + 2 * a.iters) + 1) * (a.timesteps - 1), card)
     arms = rec["arms"]
     if rec["weights"] != "teacher-checkpoint" or set(arms) != set(bench_quant.ALL_ARMS):
         raise RuntimeError(f"bench_quant: weights {rec['weights']!r}, arms {sorted(arms)}")
@@ -2855,17 +2893,20 @@ def phase_bench_quant(card, workdir):
         raise RuntimeError(f"bench_quant: int8 census {[arms[a].get('census') for a in arms]}")
     _finite("bench_quant", *(a["traj_per_s"] for a in arms.values()),
             *(a["endpoint_rel_l2"] for k, a in arms.items() if k != "float"))
-    print("bench_quant arms (phase 5's teacher, 256 x 32x32x3, T=50, gs 3.0): " + "; ".join(
-        f"{k} {a['traj_per_s']} traj/s" + (f" x{a['speedup_vs_float']}, endpoint rel L2 "
-                                           f"{a['endpoint_rel_l2']:.5f}" if k != "float" else "")
-        for k, a in arms.items()) + f"; best {rec['int8_mode']} [{card}]")
+    print("bench_quant arms (phase 5's teacher, 256 x 32x32x3, T=50, gs 3.0, captured): "
+          + "; ".join(f"{k} {a['traj_per_s']} traj/s" + (
+              f" x{a['speedup_vs_float']}, endpoint rel L2 {a['endpoint_rel_l2']:.5f}"
+              if k != "float" else "") + f" (eager {_tps(SAMPLES, a['eager_seconds']):.2f})"
+              for k, a in arms.items()) + f"; best {rec['int8_mode']} [{card}]")
     return launches
 
 
 def _progressive_launches(a):
+    """Each chain: two warm-ups and the timed calls in both lanes; then the
+    quality chains, the w-sweep's and FID's."""
     t, s = a.timesteps - 1, (a.timesteps >> a.rounds) - 1
     sweep = len(a.w_sweep.split(",")) if a.guidance_range and a.w_sweep else 0
-    return (a.iters + 1) * (t + s) + (1 + sweep + (a.fid_samples > 0)) * (t + s)
+    return (2 + 2 * a.iters) * (t + s) + (1 + sweep + (a.fid_samples > 0)) * (t + s)
 
 
 def phase_bench_progressive(card, workdir):
@@ -2881,25 +2922,30 @@ def phase_bench_progressive(card, workdir):
                                       "--w_sweep", "1.0,3.0,5.0"]),
     ):
         rec, n = _bench_run(label, bench_progressive,
-                            flags + ["--measure_only", "--base_dir", workdir],
+                            flags + ["--measure_only", "--iters", str(BENCH_ITERS),
+                                     "--base_dir", workdir],
                             _progressive_launches, card)
         launches += n
         tp, q = rec["throughput"], rec["quality"]
         _finite(label, *(v["traj_per_s"] for v in tp.values()), q["endpoint_mse"],
                 *(v["endpoint_mse"] for v in q.get("w_sweep", {}).values()))
         t, s = str(rec["teacher_steps"]), str(rec["final_steps"])
+        eager = {k: SAMPLES / statistics.median(tp[k]["eager_seconds"]) for k in (t, s)}
         print(f"{label}: teacher T={t} {tp[t]['traj_per_s']} traj/s, student T={s} "
-              f"{tp[s]['traj_per_s']} traj/s (x{tp[s]['traj_per_s'] / tp[t]['traj_per_s']:.2f}); "
-              f"endpoint MSE {q['endpoint_mse']:.4g} [{card}]")
+              f"{tp[s]['traj_per_s']} traj/s (x{tp[s]['traj_per_s'] / tp[t]['traj_per_s']:.2f}), "
+              f"captured; eager {eager[t]:.1f} and {eager[s]:.1f} traj/s "
+              f"(x{eager[s] / eager[t]:.2f}); endpoint MSE {q['endpoint_mse']:.4g} [{card}]")
     return launches
 
 
 def _fast_launches(a):
+    """The teacher and each arm: two warm-ups, the timed calls in both lanes
+    and the quality chain; the calibration chain; the w-sweep's and FID's."""
     t, s = a.teacher_steps - 1, a.student_steps - 1
     arms = a.arms.split(",")
     sweep = len(a.w_sweep.split(",")) if a.w_sweep else 0
-    return ((a.iters + 2) * t + any(x.startswith("int8_static") for x in arms) * s
-            + len(arms) * (a.iters + 2) * s + (sweep + (a.fid_samples > 0)) * (t + s))
+    return ((3 + 2 * a.iters) * t + any(x.startswith("int8_static") for x in arms) * s
+            + len(arms) * (3 + 2 * a.iters) * s + (sweep + (a.fid_samples > 0)) * (t + s))
 
 
 def phase_bench_fast(card, workdir):
@@ -2910,18 +2956,19 @@ def phase_bench_fast(card, workdir):
     rec, launches = _bench_run(
         "bench_fast", bench_fast,
         ["--teacher_steps", str(TRAIN_T), "--student_steps", str(TRAIN_T // 2),
-         "--fid_samples", "64", "--base_dir", workdir], _fast_launches, card)
+         "--fid_samples", "64", "--iters", str(BENCH_ITERS), "--base_dir", workdir],
+        _fast_launches, card)
     arms = rec["arms"]
     if len(arms) != 5 or rec["fid_features"] != "seeded-random":
         raise RuntimeError(f"bench_fast: arms {sorted(arms)}, features {rec['fid_features']}")
     _finite("bench_fast", *(a["traj_per_s"] for a in arms.values()), rec["fid_teacher_vs_best"],
             *(a["endpoint_mse_vs_teacher"] for k, a in arms.items() if k.startswith("student")),
             *(v["endpoint_mse"] for v in rec["w_sweep_best_arm"].values()))
-    print("bench_fast (phase 5's teacher T=100 CFG vs the guided student T=50): " + "; ".join(
-        f"{k} {a['traj_per_s']} traj/s" + (f" x{a['speedup_vs_teacher']}, endpoint MSE "
-                                           f"{a['endpoint_mse_vs_teacher']:.4g}"
-                                           if k.startswith("student") else "")
-        for k, a in arms.items()) + f"; best {rec['best_arm']}, FID {rec['fid_teacher_vs_best']:.4g} "
+    print("bench_fast (phase 5's teacher T=100 CFG vs the guided student T=50, captured): "
+          + "; ".join(f"{k} {a['traj_per_s']} traj/s" + (
+              f" x{a['speedup_vs_teacher']}, endpoint MSE {a['endpoint_mse_vs_teacher']:.4g}"
+              if k.startswith("student") else "") + f" (eager {_tps(SAMPLES, a['eager_seconds']):.2f})"
+              for k, a in arms.items()) + f"; best {rec['best_arm']}, FID {rec['fid_teacher_vs_best']:.4g} "
         f"(self floor {rec.get('fid_teacher_self_floor', float('nan')):.4g}) [{card}]")
     return launches
 
@@ -3278,7 +3325,7 @@ def phase_epoch_lanes(card, workdir):
 GRAPH_GS = (2.0, 3.0, 7.5)  # 14(a): one graph serves each
 GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # 14(b)
 GRAPH_CALLS_A_TURN = 2
-GRAPH_PROFILED = 4  # chains under the profiler, a lane
+GRAPH_PROFILED = 2  # chains under the profiler, a lane
 
 
 def _hold_sampler_graph(card):
@@ -3373,8 +3420,96 @@ def _hold_sampler_graph(card):
           f"{len(qchain.graphs.graphs)} graph, replay vs eager max abs gap {gap:.3e} [{card}]")
     if len(qchain.graphs.graphs) != 1 or not torch.equal(got, want):
         raise RuntimeError("the int8 lane's replay is not its eager chain")
+    _hold_bench_makers(card)
     return {"main path (sf 1.0, batch 256, T=50, gs 3.0, CFG)": (
         chain, lambda: call(chain, 3.0), lambda: call(chain._eager, 3.0))}
+
+
+def _bench_maker_runs():
+    """The four benches' chains as each bench builds them, at full width
+    (a random sf-1.0 U-Net, batch 256, 32x32x3, T=50, bf16): ``{label:
+    (maker, [(value, {"graph": call, "eager": call}), ...])}``, the graph
+    call through the maker and the eager call through its eager body."""
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.models.quantized import calibrate_activation_scales
+    from distillation_trajectories_torch.scripts import bench_quant, bench_r2
+    from distillation_trajectories_torch.scripts._common import (
+        BenchDraws,
+        chain_fn,
+        mixed_blocks,
+    )
+    from distillation_trajectories_torch.training.progressive import make_guided_eval_fn
+
+    draws = BenchDraws("cuda")
+    args = bench_r2.parse_args(["--timesteps", str(MAIN_T)])
+    cfg, model, model_fn, _, noise = bench_r2._flagship(args, draws, SAMPLES)
+
+    def one(run, gs):
+        return [(gs, {"graph": lambda: run(noise, 5, gs), "eager": lambda: run.eager(noise, 5, gs)})]
+
+    # bench_r2's kernel arm and bench_fast's teacher arm build the same
+    # chain (the sf-1.0 forward, CFG): one maker serves both scales.
+    kernel = chain_fn(cfg, draws, MAIN_T, model_fn)
+    runs = {"bench_r2 pallas kernel arm (gs 7.5) and bench_fast teacher arm (gs 3.0)": (
+        kernel.maker, one(kernel, 7.5) + one(kernel, 3.0))}
+    # bench_quant's mixed arm, its static scales from 5 states of a float
+    # chain of 32 samples (the bench calibrates on 5 states of a float chain).
+    states = kernel.eager(noise[:32], 99, 3.0)
+    idxs = [0, MAIN_T // 4, MAIN_T // 2, 3 * MAIN_T // 4, MAIN_T - 1]
+    ones = torch.ones((len(idxs), 32, 1), device="cuda")
+    scales = calibrate_activation_scales(
+        model, states[idxs], torch.tensor([[float(MAIN_T - 1 - i)] * 32 for i in idxs],
+                                          device="cuda"), ones, ones)
+    quant = chain_fn(cfg, draws, MAIN_T, bench_quant._arm_fn(
+        "int8_static_mixed", model, scales, mixed_blocks(cfg.image_size)))
+    runs["bench_quant int8_static_mixed arm (gs 3.0)"] = (quant.maker, one(quant, 3.0))
+
+    w = torch.zeros((), device="cuda")
+    student = chain_fn(cfg, draws, MAIN_T,
+                       make_guided_eval_fn(make_unet(cfg, size_factor=1.0, seed=1), w))
+
+    def guided(wv, run):
+        w.fill_(wv)
+        return run(noise, 5)
+
+    runs["bench_progressive guided student (w 2.0, 5.0)"] = (student.maker, [
+        (wv, {"graph": lambda wv=wv: guided(wv, student),
+              "eager": lambda wv=wv: guided(wv, student.eager)}) for wv in (2.0, 5.0)])
+    return runs
+
+
+def _hold_bench_makers(card):
+    """14(a): each bench's chain maker at full width: its first call eager,
+    its second the capture, then at each value a replay equal to the eager
+    body bit for bit with T-1 launches counted, one graph for all values,
+    the plain version never called."""
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+
+    for label, (maker, calls) in _bench_maker_runs().items():
+        t0 = time.perf_counter()
+        with _PlainCalls() as plain_calls:
+            for _ in range(2):  # the eager warm-up, then the capture
+                calls[0][1]["graph"]()
+            gaps = []
+            for value, lanes in calls:
+                before = cfg_engine_update.launches
+                got = lanes["graph"]()
+                made = cfg_engine_update.launches - before
+                want = lanes["eager"]()
+                torch.cuda.synchronize()
+                gaps.append(float((got.float() - want.float()).abs().max()))
+                if not torch.equal(got, want) or made != MAIN_T - 1:
+                    raise RuntimeError(f"14(a) {label}: the replay at {value} is not the eager "
+                                       f"chain (max abs gap {gaps[-1]:.3e}), or it counted {made} "
+                                       f"launches")
+        graphs = list(maker.graphs.graphs.values())
+        print(f"14(a) {label}: {len(graphs)} graph (capture {graphs[0].capture_s:.3f} s, "
+              f"{graphs[0].launches[0]} launches a replay), replay vs eager max abs gap "
+              f"{max(gaps):.3e} at {[v for v, _ in calls]}, the plain version called "
+              f"{plain_calls.count} times; {time.perf_counter() - t0:.1f} s [{card}]")
+        if len(graphs) != 1 or plain_calls.count:
+            raise RuntimeError(f"14(a) {label}: {len(graphs)} graphs, the plain version called "
+                               f"{plain_calls.count} times")
 
 
 def _graph_lane_chains(workdir):

@@ -16,8 +16,9 @@ scalars in row ``j`` of a ``[T-1, 4]`` table that goes to the device once
 a chain.  JAX compiles each chain into one program under ``jax.jit``; the
 port's counterparts are :func:`make_batch_chain_fn` and
 :func:`make_loop_fn`, which the makers (trajectory engine, manager, grid,
-FID) return: on the card each captures its chain into a CUDA graph on its
-second call for a key and replays it from then on
+FID) return, and :func:`make_chain_fn`, the benches' single-seed chain:
+on the card each captures its chain into a CUDA graph on its second call
+for a key and replays it from then on
 (``utils/graphs.py``, which also lists what stays eager).  JAX's
 ``use_pallas`` picks between its fused kernel and the unfused combine then
 ``engine_update``; the fused function computes the unfused tail (bit-equal
@@ -341,6 +342,24 @@ def _step_noise_for(step_noise, timesteps, x):
     return step_noise.to(device=x.device, dtype=x.dtype).contiguous()
 
 
+def _scan_guidance(guidance_scale, use_cfg):
+    """``(use_cfg, g)`` of a single-seed chain: CFG iff ``guidance_scale >
+    1.0`` unless ``use_cfg`` says otherwise (JAX decides it so for a Python
+    scale and runs CFG for a traced one, whatever its value), and ``g`` 1.0
+    without it."""
+    if use_cfg is None:
+        use_cfg = guidance_scale is not None and float(guidance_scale) > 1.0
+    return bool(use_cfg), 1.0 if guidance_scale is None or not use_cfg else float(guidance_scale)
+
+
+def _scan_states(model_fn, noise, table, cond_pairs, step_noise, store_dtype):
+    """``[T+1, B, H, W, C]`` states of the chain from ``noise``."""
+    states = torch.empty((table.shape[0] + 2, *noise.shape), dtype=store_dtype or noise.dtype,
+                         device=noise.device)
+    _engine_chain(model_fn, noise, table, cond_pairs, step_noise, states)
+    return states
+
+
 def generate_trajectory_scan(
     model_fn: ModelFn,
     noise: torch.Tensor,
@@ -355,25 +374,18 @@ def generate_trajectory_scan(
     """One engine trajectory of a ``[B, H, W, C]`` batch: ``[T+1, B, H, W, C]``.
 
     CFG (two forwards, cond 0 and cond 1, both with mask 1) is on iff
-    ``guidance_scale > 1.0``; otherwise one cond-0 mask-0 forward.  The
-    default step noise is one ``[B, H, W, C]`` draw per step from the
-    generator of ``(seed, t)``.  ``store_dtype`` casts only the stored
-    states; the carry and the update math stay float32.
+    ``guidance_scale > 1.0``, or as ``use_cfg`` says; otherwise one cond-0
+    mask-0 forward.  The default step noise is one ``[B, H, W, C]`` draw per
+    step from the generator of ``(seed, t)``.  ``store_dtype`` casts only
+    the stored states; the carry and the update math stay float32.
     """
-    if use_cfg is None:
-        use_cfg = guidance_scale is not None and float(guidance_scale) > 1.0
-    g = 1.0 if guidance_scale is None or not use_cfg else float(guidance_scale)
+    use_cfg, g = _scan_guidance(guidance_scale, use_cfg)
     if step_noise is None:
         step_noise = draw_step_noise([seed], timesteps, noise.shape, noise.device)[:, 0]
     step_noise = _step_noise_for(step_noise, timesteps, noise)
-    states = torch.empty(
-        (timesteps + 1, *noise.shape), dtype=store_dtype or noise.dtype,
-        device=noise.device,
-    )
-    pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
     table = host_to_device(_engine_table(timesteps, alphas, g), noise.device)
-    _engine_chain(model_fn, noise, table, pairs, step_noise, states)
-    return states
+    return _scan_states(model_fn, noise, table, CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS,
+                        step_noise, store_dtype)
 
 
 def generate_trajectory_batch_scan(
@@ -400,6 +412,17 @@ def generate_trajectory_batch_scan(
     table = host_to_device(_engine_table(timesteps, alphas, float(guidance_scale)),
                            noises.device)
     return _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype)
+
+
+def _table_with_scale(tables, host_table, device, g):
+    """A fresh copy of ``host_table`` on ``device`` (sent there once, into
+    ``tables``) with ``g`` in column 3: a graph input, written before each
+    replay."""
+    if device not in tables:
+        tables[device] = host_to_device(host_table, device)
+    table = tables[device].clone()
+    table[:, 3].fill_(g)
+    return table
 
 
 def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
@@ -433,13 +456,56 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
         if step_noise is None:
             step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
         step_noise = _step_noise_for(step_noise, timesteps, noises)
-        if device not in tables:
-            tables[device] = host_to_device(host_table, device)
-        table = tables[device].clone()
-        table[:, 3].fill_(float(gs))
+        table = _table_with_scale(tables, host_table, device, float(gs))
         pairs = np.asarray(cond_pairs, dtype=np.float32)
         body = lambda x, n, tab: _batch_states(model_fn, x, tab, pairs, n, store_dtype)
         return graphs(pairs.tobytes(), body, noises, step_noise, table)
+
+    fn._eager = eager
+    fn.graphs = graphs
+    return fn
+
+
+def make_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
+                  captures: Callable[[torch.device], bool]):
+    """The benches' compiled chain (their ``jax.jit`` of
+    :func:`generate_trajectory_scan` over one model): ``fn(noise, seed,
+    guidance_scale=None, use_cfg=None, step_noise=None) -> [T+1, B, H, W,
+    C]``, the arguments read as :func:`generate_trajectory_scan` reads
+    them.
+
+    Where ``captures(device)`` holds, each key (CFG on or off, and the
+    inputs' shapes and dtypes) runs eagerly on its first call, is captured
+    into a CUDA graph on its second and replayed from then on
+    (:class:`..utils.graphs.CapturedCall`): the noise, the step noise and
+    the scalar table are the graph's inputs, and the guidance scale is
+    written into the table's column 3 before each replay, so one graph
+    serves every scale.  The step noise is drawn outside the graph from
+    ``(seed, t)``, as the eager chain draws it, unless ``step_noise`` is
+    given.  What the forward reads besides its inputs it reads where it
+    was captured: a model input that varies per call (the guided
+    student's ``w``, :func:`..training.progressive.make_guided_eval_fn`)
+    is a tensor changed in place.  ``fn._eager`` is the eager body."""
+    host_table = _engine_table(timesteps, alphas)
+    tables: Dict[torch.device, torch.Tensor] = {}
+    graphs = CapturedCall(counted=(cfg_engine_update,))
+
+    def eager(noise, seed, guidance_scale=None, use_cfg=None, step_noise=None):
+        return generate_trajectory_scan(model_fn, noise, timesteps, alphas, seed, guidance_scale,
+                                        use_cfg, store_dtype, step_noise)
+
+    def fn(noise, seed, guidance_scale=None, use_cfg=None, step_noise=None):
+        device = noise.device
+        if not captures(device):
+            return eager(noise, seed, guidance_scale, use_cfg, step_noise)
+        use_cfg, g = _scan_guidance(guidance_scale, use_cfg)
+        if step_noise is None:
+            step_noise = draw_step_noise([seed], timesteps, noise.shape, device)[:, 0]
+        step_noise = _step_noise_for(step_noise, timesteps, noise)
+        table = _table_with_scale(tables, host_table, device, g)
+        pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
+        body = lambda x, n, tab: _scan_states(model_fn, x, tab, pairs, n, store_dtype)
+        return graphs(use_cfg, body, noise, step_noise, table)
 
     fn._eager = eager
     fn.graphs = graphs

@@ -7,8 +7,9 @@ ranks, for example::
     torchrun --nproc_per_node=2 -m distillation_trajectories_torch.scripts.train_teacher \
         --device cpu --mesh 2,1 --checkpoint_sharded
 
-The benches (``bench*.py``) share the device preflight, their draws, a
-timer of calls and the Block sizes of the int8 lane's mixed set.
+The benches (``bench*.py``) share the device preflight, their draws, their
+chains' maker, a timer of calls and the Block sizes of the int8 lane's
+mixed set.
 """
 
 from __future__ import annotations
@@ -305,6 +306,30 @@ class BenchDraws:
 
         gen = torch.Generator(device=self.device).manual_seed(int(key))
         return torch.rand((pairs, n, d), generator=gen, device=self.device)
+
+
+def chain_fn(config, draws, steps, fn):
+    """``run(noise, seed, guidance_scale=None, use_cfg=None) -> [steps+1,
+    ...]``: the engine chain of the model forward ``fn`` at ``steps``
+    through its maker (on the card captured on its second call for a key
+    and replayed), with the step noise of ``draws``; ``run.eager`` is the
+    maker's eager body and ``run.maker`` the maker."""
+    from ..diffusion import get_diffusion_params
+    from ..diffusion.sampling import make_chain_fn
+    from ..utils.graphs import sampler_lane_captures
+
+    chain = make_chain_fn(fn, steps, get_diffusion_params(steps, config)["alphas"],
+                          captures=sampler_lane_captures)
+
+    def call(maker):
+        def run(noise, seed, guidance_scale=None, use_cfg=None):
+            return maker(noise, seed, guidance_scale, use_cfg,
+                         step_noise=draws.step_noise(seed, steps, tuple(noise.shape)))
+        return run
+
+    run = call(chain)
+    run.eager, run.maker = call(chain._eager), chain
+    return run
 
 
 def synchronize(device) -> None:

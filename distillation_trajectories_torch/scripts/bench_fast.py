@@ -12,9 +12,14 @@ at ``--student_steps``, one forward a step, in ``bf16`` (the model's
 compute dtype) / ``int8`` / ``int8_static`` / ``int8_static_mixed``
 (``make_guided_eval_fn(quant="int8")``; the static scales calibrated on
 5 states of a student chain at every w of ``--w_sweep`` and
-``--guidance``).  Method: per arm one warm-up chain, then ``--iters``
-timed chains with fresh seeds, each ended by ``torch.cuda.synchronize()``
-(every call's seconds kept).  Quality, so that no speed-up is quoted
+``--guidance``).  Method: each chain is timed as the JAX bench times its
+jitted one: on the card a CUDA graph (``diffusion/sampling.py::make_chain_fn``,
+one maker an arm).  Per arm two warm-up chains (the first runs eagerly,
+the second captures), then ``--iters`` timed chains with fresh seeds, each
+ended by ``torch.cuda.synchronize()`` (every call's seconds kept), then
+the eager body on the same seeds (``eager_seconds``).  The w-sweep's
+student is one maker whose ``w`` is a tensor set in place before each
+chain.  Quality, so that no speed-up is quoted
 without its fidelity: each arm's ``endpoint_mse_vs_teacher`` from the same
 noise and seed as a teacher chain; for the fastest arm, the endpoint MSE
 against the teacher's CFG chain at each w of ``--w_sweep``, and FID
@@ -38,6 +43,7 @@ import numpy as np
 from ._common import (
     BenchDraws,
     add_bench_flags,
+    chain_fn,
     load_model,
     mixed_blocks,
     parse_float_list,
@@ -47,7 +53,7 @@ from ._common import (
     timed_calls,
     write_json,
 )
-from .bench_progressive import add_shape_flags, bench_config, chain_fn, fid_columns
+from .bench_progressive import add_shape_flags, bench_config, fid_columns
 
 ARMS = ("bf16", "int8", "int8_static", "int8_static_mixed")
 
@@ -94,24 +100,26 @@ def run(args, draws=None) -> dict:
     w = args.guidance
     hw, dev = config.image_size, config.device
     blocks = mixed_blocks(hw)
-    t_run = chain_fn(config, draws, args.teacher_steps)
-    s_run = chain_fn(config, draws, args.student_steps)
     noise = draws.noise(1, (args.batch, hw, hw, config.channels))
-    teacher_fn = make_eval_model_fn(teacher)
+    t_run = chain_fn(config, draws, args.teacher_steps, make_eval_model_fn(teacher))
 
-    def bench(run, fn, label, guidance_scale=None):
+    def bench(run, label, guidance_scale=None):
         t0 = time.perf_counter()
-        run(fn, noise, 0, guidance_scale)  # warm-up
+        for _ in range(2):  # the eager warm-up, then the capture
+            run(noise, 0, guidance_scale)
         synchronize(dev)
         setup_s = time.perf_counter() - t0
-        seconds = timed_calls(lambda seed: run(fn, noise, seed, guidance_scale),
-                              range(1, args.iters + 1), dev)
+        seeds = range(1, args.iters + 1)
+        seconds = timed_calls(lambda seed: run(noise, seed, guidance_scale), seeds, dev)
+        eager_seconds = timed_calls(lambda seed: run.eager(noise, seed, guidance_scale), seeds,
+                                    dev)
         tps = args.batch * args.iters / sum(seconds)
-        print(f"# {label}: {tps:.1f} traj/s (first call {setup_s:.1f}s)", file=sys.stderr)
-        return tps, setup_s, seconds
+        print(f"# {label}: {tps:.1f} traj/s (first two calls {setup_s:.1f}s; eager "
+              f"{args.batch * args.iters / sum(eager_seconds):.1f} traj/s)", file=sys.stderr)
+        return tps, setup_s, seconds, eager_seconds
 
-    t_tps, t_setup, t_seconds = bench(t_run, teacher_fn, f"teacher CFG T{args.teacher_steps}", w)
-    t_ref_end = t_run(teacher_fn, noise, 99, w)[-1].float()  # the quality reference's seed
+    t_tps, t_setup, t_seconds, t_eager = bench(t_run, f"teacher CFG T{args.teacher_steps}", w)
+    t_ref_end = t_run(noise, 99, w)[-1].float()  # the quality reference's seed
 
     scales = None
 
@@ -123,7 +131,9 @@ def run(args, draws=None) -> dict:
         return make_guided_eval_fn(student, wv, **kw)
 
     results = {"teacher_cfg_bf16": {"steps": args.teacher_steps, "traj_per_s": round(t_tps, 2),
-                                    "setup_s": round(t_setup, 1), "seconds": t_seconds}}
+                                    "setup_s": round(t_setup, 1), "seconds": t_seconds,
+                                    "eager_seconds": t_eager}}
+    runs = {}
     cal_ws = sorted({w, *(parse_float_list(args.w_sweep) if args.w_sweep else [])})
     arms = [a for a in ARMS if a in args.arms.split(",")]
     for arm in arms:
@@ -132,7 +142,9 @@ def run(args, draws=None) -> dict:
             # record later evaluates: the static scales must cover the
             # highest-w activations, not only those at --guidance.
             cb = min(32, args.batch)
-            chain = s_run(guided_fn("bf16", w), noise, 0)[:, :cb]
+            cal_run = runs.get("bf16") or chain_fn(config, draws, args.student_steps,
+                                                   guided_fn("bf16", w))
+            chain = cal_run(noise, 0)[:, :cb]
             ss = args.student_steps
             idxs = sorted({0, ss // 4, ss // 2, (3 * ss) // 4, ss - 1})
             rows = [(i, wv) for i in idxs for wv in cal_ws]
@@ -144,9 +156,9 @@ def run(args, draws=None) -> dict:
             del chain
             print(f"# calibrated static scales on {len(idxs)} chain states x {len(cal_ws)} w "
                   f"values", file=sys.stderr)
-        fn = guided_fn(arm, w)
-        tps, setup_s, seconds = bench(s_run, fn, f"student {arm} T{args.student_steps}")
-        end = s_run(fn, noise, 99)[-1].float()
+        run = runs[arm] = chain_fn(config, draws, args.student_steps, guided_fn(arm, w))
+        tps, setup_s, seconds, eager_seconds = bench(run, f"student {arm} T{args.student_steps}")
+        end = run(noise, 99)[-1].float()
         results[f"student_{arm}"] = {
             "steps": args.student_steps,
             "traj_per_s": round(tps, 2),
@@ -154,6 +166,7 @@ def run(args, draws=None) -> dict:
             "endpoint_mse_vs_teacher": float(((end - t_ref_end) ** 2).mean()),
             "setup_s": round(setup_s, 1),
             "seconds": seconds,
+            "eager_seconds": eager_seconds,
         }
 
     student_arms = {k: v for k, v in results.items() if k.startswith("student_")}
@@ -176,11 +189,16 @@ def run(args, draws=None) -> dict:
     }
 
     if args.w_sweep:
-        sweep = {}
+        # The best arm's student through one maker, its w a tensor set in
+        # place before each chain; the teacher as the JAX sweep calls it,
+        # at a Python w (CFG above 1.0).
+        sweep, wv_t = {}, torch.zeros((), device=dev)
+        s_sweep = chain_fn(config, draws, args.student_steps, guided_fn(best_name, wv_t))
         q_noise = draws.noise(7, (min(32, args.batch), hw, hw, config.channels))
         for wv in parse_float_list(args.w_sweep):
-            te = t_run(teacher_fn, q_noise, 11, wv)[-1].float().cpu().numpy()
-            se = s_run(guided_fn(best_name, wv), q_noise, 11)[-1].float().cpu().numpy()
+            wv_t.fill_(wv)
+            te = t_run(q_noise, 11, wv)[-1].float().cpu().numpy()
+            se = s_sweep(q_noise, 11)[-1].float().cpu().numpy()
             sweep[str(wv)] = {"endpoint_mse": float(np.mean((te - se) ** 2)),
                               "teacher_std": float(te.std()), "student_std": float(se.std())}
             print(f"# w={wv}: endpoint MSE {sweep[str(wv)]['endpoint_mse']:.2e}", file=sys.stderr)
@@ -188,8 +206,8 @@ def run(args, draws=None) -> dict:
 
     if args.fid_samples > 0:
         fid_shape = (args.fid_samples, hw, hw, config.channels)
-        t_set = t_run(teacher_fn, draws.noise(101, fid_shape), 21, w)[-1]
-        s_set = s_run(guided_fn(best_name, w), draws.noise(202, fid_shape), 22)[-1]
+        t_set = t_run(draws.noise(101, fid_shape), 21, w)[-1]
+        s_set = runs[best_name](draws.noise(202, fid_shape), 22)[-1]
         fid = fid_columns(config, t_set, s_set)
         record["fid_features"] = fid["fid_features"]
         record["fid_teacher_vs_best"] = fid["fid_teacher_vs_student"]

@@ -11,13 +11,21 @@ Trains ``--rounds`` halvings from the checkpointed teacher with
 ``progressive[_cfg]/steps_{T/2^rounds}``), then measures:
 
 * traj/s at the teacher's T and the student's: the median of ``--iters``
-  timed chains after one warm-up, each with fresh noise and seed and ended
-  by ``torch.cuda.synchronize()`` (every call's seconds kept).  With
-  ``--guidance_range`` the teacher runs its two-forward CFG chain at
-  ``--guidance`` and the w-conditioned student one guided forward a step;
+  timed chains after two warm-ups, each with fresh noise and seed and
+  ended by ``torch.cuda.synchronize()`` (every call's seconds kept).  Each
+  chain is timed as the JAX bench times its jitted one: on the card a CUDA
+  graph (``diffusion/sampling.py::make_chain_fn``, one maker a model and
+  T, kept across the calls) whose first call runs eagerly and whose second
+  captures; the eager body on the same noise and seeds is timed after
+  (``eager_seconds``).  With ``--guidance_range`` the teacher runs its
+  two-forward CFG chain at ``--guidance`` and the w-conditioned student
+  one guided forward a step;
 * quality from the same noise: the endpoint MSE of teacher and student
   chains with their means and spreads, per w of ``--w_sweep`` in guided
-  mode, and the two sample grids (``utils/viz.py::save_image_grid``) under
+  mode (one teacher graph and one student graph serve every w, the
+  student's w a tensor changed in place: JAX traces w into its two
+  chains, so its teacher runs CFG at every w, 1.0 included), and the two
+  sample grids (``utils/viz.py::save_image_grid``) under
   ``<results_dir>/progressive_torch/``;
 * with ``--fid_samples N``: FID between N teacher and N student samples
   (fresh noise each) and the teacher's self floor, stamped with the
@@ -39,6 +47,7 @@ import time
 from ._common import (
     BenchDraws,
     add_bench_flags,
+    chain_fn,
     load_model,
     parse_float_list,
     preflight_probe,
@@ -68,36 +77,24 @@ def bench_config(args):
     return Config(**kw)
 
 
-def chain_fn(config, draws, steps):
-    """``(fn, noise, seed, guidance_scale) -> [steps+1, ...]``: the engine
-    chain at ``steps`` with the step noise of ``draws``."""
-    from ..diffusion import generate_trajectory_scan, get_diffusion_params
-
-    alphas = get_diffusion_params(steps, config)["alphas"]
-
-    def run(fn, noise, seed, guidance_scale=None):
-        return generate_trajectory_scan(
-            fn, noise, steps, alphas, seed, guidance_scale=guidance_scale,
-            step_noise=draws.step_noise(seed, steps, tuple(noise.shape)))
-
-    return run
-
-
-def measure_traj_per_s(fn, steps, config, draws, batch, iters=3, guidance_scale=None):
-    """``(traj/s, median seconds, every timed call's seconds)`` of
-    ``iters`` chains after one warm-up, each from fresh noise (drawn
-    outside the timing) and a fresh seed."""
-    run = chain_fn(config, draws, steps)
+def measure_traj_per_s(run, config, draws, batch, iters=3, guidance_scale=None):
+    """``(traj/s, median seconds, every timed call's seconds, the eager
+    body's)`` of ``iters`` chains of ``run`` (a :func:`chain_fn`) after two
+    warm-ups (the first runs eagerly, the second captures), each from
+    fresh noise (drawn outside the timing) and a fresh seed; then the
+    eager body on the same noise and seeds."""
     shape = (batch, config.image_size, config.image_size, config.channels)
-    seconds = []
-    for i in range(iters + 1):
-        noise = draws.noise(1000 + i, shape)
-        dt = timed_calls(lambda seed: run(fn, noise, seed, guidance_scale), [1234 + i],
-                         config.device)[0]
-        if i > 0:  # the first call pays the warm-up
-            seconds.append(dt)
+    calls = [(draws.noise(1000 + i, shape), 1234 + i) for i in range(iters + 2)]
+
+    def timed(fn, todo):
+        return [timed_calls(lambda seed: fn(noise, seed, guidance_scale), [seed],
+                            config.device)[0] for noise, seed in todo]
+
+    timed(run, calls[:2])  # the warm-ups
+    seconds = timed(run, calls[2:])
+    eager_seconds = timed(run.eager, calls[2:])
     dt = statistics.median(seconds)
-    return batch / dt, dt, seconds
+    return batch / dt, dt, seconds, eager_seconds
 
 
 def fid_columns(config, teacher_set, student_set):
@@ -147,6 +144,8 @@ def parse_args(argv=None):
 
 def run(args, draws=None) -> dict:
     """Train (or load) the students, then measure: the record."""
+    import torch
+
     from ..training.progressive import make_guided_eval_fn, progressive_distill
     from ..training.state import make_eval_model_fn
     from ..utils.viz import save_image_grid
@@ -196,33 +195,39 @@ def run(args, draws=None) -> dict:
         "throughput": {},
         "quality": {},
     }
-    for label, steps, fn, g in ((f"teacher/T{args.timesteps}", args.timesteps, teacher_fn, teacher_g),
-                                (f"student/T{fast_steps}", fast_steps, student_fn, None)):
-        tps, dt, seconds = measure_traj_per_s(fn, steps, config, draws, args.batch,
-                                              iters=args.iters, guidance_scale=g)
+    t_run = chain_fn(config, draws, args.timesteps, teacher_fn)
+    s_run = chain_fn(config, draws, fast_steps, student_fn)
+    for label, steps, run, g in ((f"teacher/T{args.timesteps}", args.timesteps, t_run, teacher_g),
+                                 (f"student/T{fast_steps}", fast_steps, s_run, None)):
+        tps, dt, seconds, eager_seconds = measure_traj_per_s(
+            run, config, draws, args.batch, iters=args.iters, guidance_scale=g)
         result["throughput"][str(steps)] = {"traj_per_s": round(tps, 1),
                                             "batch_seconds": round(dt, 4),
-                                            "call_seconds": seconds}
-        print(f"[progressive] {label}: {tps:.1f} traj/s")
+                                            "call_seconds": seconds,
+                                            "eager_seconds": eager_seconds}
+        print(f"[progressive] {label}: {tps:.1f} traj/s (eager "
+              f"{args.batch / statistics.median(eager_seconds):.1f})")
 
     # Quality: the same starting noise through the teacher's T-step chain
     # and the student's.
-    t_run = chain_fn(config, draws, args.timesteps)
-    s_run = chain_fn(config, draws, fast_steps)
     shape = (args.quality_samples, config.image_size, config.image_size, config.channels)
     noise = draws.noise(7, shape)
-    t_final = t_run(teacher_fn, noise, 11, teacher_g)[-1].float().cpu().numpy()
-    s_final = s_run(student_fn, noise, 11)[-1].float().cpu().numpy()
+    t_final = t_run(noise, 11, teacher_g)[-1].float().cpu().numpy()
+    s_final = s_run(noise, 11)[-1].float().cpu().numpy()
     result["quality"] = {
         "endpoint_mse": float(((t_final - s_final) ** 2).mean()),
         "teacher_mean": float(t_final.mean()), "teacher_std": float(t_final.std()),
         "student_mean": float(s_final.mean()), "student_std": float(s_final.std()),
     }
     if grange and args.w_sweep:
-        sweep = {}
+        # JAX jits each chain once with w traced: the teacher's CFG chain
+        # (CFG at every w) and the student's, its w a tensor set in place.
+        sweep, wv_t = {}, torch.zeros((), device=config.device)
+        s_sweep = chain_fn(config, draws, fast_steps, make_guided_eval_fn(student, wv_t))
         for wv in parse_float_list(args.w_sweep):
-            te = t_run(teacher_fn, noise, 11, wv)[-1].float().cpu().numpy()
-            se = s_run(make_guided_eval_fn(student, wv), noise, 11)[-1].float().cpu().numpy()
+            wv_t.fill_(wv)
+            te = t_run(noise, 11, wv, use_cfg=True)[-1].float().cpu().numpy()
+            se = s_sweep(noise, 11)[-1].float().cpu().numpy()
             sweep[str(wv)] = {"endpoint_mse": float(((te - se) ** 2).mean()),
                               "teacher_std": float(te.std()), "student_std": float(se.std())}
             print(f"[progressive] w={wv}: endpoint MSE {sweep[str(wv)]['endpoint_mse']:.2e}")
@@ -234,8 +239,8 @@ def run(args, draws=None) -> dict:
 
     if args.fid_samples > 0:
         fid_shape = (args.fid_samples, config.image_size, config.image_size, config.channels)
-        t_set = t_run(teacher_fn, draws.noise(101, fid_shape), 21, teacher_g)[-1]
-        s_set = s_run(student_fn, draws.noise(202, fid_shape), 22)[-1]
+        t_set = t_run(draws.noise(101, fid_shape), 21, teacher_g)[-1]
+        s_set = s_run(draws.noise(202, fid_shape), 22)[-1]
         result["quality"].update(fid_columns(config, t_set, s_set))
         q = result["quality"]
         print(f"[progressive] FID(teacher, student) = {q['fid_teacher_vs_student']:.3g} "

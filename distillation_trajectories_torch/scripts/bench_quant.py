@@ -17,11 +17,15 @@ Arms, each a T=50 CFG chain (guidance 3.0) of the sf-1.0 U-Net at 256 x
 * ``int8_static_mixed`` — static scales, int8 only on the Blocks at 8x8 or
   more (``_common.mixed_blocks``).
 
-Method: per arm one warm-up chain (seed 0), then ``--iters`` timed chains
-with fresh seeds, each ended by ``torch.cuda.synchronize()``; traj/s is
-batch x iters over their summed seconds, every call's seconds kept.
-Fidelity: each arm's warm-up endpoint against the float arm's, from the
-same noise and seed, as relative L2.  The census counts the convolutions
+Method: each arm's chain is timed as the JAX bench times its jitted one:
+on the card a CUDA graph (``diffusion/sampling.py::make_chain_fn``), one
+per arm.  Per arm two warm-up chains (seed 0; the first runs eagerly, the
+second captures), then ``--iters`` timed chains with fresh seeds, each
+ended by ``torch.cuda.synchronize()``; traj/s is batch x iters over their
+summed seconds, every call's seconds kept (``seconds``).  The arm's eager
+body on the same seeds is timed after (``eager_seconds``).  Fidelity: each
+arm's first warm-up endpoint against the float arm's, from the same noise
+and seed, as relative L2.  The calibration chain runs once, eagerly.  The census counts the convolutions
 of one forward (``conv2d`` and ``torch._int_mm`` calls) and how many of
 them are int8 products.  The record goes to
 ``<results_dir>/bench_quant_torch.json`` (and ``BENCH_QUANT_torch_{tag}.json``
@@ -41,6 +45,7 @@ import numpy as np
 from ._common import (
     BenchDraws,
     add_bench_flags,
+    chain_fn,
     load_model,
     mixed_blocks,
     preflight_probe,
@@ -144,8 +149,7 @@ def run(args, draws=None, endpoints=None) -> dict:
     import torch
 
     from ..config import Config, resolve_device
-    from ..diffusion import get_diffusion_params
-    from ..diffusion.sampling import CFG_COND_PAIRS, NOCFG_COND_PAIRS, generate_trajectory_scan
+    from ..diffusion.sampling import CFG_COND_PAIRS, NOCFG_COND_PAIRS
     from ..models.quantized import calibrate_activation_scales
 
     probe = preflight_probe(args.device)
@@ -157,40 +161,40 @@ def run(args, draws=None, endpoints=None) -> dict:
                     image_size=args.image_size, channels=args.channels,
                     compute_dtype=args.compute_dtype, device=str(dev))
     model, weights = _model(args, config)
-    alphas = get_diffusion_params(t_steps, config)["alphas"]
     blocks = mixed_blocks(config.image_size)
     shape = (args.batch, config.image_size, config.image_size, config.channels)
     noise = draws.noise(1, shape).to(dev)
 
-    def chain(fn, seed):
-        return generate_trajectory_scan(
-            fn, noise, t_steps, alphas, seed, guidance_scale=args.guidance,
-            step_noise=draws.step_noise(seed, t_steps, shape))
-
     def bench(fn, label):
+        run = chain_fn(config, draws, t_steps, fn)
         t0 = time.perf_counter()
-        end = chain(fn, 0)[-1].clone()  # warm-up, and the arm's endpoint
+        end = run(noise, 0, args.guidance)[-1].clone()  # the eager warm-up, the arm's endpoint
+        run(noise, 0, args.guidance)  # the capture
         synchronize(dev)
         setup_s = time.perf_counter() - t0
-        seconds = timed_calls(lambda seed: chain(fn, seed), range(1, args.iters + 1), dev)
+        seeds = range(1, args.iters + 1)
+        seconds = timed_calls(lambda seed: run(noise, seed, args.guidance), seeds, dev)
+        eager_seconds = timed_calls(lambda seed: run.eager(noise, seed, args.guidance), seeds,
+                                    dev)
         tps = args.batch * args.iters / sum(seconds)
-        print(f"# {label}: {tps:.1f} traj/s (first call {setup_s:.1f}s)", file=sys.stderr)
-        return tps, setup_s, end, seconds
+        print(f"# {label}: {tps:.1f} traj/s (first two calls {setup_s:.1f}s; eager "
+              f"{args.batch * args.iters / sum(eager_seconds):.1f} traj/s)", file=sys.stderr)
+        return tps, setup_s, end, seconds, eager_seconds
 
     results = {}
     float_fn = _arm_fn("float", model, None, blocks)
-    float_tps, float_setup, f_end, f_seconds = bench(float_fn, "float")
+    float_tps, float_setup, f_end, f_seconds, f_eager = bench(float_fn, "float")
     kept = {} if endpoints is None else endpoints
     kept["float"] = f_end
     results["float"] = {"traj_per_s": round(float_tps, 2), "setup_s": round(float_setup, 1),
-                        "seconds": f_seconds}
+                        "seconds": f_seconds, "eager_seconds": f_eager}
 
     scales = None
     if any(a.startswith("int8_static") for a in args.arm_list):
         # Calibration states: 5 points along a float chain (activations grow
         # toward the noisy end) x the (cond, cond_mask) rows the sampler
         # feeds the model, on the first cb samples.
-        f_chain = chain(float_fn, 99)
+        f_chain = chain_fn(config, draws, t_steps, float_fn).eager(noise, 99, args.guidance)
         pairs = CFG_COND_PAIRS if args.guidance > 1.0 else NOCFG_COND_PAIRS
         cb = min(32, args.batch)
         idxs = sorted({0, t_steps // 4, t_steps // 2, (3 * t_steps) // 4, t_steps - 1})
@@ -213,7 +217,7 @@ def run(args, draws=None, endpoints=None) -> dict:
         if not args.no_census and arm != "fold":
             c = torch.ones((2, 1), device=dev)
             entry["census"] = conv_census(fn, noise[:2], torch.full((2,), 25.0, device=dev), c, c)
-        tps, setup_s, end, seconds = bench(fn, arm)
+        tps, setup_s, end, seconds, eager_seconds = bench(fn, arm)
         kept[arm] = end
         rel = float((end - f_end).norm() / (f_end.norm() + 1e-12))
         entry.update({
@@ -222,6 +226,7 @@ def run(args, draws=None, endpoints=None) -> dict:
             "endpoint_rel_l2": rel,
             "setup_s": round(setup_s, 1),
             "seconds": seconds,
+            "eager_seconds": eager_seconds,
         })
         results[arm] = entry
 

@@ -7,11 +7,17 @@ PyTorch tail, sliding-window ParaDiGMS latency, and a step-time ablation.
     python -m distillation_trajectories_torch.scripts.bench_r2 --exp ablate      # where a step goes
 
 Every experiment runs the flagship sampler: the sf-1.0 U-Net of
-``make_unet(seed=0)``, 32x32x3, T=50, bf16 compute.  A timing is the
-median of ``--iters`` calls after one warm-up, each call with a fresh seed
-and ended by ``torch.cuda.synchronize()``; every call's seconds are kept.
-The arms an experiment compares on one workload (``pallas``'s two,
-``ablate``'s four) take turns call by call.
+``make_unet(seed=0)``, 32x32x3, T=50, bf16 compute.  Each arm is timed as
+the JAX experiment times its jitted chain: on the card a CUDA graph
+(``diffusion/sampling.py::make_chain_fn``, or ``utils/graphs.py::CapturedCall``
+for the ablation's loops) whose first call runs eagerly and whose second
+captures, both left out of the timing, then replays.  A timing is the
+median of ``--iters`` calls after those two warm-ups, each call with a
+fresh seed and ended by ``torch.cuda.synchronize()``; every call's seconds
+are kept, and the same arms' eager bodies are timed the same way beside
+them (``eager_seconds``).  The arms an experiment compares on one workload
+(``pallas``'s two, ``ablate``'s four, each in both lanes) take turns call
+by call.
 Prints one JSON line per experiment and writes them all to
 ``<results_dir>/bench_r2_torch.json``.
 
@@ -19,11 +25,15 @@ Prints one JSON line per experiment and writes them all to
   (the ``pallas`` arm) against the same chain with
   ``ops.cfg_update.cfg_engine_update_row_reference`` put in its place for the
   experiment alone (the ``jnp`` arm: the update tail in plain PyTorch, as
-  JAX's arm runs it in XLA), after their outputs are compared on one seed
+  JAX's arm runs it in XLA), their outputs compared on one seed
   (``max_abs_deviation``).  The keys are the JAX experiment's.
-* ``paradigms`` (batch 1, guidance 7.5): the sequential chain against
-  ``sliding_window_trajectory`` at each window x tolerance, with the
-  window's sweeps and its largest gap to the sequential chain.
+* ``paradigms`` (batch 1, guidance 7.5): the sequential chain, captured
+  and eager, against ``sliding_window_trajectory`` at each window x
+  tolerance, with the window's sweeps and its largest gap to the
+  sequential chain.  The window sampler stays eager (it tests its
+  convergence on the host between sweeps), so ``speedup_vs_scan`` divides
+  the eager sequential chain's median by the window's; ``lanes`` names
+  the lane of each number.
 * ``ablate`` (batch 256, guidance 3.0): the full chain; two forwards a step
   with no tail; the same with a nearest-repeat upsample (a ``DenseLayout``
   whose ``up`` repeats, passed to the forward); the tail alone (the step's
@@ -45,6 +55,7 @@ from unittest import mock
 from ._common import (
     BenchDraws,
     add_bench_flags,
+    chain_fn,
     parse_float_list,
     preflight_probe,
     timed_calls,
@@ -72,18 +83,19 @@ def _flagship(args, draws, batch):
 
 def _time(fn, seeds, device, iters):
     """``(median seconds, every call's seconds)`` of ``iters`` calls
-    ``fn(next(seeds))`` after one warm-up call."""
+    ``fn(next(seeds))`` after two warm-up calls."""
     return _time_arms({"": fn}, seeds, device, iters)[""]
 
 
 def _time_arms(fns, seeds, device, iters):
     """``{name: (median seconds, every call's seconds)}`` of ``iters`` calls
-    of each arm after one warm-up call each.  The arms take turns, each
+    of each arm after two warm-up calls each (a captured arm's first call
+    runs eagerly and its second captures).  The arms take turns, each
     round in the order the last one ended with (a, b, b, a, ...), so that
     a drift of the host's speed falls on every arm alike."""
     names = list(fns)
     for name in names:
-        timed_calls(fns[name], [next(seeds)], device)
+        timed_calls(fns[name], [next(seeds), next(seeds)], device)
     seconds = {name: [] for name in names}
     for i in range(iters):
         for name in (names if i % 2 == 0 else names[::-1]):
@@ -91,32 +103,57 @@ def _time_arms(fns, seeds, device, iters):
     return {name: (statistics.median(v), v) for name, v in seconds.items()}
 
 
-def _chain(model_fn, noise, args, alphas, draws, guidance):
-    from ..diffusion import generate_trajectory_scan
-
-    return lambda seed: generate_trajectory_scan(
-        model_fn, noise, args.timesteps, alphas, seed, guidance_scale=guidance,
-        step_noise=draws.step_noise(seed, args.timesteps, noise.shape))
+def _with_eager(arms):
+    """``arms`` (each a call with an ``eager`` body) and, under
+    ``eager_<name>``, their eager bodies."""
+    return {**arms, **{f"eager_{name}": fn.eager for name, fn in arms.items()}}
 
 
-def exp_pallas(args, draws):
+def _eager_seconds(timed):
+    """The eager arms' every call's seconds, by arm."""
+    return {name[len("eager_"):]: v[1] for name, v in timed.items() if name.startswith("eager_")}
+
+
+def _chain(cfg, model_fn, noise, draws, guidance):
+    """``run(seed)``: the chain of ``model_fn`` from ``noise`` at
+    ``cfg.timesteps`` through its maker (``_common.chain_fn``: on the card
+    captured on its second call and replayed), its step noise drawn inside
+    the call; ``run.eager`` is the eager body, ``run.maker`` the maker."""
+    chain = chain_fn(cfg, draws, cfg.timesteps, model_fn)
+    run = lambda seed: chain(noise, seed, guidance)  # noqa: E731
+    run.eager = lambda seed: chain.eager(noise, seed, guidance)
+    run.maker = chain.maker
+    return run
+
+
+def _under_plain_tail(run):
+    """``run`` and its eager body with ``cfg_engine_update_row_reference``
+    in the kernel's place (the update tail in plain PyTorch, as JAX's arm
+    runs it in XLA): the capture records the plain tail, so the replays
+    run it."""
     from ..diffusion import sampling
     from ..ops.cfg_update import cfg_engine_update_row_reference
 
+    def patched(fn):
+        def call(seed):
+            with mock.patch.object(sampling, "cfg_engine_update_row",
+                                   cfg_engine_update_row_reference):
+                return fn(seed)
+        return call
+
+    out = patched(run)
+    out.eager = patched(run.eager)
+    return out
+
+
+def exp_pallas(args, draws):
     batch = args.batch or 256
-    cfg, _, model_fn, alphas, noise = _flagship(args, draws, batch)
-    kernel = _chain(model_fn, noise, args, alphas, draws, 7.5)
-
-    def plain(seed):
-        with mock.patch.object(sampling, "cfg_engine_update_row", cfg_engine_update_row_reference):
-            return kernel(seed)
-
-    arms = {"jnp": plain, "pallas": kernel}
-    a = plain(3)  # parity on the card first
-    b = kernel(3)
-    max_dev = float((a - b).abs().max())
+    cfg, _, model_fn, _, noise = _flagship(args, draws, batch)
+    arms = {"jnp": _under_plain_tail(_chain(cfg, model_fn, noise, draws, 7.5)),
+            "pallas": _chain(cfg, model_fn, noise, draws, 7.5)}
     seeds = iter(range(100, 200))
-    timed = _time_arms(arms, seeds, cfg.device, args.iters)
+    timed = _time_arms(_with_eager(arms), seeds, cfg.device, args.iters)
+    max_dev = float((arms["jnp"](3) - arms["pallas"](3)).abs().max())  # the arms' replays
     (t_base, s_base), (t_pall, s_pall) = timed["jnp"], timed["pallas"]
     result = {
         "exp": "pallas_cfg_update",
@@ -129,6 +166,7 @@ def exp_pallas(args, draws):
         "traj_per_s_pallas": round(batch / t_pall, 1),
         "jnp_call_seconds": s_base,
         "pallas_call_seconds": s_pall,
+        "eager_seconds": _eager_seconds(timed),
     }
     print(json.dumps(result))
     return result
@@ -138,10 +176,11 @@ def exp_paradigms(args, draws):
     from ..diffusion.parallel_sampling import sliding_window_trajectory
 
     cfg, _, model_fn, alphas, noise = _flagship(args, draws, 1)
-    seq = _chain(model_fn, noise, args, alphas, draws, 7.5)
-    exact = seq(3)
+    seq = _chain(cfg, model_fn, noise, draws, 7.5)
     seeds = iter(range(100, 10_000))
-    t_seq, s_seq = _time(seq, seeds, cfg.device, args.iters)
+    timed = _time_arms(_with_eager({"sequential": seq}), seeds, cfg.device, args.iters)
+    (t_seq, s_seq), (t_eager, _) = timed["sequential"], timed["eager_sequential"]
+    exact = seq(3)
     rows = []
     for window in args.windows:
         for tol in args.tols:
@@ -157,7 +196,7 @@ def exp_paradigms(args, draws):
                 "window": window, "tol": tol,
                 "sweeps_at_seed3": int(sweeps),
                 "seconds": round(t_win, 4),
-                "speedup_vs_scan": round(t_seq / t_win, 3),
+                "speedup_vs_scan": round(t_eager / t_win, 3),
                 "max_abs_dev_vs_exact": dev,
                 "call_seconds": s_win,
             })
@@ -167,6 +206,12 @@ def exp_paradigms(args, draws):
         "batch": 1, "timesteps": args.timesteps,
         "sequential_seconds": round(t_seq, 4),
         "sequential_call_seconds": s_seq,
+        "sequential_eager_seconds": round(t_eager, 4),
+        "eager_seconds": _eager_seconds(timed),
+        "lanes": {"sequential_seconds": "captured chain (replays)",
+                  "sequential_eager_seconds": "eager chain",
+                  "rows": "eager window sampler; speedup_vs_scan = sequential_eager_seconds / "
+                          "seconds"},
         "rows": rows,
     }
     print(json.dumps(result))
@@ -194,8 +239,8 @@ def exp_ablate(args, draws):
     import torch
 
     from ..diffusion.sampling import _engine_table
-    from ..ops.cfg_update import cfg_engine_update_row
-    from ..utils.graphs import host_to_device
+    from ..ops.cfg_update import cfg_engine_update, cfg_engine_update_row
+    from ..utils.graphs import CapturedCall, host_to_device, sampler_lane_captures
     from ..utils.profiling import conv_flops
 
     batch = args.batch or 256
@@ -209,16 +254,29 @@ def exp_ablate(args, draws):
 
     flops_step = 2 * conv_flops(model, noise, tvec, ones, ones)
 
+    def loop(body, inputs, counted=()):
+        """``run(seed)``: ``body(*inputs(seed))`` through a
+        :class:`CapturedCall` where the sampler lane captures; ``run.eager``
+        the body itself."""
+        graphs = CapturedCall(counted)
+
+        def run(seed):
+            if not sampler_lane_captures(dev):
+                return body(*inputs(seed))
+            return graphs(None, body, *inputs(seed))
+
+        run.eager = lambda seed: body(*inputs(seed))
+        return run
+
     def two_fwd(fn):
         """Two CFG forwards a step, no update tail, draw or storage."""
-        def run(seed):
-            x = noise
+        def body(x):
             for _ in range(n_steps):
                 pu = fn(x, tvec, zeros, ones)
                 pc = fn(x, tvec, ones, ones)
                 x = x + 1e-6 * (pu + 2.0 * pc)  # consume both, keep the carry stable
             return x
-        return run
+        return loop(body, lambda seed: (noise,))
 
     nearest = _nearest_layout()
 
@@ -226,23 +284,26 @@ def exp_ablate(args, draws):
         with torch.no_grad():
             return model(x, t, cond, cond_mask, layout=nearest)
 
-    def tail_only(seed):
-        """The update tail alone, as the chain runs it: the step's draw,
-        the scalar table once, and the kernel on its row a step."""
-        x = noise
-        step_noise = draws.step_noise(seed, args.timesteps, noise.shape)
-        table = host_to_device(_engine_table(args.timesteps, alphas), dev)
+    def tail(x, step_noise, table):
+        """The update tail alone, as the chain runs it: the kernel on the
+        table's row a step."""
         for j in range(args.timesteps - 1):
             eps = x * 1e-3
             x = cfg_engine_update_row(x, eps, eps, step_noise[j], table[j])
         return x
 
-    timed = _time_arms({
-        "full": _chain(model_fn, noise, args, alphas, draws, 3.0),  # the real sampler chain
+    def tail_inputs(seed):
+        """The step's draw and the scalar table, made a chain as the
+        chain makes them."""
+        return (noise, draws.step_noise(seed, args.timesteps, noise.shape),
+                host_to_device(_engine_table(args.timesteps, alphas), dev))
+
+    timed = _time_arms(_with_eager({
+        "full": _chain(cfg, model_fn, noise, draws, 3.0),  # the real sampler chain
         "two_fwd": two_fwd(model_fn),
         "nearest": two_fwd(nearest_fn),  # with a nearest-repeat upsample
-        "tail": tail_only,
-    }, seeds, dev, args.iters)
+        "tail": loop(tail, tail_inputs, counted=(cfg_engine_update,)),
+    }), seeds, dev, args.iters)
     t_full, t_two, t_two_nou, t_tail = (timed[k][0] for k in ("full", "two_fwd", "nearest", "tail"))
     total_flops = flops_step * n_steps
     result = {
@@ -263,7 +324,9 @@ def exp_ablate(args, draws):
         "update_tail_share": round(t_tail / t_full, 4),
         "ms_per_step_full": round(1e3 * t_full / n_steps, 3),
         "ms_per_step_two_fwd": round(1e3 * t_two / n_steps, 3),
-        "call_seconds": {name: v[1] for name, v in timed.items()},
+        "call_seconds": {name: v[1] for name, v in timed.items() if not name.startswith("eager_")},
+        "eager_seconds": _eager_seconds(timed),
+        "eager_full_scan_seconds": round(timed["eager_full"][0], 4),
     }
     print(json.dumps(result))
     return result

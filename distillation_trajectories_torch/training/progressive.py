@@ -58,9 +58,12 @@ def make_guided_eval_fn(model: torch.nn.Module, guidance_value: float,
     """Eval forward of a w-conditioned student: it ignores the sampler's
     ``(cond, cond_mask)`` and feeds ``cond=w, mask=1``, so
     ``generate_trajectory_scan(..., guidance_scale=None)`` runs the guided
-    map in ONE forward per step.  ``quant="int8"`` runs the int8 forward
-    (:func:`..models.quantized.make_quantized_eval_fn`), with ``quant_kw``
-    (``act_scales``, ``quant_blocks``) passed through."""
+    map in ONE forward per step.  ``guidance_value`` is a float or a 0-d
+    float32 tensor on the model's device, read at each call (JAX's traced
+    ``w``): a captured chain then reads the value it holds at each replay,
+    so one graph serves every ``w``.  ``quant="int8"`` runs the int8
+    forward (:func:`..models.quantized.make_quantized_eval_fn`), with
+    ``quant_kw`` (``act_scales``, ``quant_blocks``) passed through."""
     if quant == "int8":
         from ..models.quantized import make_quantized_eval_fn
 
@@ -70,7 +73,10 @@ def make_guided_eval_fn(model: torch.nn.Module, guidance_value: float,
 
     def fn(x, t, cond=None, cond_mask=None):
         b = x.shape[0]
-        w = torch.full((b, 1), float(guidance_value), dtype=x.dtype, device=x.device)
+        if torch.is_tensor(guidance_value):
+            w = guidance_value.to(x.dtype).expand(b, 1)
+        else:
+            w = torch.full((b, 1), float(guidance_value), dtype=x.dtype, device=x.device)
         return base(x, t, w, torch.ones((b, 1), dtype=x.dtype, device=x.device))
 
     return fn

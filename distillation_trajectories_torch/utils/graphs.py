@@ -10,8 +10,12 @@ Triton's build, cuDNN's algorithm choices and cuBLAS's workspace must come
 before it), the capture itself, the memory pool the sampler graphs share,
 and a host-to-device copy that does not synchronize the host.
 
-The captured sampler lane is the rule on the card; these stay eager, each
-for its reason (:func:`sampler_lane_captures` decides):
+The captured sampler lane is the rule on the card: the engine's makers,
+the manager, the grid and FID samplers, and the benches' chains
+(``diffusion/sampling.py::make_chain_fn`` in ``bench_r2``, ``bench_quant``,
+``bench_progressive`` and ``bench_fast``; ``make_batch_chain_fn`` in
+``bench``).  These stay eager, each for its reason
+(:func:`sampler_lane_captures` decides):
 
 * the CPU, which has no graphs;
 * the spatial layout's forward (``Config.spatial_shape``), whose halo
@@ -21,8 +25,9 @@ for its reason (:func:`sampler_lane_captures` decides):
   convergence on the host between sweeps;
 * one-off calls not made through a maker (``generate_trajectory``,
   ``generate_trajectory_scan``, ``p_sample_loop``,
-  ``editing/core.py::denoise_with_trajectory``): a capture that is never
-  replayed costs an eager chain plus the graph's instantiation.
+  ``editing/core.py::denoise_with_trajectory``, a bench's calibration
+  chain): a capture that is never replayed costs an eager chain plus the
+  graph's instantiation.
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ per-size score files and grids).  Without ``--device cpu`` both default to
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -28,7 +29,8 @@ def base_dir(tmp_path_factory):
     _, cfg = configs(root, limit_batches_per_epoch=1, num_samples_to_generate=0)
     train_teacher(cfg, seed=0)
     train_students(cfg, custom_size_factors=[0.1, 0.2], seed=0)
-    return str(root)
+    yield str(root)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def test_cfg_sweep_cli_writes_the_jax_artifacts(base_dir, capsys):

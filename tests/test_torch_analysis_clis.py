@@ -22,6 +22,7 @@ path; their ``main`` is never run."""
 
 import importlib.util
 import os
+import shutil
 import subprocess
 from unittest import mock
 
@@ -49,13 +50,14 @@ from distillation_trajectories_torch.scripts import (
     analyze_trajectories,
     run_analysis,
 )
-from torch_parity import (
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     KW,
     NAMES_ONLY,
     file_set,
     jax_chain_draws,
     jax_checkpoint_models,
     quick_plots,
+    tmp_path,
     train_small,
 )
 
@@ -89,7 +91,8 @@ def _quick_plots():
 def trained(tmp_path_factory):
     root = tmp_path_factory.mktemp("trained")
     jcfg, _ = train_small(root)
-    return str(root), jax_checkpoint_models(jcfg)
+    yield str(root), jax_checkpoint_models(jcfg)
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _port_config(root, **kw):

@@ -13,6 +13,7 @@ The port's PNGs are rendered at 30 dpi; JAX's plot functions run with
 their file names are compared."""
 
 import os
+import shutil
 import sys
 from unittest import mock
 
@@ -45,7 +46,7 @@ from distillation_trajectories_torch.analysis import visualization
 from distillation_trajectories_torch.metrics import size_dependent, time_dependent, visualize
 from distillation_trajectories_torch.models import resize_bilinear_align_corners
 from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
-from torch_parity import (
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     NAMES_ONLY,
     configs,
     file_set,
@@ -53,6 +54,7 @@ from torch_parity import (
     jax_noises,
     jax_step_noise,
     quick_plots,
+    tmp_path,
     train_small,
 )
 
@@ -70,10 +72,12 @@ def _quick_plots():
 @pytest.fixture(scope="module")
 def trained(tmp_path_factory):
     """Both packages' configs and models on the port trainers' checkpoints."""
-    jcfg, tcfg = train_small(tmp_path_factory.mktemp("trained"))
+    root = tmp_path_factory.mktemp("trained")
+    jcfg, tcfg = train_small(root)
     port = {1.0: load_teacher_from_arg(tcfg)}
     port.update({sf: load_student(tcfg, sf) for sf in (0.1, 0.2)})
-    return jcfg, tcfg, jax_checkpoint_models(jcfg), port
+    yield jcfg, tcfg, jax_checkpoint_models(jcfg), port
+    shutil.rmtree(root, ignore_errors=True)
 
 
 # -- numpy copies ------------------------------------------------------------

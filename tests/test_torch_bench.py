@@ -34,7 +34,11 @@ from distillation_trajectories_torch.scripts import (
     bench_r2,
 )
 from distillation_trajectories_torch.utils.profiling import conv_flops
-from torch_parity import JaxBenchDraws, jax_variables
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxBenchDraws,
+    jax_variables,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 

@@ -6,7 +6,7 @@ student's ``endpoint_mse_vs_teacher`` and, with the bf16 arm alone (so that
 it is the arm swept), the w-sweep's MSEs and spreads are JAX's, computed
 here from the same checkpoints and draws, at 1e-4.  The int8 arms are held
 as JAX's own test holds them (``tests/test_progressive.py:208-250``:
-finite, every arm timed)."""
+finite, every arm timed, here in both lanes: ``eager_seconds``)."""
 
 import json
 import os
@@ -26,7 +26,11 @@ from distillation_trajectories_torch.config import Config
 from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.scripts import bench_fast
 from distillation_trajectories_torch.training import save_checkpoint
-from torch_parity import JaxBenchDraws, jax_variables
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxBenchDraws,
+    jax_variables,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 
@@ -74,6 +78,7 @@ def test_record_and_bf16_endpoint_match_jax(setup):
     assert set(rec["arms"]) == set(ARMS) and rec["best_arm"].startswith("student_")
     for name, arm in rec["arms"].items():
         assert arm["traj_per_s"] > 0 and len(arm["seconds"]) == 1, name
+        assert len(arm["eager_seconds"]) == 1 and arm["eager_seconds"][0] > 0, name
         if name.startswith("student_"):
             assert np.isfinite(arm["endpoint_mse_vs_teacher"]), name
     assert rec["fid_features"] == "seeded-random" and np.isfinite(rec["fid_teacher_vs_best"])

@@ -4,12 +4,15 @@ of 2 batches trains the plain and the guided student through ``main``;
 ``--measure_only`` then reads each back through ``main`` on JAX's draws, to
 a record with the JAX record's keys whose quality columns (endpoint MSE,
 means and spreads, the guided w-sweep) are JAX's, computed here from the
-same checkpoints and draws, at 1e-4."""
+same checkpoints and draws, at 1e-4, and whose timed calls carry the
+eager body's seconds beside them."""
 
 import json
 import os
+import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -54,7 +57,8 @@ def trained(tmp_path_factory):
         rec = bench_progressive.main(_flags(root) + ["--epochs", "1", "--limit_batches", "2"]
                                      + extra)
         assert rec["final_steps"] == 2 and rec["train_seconds"] > 0
-    return root, cfg
+    yield root, cfg
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _jax_chain(root, family, steps, noise, seed, w=None, guided=False):
@@ -83,6 +87,7 @@ def test_measure_only_record_matches_jax(trained, guided, monkeypatch, capsys):
     assert set(rec["throughput"]) == {"4", "2"} and rec["train_seconds"] == 0.0
     for entry in rec["throughput"].values():
         assert entry["traj_per_s"] > 0 and len(entry["call_seconds"]) == 1
+        assert len(entry["eager_seconds"]) == 1 and entry["eager_seconds"][0] > 0
     for name in (f"teacher_T4{sfx}.png", f"student_T2{sfx}.png"):
         assert os.path.getsize(os.path.join(cfg.results_dir, "progressive_torch", name)) > 0
 
@@ -100,7 +105,10 @@ def test_measure_only_record_matches_jax(trained, guided, monkeypatch, capsys):
     if guided:
         assert set(rec["quality"]["w_sweep"]) == {"1.0", "3.0"}
         for wv in (1.0, 3.0):
-            te = _jax_chain(root, None, 4, noise, 11, w=wv)
+            # JAX's bench jits its sweep with w traced, so its teacher runs
+            # the CFG chain at every w, 1.0 included (a jnp scale is no
+            # Python float to its sampler).
+            te = _jax_chain(root, None, 4, noise, 11, w=jnp.float32(wv))
             se = _jax_chain(root, family, 2, noise, 11, w=wv, guided=True)
             got = rec["quality"]["w_sweep"][str(wv)]
             np.testing.assert_allclose(got["endpoint_mse"], np.mean((te - se) ** 2), rtol=1e-4)

@@ -6,7 +6,8 @@ from the same weights and draws) at rtol 1e-4 / atol 1e-6, each arm's
 ``endpoint_rel_l2`` is that of its endpoint, ``fold``'s is above 0 as
 JAX's is, and the int8 arms stay as near float as JAX's own test
 holds them (``endpoint_rel_l2 < 0.05``, ``tests/test_quantized.py:193-212``:
-dynamic scales flip codes at rounding ties, so no closer hold is owed)."""
+dynamic scales flip codes at rounding ties, so no closer hold is owed);
+every arm carries its eager body's seconds (``eager_seconds``)."""
 
 import json
 
@@ -25,7 +26,11 @@ from distillation_trajectories_torch.config import Config
 from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.scripts import bench_quant
 from distillation_trajectories_torch.training import save_checkpoint
-from torch_parity import JaxBenchDraws, jax_variables
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxBenchDraws,
+    jax_variables,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 
@@ -100,6 +105,8 @@ def test_record_and_fold_endpoint_match_jax(tmp_path, jax_draws, capsys, monkeyp
     for arm in ("int8", "int8_static", "int8_static_mixed"):
         assert rec["arms"][arm]["endpoint_rel_l2"] < 0.05, arm
         assert rec["arms"][arm]["traj_per_s"] > 0 and len(rec["arms"][arm]["seconds"]) == 1
+    for arm, entry in rec["arms"].items():
+        assert len(entry["eager_seconds"]) == 1 and entry["eager_seconds"][0] > 0, arm
 
 
 def test_use_checkpoint_loads_the_teacher_or_says_why_not(tmp_path, jax_draws, monkeypatch):

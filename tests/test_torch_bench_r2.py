@@ -1,5 +1,7 @@
 """The port's sampler experiments (``distillation_trajectories_torch/scripts/bench_r2.py``)
-on the CPU, in float32: the kernel arm and the plain arm are the same chain
+on the CPU, in float32: every arm keeps JAX's keys and carries its eager
+body's seconds (``eager_seconds``; on the CPU both lanes are the eager
+body), the kernel arm and the plain arm are the same chain
 here (a CPU tensor takes the plain version in both), the sequential chain
 of the ``paradigms`` experiment is JAX's chain (rtol 2e-5 / atol 1e-5) and
 the window sampler at tol 0 is that chain (1e-5), and the ablation's FLOPs
@@ -22,7 +24,11 @@ from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.scripts import bench_r2
 from distillation_trajectories_torch.training import make_eval_model_fn
 from distillation_trajectories_torch.utils.profiling import conv_flops
-from torch_parity import JaxBenchDraws, jax_variables
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxBenchDraws,
+    jax_variables,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 
@@ -39,6 +45,7 @@ def test_pallas_arms_are_one_chain_on_the_cpu(tmp_path):
     assert res["jnp_seconds"] > 0 and res["pallas_seconds"] > 0
     assert res["traj_per_s_jnp"] > 0 and res["traj_per_s_pallas"] > 0
     assert len(res["jnp_call_seconds"]) == len(res["pallas_call_seconds"]) == 1
+    assert {k: len(v) for k, v in res["eager_seconds"].items()} == {"jnp": 1, "pallas": 1}
 
 
 def test_paradigms_window_at_tol_0_is_the_jax_chain():
@@ -51,6 +58,9 @@ def test_paradigms_window_at_tol_0_is_the_jax_chain():
     (row,) = res["rows"]
     assert row["window"] == 4 and row["tol"] == 0.0 and row["sweeps_at_seed3"] == 5
     assert row["max_abs_dev_vs_exact"] <= 1e-5
+    assert res["sequential_seconds"] > 0 and res["sequential_eager_seconds"] > 0
+    assert list(res["eager_seconds"]) == ["sequential"] and set(res["lanes"]) == {
+        "sequential_seconds", "sequential_eager_seconds", "rows"}
 
     cfg = Config(image_size=16, compute_dtype="float32", device="cpu")
     model = make_unet(cfg, size_factor=0.1, seed=0)
@@ -76,7 +86,9 @@ def test_ablate_counts_the_convolutions_of_two_forwards(tmp_path):
     for key in ("full_scan_seconds", "two_fwd_scan_seconds", "nearest_upsample_scan_seconds",
                 "update_tail_scan_seconds"):
         assert res[key] > 0, key
-    assert set(res["call_seconds"]) == {"full", "two_fwd", "nearest", "tail"}
+    assert set(res["call_seconds"]) == set(res["eager_seconds"]) == {
+        "full", "two_fwd", "nearest", "tail"}
+    assert res["eager_full_scan_seconds"] > 0
     assert json.load(open(tmp_path / "r2.json"))["ablate"]["per_step_flops"] == \
         res["per_step_flops"]
 

@@ -26,7 +26,13 @@ from distillation_trajectories_torch.models import (
 )
 from distillation_trajectories_torch.training import checkpoints
 from distillation_trajectories_torch.training.state import create_train_state
-from torch_parity import as_torch, configs, numpy_tree, port_model
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    as_torch,
+    configs,
+    numpy_tree,
+    port_model,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 

@@ -41,7 +41,11 @@ from distillation_trajectories_torch.training import (
 from distillation_trajectories_torch.training.state import TorchDraws, create_train_state
 
 import torch_dist
-from torch_parity import configs, port_model
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    configs,
+    port_model,
+    tmp_path,
+)
 
 
 def _leaves_equal(a, b):

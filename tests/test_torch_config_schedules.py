@@ -18,6 +18,7 @@ from distillation_trajectories_torch.diffusion.schedules import (
     extract,
     get_diffusion_params,
 )
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 torch.set_num_threads(2)
 

@@ -30,6 +30,7 @@ from distillation_trajectories_tpu.models.inception import (  # noqa: E402
     InceptionV3Features,
     load_torchvision_weights,
 )
+from torch_parity import tmp_path  # noqa: E402, F401  (each test's outputs removed when it ends)
 
 
 def _nchw(x_nhwc):

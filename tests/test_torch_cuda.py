@@ -8,7 +8,9 @@ either value of ``Config.pallas_cfg_update``; a CFG chain sharded over two
 ranks that share the card against the unsharded chain there; and the
 samplers' captured lane (a maker's CUDA graph against its eager body: one
 graph for three guidance scales, weights changed in place or given per
-call, 9 launches counted a T=10 replay).
+call, 9 launches counted a T=10 replay), the benches' single-seed maker
+among them (one graph for three scales, and for two values of a guided
+student's ``w``).
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -668,5 +670,58 @@ def test_captured_grid_sees_the_weights_it_is_given(cuda):
         ema = {k: v * 1.02 for k, v in ema.items()}
         got = grid(noise, step_noise, ema)
         assert torch.equal(got, grid.loop._eager(noise, step_noise, ema))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_bench_chain_maker_replays_its_eager_body(cuda):
+    """The benches' single-seed maker (``sampling.make_chain_fn``, T=10,
+    float32, TF32 off): a CFG chain whose one graph serves guidance 2.0,
+    3.0 and 7.5, and a guided student's chain whose one graph serves two
+    values of its ``w`` tensor, set in place; each replay equal to the
+    eager body bit for bit, 9 kernel launches counted a replay, the plain
+    version never called."""
+    from distillation_trajectories_torch.diffusion import get_diffusion_params, sampling
+    from distillation_trajectories_torch.ops import cfg_update
+    from distillation_trajectories_torch.training import make_eval_model_fn
+    from distillation_trajectories_torch.training.progressive import make_guided_eval_fn
+    from distillation_trajectories_torch.utils.graphs import sampler_lane_captures
+
+    plain = []
+    saved = _no_tf32()
+    try:
+        model, _, _ = _graph_lane_makers(cuda)
+        alphas = get_diffusion_params(10)["alphas"]
+        noise, step_noise = _chain_inputs(cuda, 3)
+        w = torch.zeros((), device=cuda)
+        chains = {
+            "cfg": (sampling.make_chain_fn(make_eval_model_fn(model), 10, alphas,
+                                           captures=sampler_lane_captures), (2.0, 3.0, 7.5)),
+            "guided": (sampling.make_chain_fn(make_guided_eval_fn(model, w), 10, alphas,
+                                              captures=sampler_lane_captures), (2.0, 4.5)),
+        }
+
+        def call(name, fn, g):
+            w.fill_(g)
+            return fn(noise, 0, g if name == "cfg" else None, step_noise=step_noise)
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(cfg_update, "cfg_engine_update_reference",
+                       lambda *args: plain.append(args))
+            for name, (chain, values) in chains.items():
+                call(name, chain, values[0])
+                assert not chain.graphs.graphs, name  # the first call runs eagerly
+                for g in values:
+                    before = cfg_update.cfg_engine_update.launches
+                    got = call(name, chain, g)
+                    made = cfg_update.cfg_engine_update.launches - before
+                    want = call(name, chain._eager, g)
+                    torch.cuda.synchronize()
+                    assert made == 9 and torch.equal(got, want), (name, g)
+                (graph,) = chain.graphs.graphs.values()
+                assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9]
+            assert not plain
+        a, b = (call("guided", chains["guided"][0], g) for g in (2.0, 4.5))
+        assert not torch.equal(a, b)  # each replay read w where it was set
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

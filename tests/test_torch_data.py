@@ -14,7 +14,7 @@ import pytest
 from distillation_trajectories_tpu.data import datasets as jax_datasets
 from distillation_trajectories_tpu.data import native as jax_native
 from distillation_trajectories_torch.data import datasets, native
-from torch_parity import configs
+from torch_parity import configs, tmp_path  # tmp_path: each test's outputs removed when it ends
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -49,12 +49,13 @@ from distillation_trajectories_torch.editing import (
 from distillation_trajectories_torch.models import make_unet, variables_from_unet_state_dict
 from distillation_trajectories_torch.scripts import run_editing_demo
 from distillation_trajectories_torch.training import make_eval_model_fn, save_checkpoint
-from torch_parity import (
-    NAMES_ONLY,
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     JaxEditingDraws,
+    NAMES_ONLY,
     configs,
     file_set,
     quick_plots,
+    tmp_path,
 )
 
 torch.set_num_threads(2)

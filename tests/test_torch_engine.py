@@ -36,6 +36,7 @@ from distillation_trajectories_torch.trajectories import (
     sweep_compare_trajectories,
     sweep_compare_trajectories_multi,
 )
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 torch.set_num_threads(2)
 

@@ -44,6 +44,7 @@ from distillation_trajectories_torch.scripts import (
 )
 from distillation_trajectories_torch.training.checkpoints import load_checkpoint
 from distillation_trajectories_torch.utils.viz import read_png, save_image_grid, write_png
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = ("--epochs 1 --limit_batches 2 --dataset MNIST --image_size 16 --timesteps 10 "

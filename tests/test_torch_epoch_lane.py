@@ -38,7 +38,14 @@ from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.training import loop as port_loop
 from distillation_trajectories_torch.training import state as port_state
 from distillation_trajectories_torch.training import teacher as port_teacher
-from torch_parity import JaxDraws, check_losses, configs, numpy_tree, port_model
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxDraws,
+    check_losses,
+    configs,
+    numpy_tree,
+    port_model,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 N, B, EPOCHS, T = 20, 4, 2, 10

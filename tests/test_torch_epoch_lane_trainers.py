@@ -16,7 +16,12 @@ from distillation_trajectories_tpu.data import datasets as jax_datasets
 from distillation_trajectories_tpu.training import teacher as jax_teacher
 from distillation_trajectories_torch.training import teacher as port_teacher
 import torch
-from torch_parity import JaxDraws, check_losses, configs
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxDraws,
+    check_losses,
+    configs,
+    tmp_path,
+)
 
 jax_continue = importlib.import_module("distillation_trajectories_tpu.training.continue_training")
 port_continue = importlib.import_module("distillation_trajectories_torch.training.continue_training")

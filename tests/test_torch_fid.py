@@ -21,7 +21,11 @@ from distillation_trajectories_torch.metrics.fid import (
     fid_across_sizes,
 )
 from distillation_trajectories_torch.models import make_unet, variables_from_unet_state_dict
-from torch_parity import configs, sample_draws
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    configs,
+    sample_draws,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 

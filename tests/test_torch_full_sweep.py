@@ -11,6 +11,7 @@ import time
 import pytest
 
 from distillation_trajectories_torch.scripts import run_full_sweep as rfs
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 
 def test_write_speedup_math(tmp_path, monkeypatch):

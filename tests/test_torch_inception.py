@@ -26,6 +26,7 @@ from distillation_trajectories_torch.models.inception import (
     load_torchvision_weights,
     preprocess_for_inception,
 )
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 torch.set_num_threads(2)
 

@@ -15,6 +15,7 @@ from distillation_trajectories_tpu.metrics.lpips import create_lpips as jax_crea
 from distillation_trajectories_torch.metrics import evaluation
 from distillation_trajectories_torch.metrics.lpips import create_lpips, load_lpips_weights
 from distillation_trajectories_torch.models import alexnet_lpips_state_dict_from_variables
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 torch.set_num_threads(2)
 

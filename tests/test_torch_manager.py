@@ -4,6 +4,7 @@ JAX's starting noise, per-step noise and Wasserstein keys injected.
 Trajectories at rtol 2e-5 / atol 1e-5, averaged metrics at rtol 1e-4."""
 
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -26,7 +27,11 @@ from distillation_trajectories_torch.trajectories import (
     make_batch_trajectory_fn,
     make_paired_trajectory_fn,
 )
-from torch_parity import configs, port_model
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    configs,
+    port_model,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 
@@ -38,13 +43,15 @@ TRAJ_TOL = dict(rtol=2e-5, atol=1e-5)
 @pytest.fixture(scope="module")
 def models(tmp_path_factory):
     """Teacher sf 0.2 and student sf 0.1 in both packages, same weights."""
-    jcfg, tcfg = configs(tmp_path_factory.mktemp("models"), timesteps=T, sample_steps=T)
+    root = tmp_path_factory.mktemp("models")
+    jcfg, tcfg = configs(root, timesteps=T, sample_steps=T)
     out = {}
     for name, sf, seed in (("teacher", 0.2, 0), ("student", 0.1, 1)):
         jmodel = jax_make_unet(jcfg, size_factor=sf)
         variables = make_init_fn(jmodel, jcfg, force_jit=True)(jax.random.PRNGKey(seed))
         out[name] = (jmodel, variables, port_model(tcfg, sf, variables))
-    return out
+    yield out
+    shutil.rmtree(root, ignore_errors=True)
 
 
 def _jax_noises(seeds):

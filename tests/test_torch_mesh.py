@@ -32,7 +32,11 @@ from distillation_trajectories_torch.parallel import (
 from distillation_trajectories_torch.parallel.launch import spawn_ranks
 
 import torch_dist
-from torch_parity import configs, port_model
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    configs,
+    port_model,
+    tmp_path,
+)
 
 
 def _jax_vars(jcfg, sf, seed=0):

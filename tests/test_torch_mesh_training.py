@@ -16,6 +16,7 @@ checkpoint, which this one process reads back whole.
 
 import json
 import os
+import shutil
 
 import jax
 import numpy as np
@@ -74,7 +75,8 @@ def runs(tmp_path_factory):
         for i, (kind, shape, base_dir, *_rest) in enumerate(todo):
             got[(kind, shape)] = dict(out[0][i], base_dir=base_dir,
                                       ranks=[o[i]["local_shapes"] for o in out])
-    return plain, got
+    yield plain, got
+    shutil.rmtree(root, ignore_errors=True)
 
 
 @pytest.mark.parametrize("shape", [s for shapes in MESHES.values() for s in shapes],

@@ -35,7 +35,7 @@ from distillation_trajectories_torch.training.checkpoints import (
     msgpack_restore,
     save_checkpoint,
 )
-from torch_parity import configs
+from torch_parity import configs, tmp_path  # tmp_path: each test's outputs removed when it ends
 
 torch.set_num_threads(2)
 

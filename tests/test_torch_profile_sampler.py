@@ -32,7 +32,10 @@ from distillation_trajectories_torch.models import make_unet, variables_from_une
 from distillation_trajectories_torch.scripts import profile_sampler
 from distillation_trajectories_torch.training import make_eval_model_fn
 from distillation_trajectories_torch.utils.profiling import trace_summary
-from torch_parity import jax_step_noise
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    jax_step_noise,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 SMALL = dict(batch=2, device="cpu", size_factor=0.1, image_size=16, timesteps=4)

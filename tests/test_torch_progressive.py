@@ -43,7 +43,14 @@ from distillation_trajectories_torch.scripts import train_progressive
 from distillation_trajectories_torch.training import progressive, save_checkpoint
 from distillation_trajectories_torch.training.checkpoints import available_epochs, load_checkpoint
 from distillation_trajectories_torch.training.state import create_train_state
-from torch_parity import JaxDraws, as_torch, configs, numpy_tree, progressive_draws
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxDraws,
+    as_torch,
+    configs,
+    numpy_tree,
+    progressive_draws,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 T, S, B = 8, 4, 8

@@ -3,7 +3,9 @@ the chains' scalar tables, and each maker JAX puts under ``jax.jit``
 against that jitted maker (float32, 16x16x1, sf 1.0 teacher and sf 0.1
 student, T=6, JAX's draws injected; rtol 2e-5 / atol 1e-5, the tree's
 sampler tolerance, ``tests/test_ops.py:60``) under either value of
-``Config.pallas_cfg_update``.  On the CPU the makers run their eager body
+``Config.pallas_cfg_update``; the benches' single-seed maker
+(``sampling.make_chain_fn``) against the JAX benches' jitted
+``generate_trajectory_scan``.  On the CPU the makers run their eager body
 (there are no graphs); ``tests/test_torch_cuda.py`` holds the captured
 lane to it on the card."""
 
@@ -13,8 +15,15 @@ import pytest
 import torch
 
 from distillation_trajectories_tpu.diffusion import get_diffusion_params as jax_params
+from distillation_trajectories_tpu.diffusion.sampling import (
+    generate_trajectory_scan as jax_generate_trajectory_scan,
+)
 from distillation_trajectories_tpu.metrics.fid import make_sample_fn as jax_make_sample_fn
 from distillation_trajectories_tpu.models import make_unet as jax_make_unet
+from distillation_trajectories_tpu.training import make_eval_model_fn as jax_make_eval_model_fn
+from distillation_trajectories_tpu.training.progressive import (
+    make_guided_eval_fn as jax_make_guided_eval_fn,
+)
 from distillation_trajectories_tpu.training.teacher import make_grid_fn as jax_make_grid_fn
 from distillation_trajectories_tpu.trajectories import TrajectoryManager as JaxManager
 from distillation_trajectories_tpu.trajectories import (
@@ -35,6 +44,8 @@ from distillation_trajectories_torch.ops.cfg_update import (
     cfg_engine_update_row,
     cfg_engine_update_row_reference,
 )
+from distillation_trajectories_torch.training import make_eval_model_fn
+from distillation_trajectories_torch.training.progressive import make_guided_eval_fn
 from distillation_trajectories_torch.training.teacher import make_grid_fn
 from distillation_trajectories_torch.trajectories import (
     TrajectoryManager,
@@ -42,7 +53,14 @@ from distillation_trajectories_torch.trajectories import (
     make_paired_trajectory_fn,
     make_sweep_trajectory_fn,
 )
-from torch_parity import configs, jax_noises, jax_step_noise, jax_variables, sample_draws
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    configs,
+    jax_noises,
+    jax_step_noise,
+    jax_variables,
+    sample_draws,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 
@@ -209,6 +227,57 @@ def test_loop_makers_match_jax(models, flag):
         noise, step_noise = sample_draws(k, (n, *SHAPE), n_steps)
         got = grid(noise, step_noise, params)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+
+
+# The benches' jitted chains (scripts/bench_quant.py:127, bench_r2.py:75,
+# bench_fast.py:130, bench_progressive.py:59, 275, 283): the scale a Python
+# constant of the program (CFG iff it is above 1.0, or no scale at all), or
+# traced, as the progressive bench's w-sweep traces it (its teacher then
+# runs CFG at every w, its guided student feeds cond=w).
+CHAIN_CASES = {"cfg": (3.0,), "no_cfg": (None,), "traced_cfg": (1.0, 5.0), "guided": (2.0, 4.5)}
+
+
+@FLAGS
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_chain_maker_matches_jax(models, flag, case):
+    """``make_chain_fn`` against JAX's jitted ``generate_trajectory_scan``
+    (the benches' ``jax.jit(lambda vars, noise, seed: ...)``), one maker
+    for every value of the case: the guided student's ``w`` is a tensor set
+    in place before each call, the traced scale a ``use_cfg=True`` call."""
+    jcfg, tcfg, jm = _pair(models, flag)
+    alphas = get_diffusion_params(T, tcfg)["alphas"]
+    jalphas = jax_params(T, jcfg)["alphas"]
+    name = "student" if case == "guided" else "teacher"
+    (jmodel, jvars), port = jm[name], models[name][1]
+    w_t = torch.zeros(())
+    model_fn = make_guided_eval_fn(port, w_t) if case == "guided" else make_eval_model_fn(port)
+    chain = sampling.make_chain_fn(model_fn, T, alphas, captures=lambda device: False)
+    seed = 11
+    noise, step_noise = _draws([seed])
+
+    def jax_chain(g):
+        if case == "guided":
+            fn = lambda v, x, wv: jax_generate_trajectory_scan(  # noqa: E731
+                jax_make_guided_eval_fn(jmodel, v, wv), x, T, jalphas, seed, use_pallas=flag)
+            return jax.jit(fn)(jvars, noise, np.float32(g))
+        if case == "traced_cfg":
+            fn = lambda v, x, wv: jax_generate_trajectory_scan(  # noqa: E731
+                jax_make_eval_model_fn(jmodel, v), x, T, jalphas, seed, guidance_scale=wv,
+                use_pallas=flag)
+            return jax.jit(fn)(jvars, noise, np.float32(g))
+        fn = lambda v, x, s: jax_generate_trajectory_scan(  # noqa: E731
+            jax_make_eval_model_fn(jmodel, v), x, T, jalphas, s, guidance_scale=g,
+            use_pallas=flag)
+        return jax.jit(fn)(jvars, noise, np.int32(seed))
+
+    for g in CHAIN_CASES[case]:
+        w_t.fill_(g or 0.0)
+        kw = {"guidance_scale": None} if case == "guided" else {"guidance_scale": g}
+        if case == "traced_cfg":
+            kw["use_cfg"] = True
+        got = chain(torch.from_numpy(noise), seed, step_noise=step_noise, **kw)
+        assert got.shape == (T + 1, 1, *SHAPE)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jax_chain(g)), **TRAJ_TOL)
 
 
 def test_successive_calls_share_no_storage(models):

@@ -16,6 +16,7 @@ from distillation_trajectories_torch.training.checkpoints import (
     load_checkpoint,
     save_checkpoint,
 )
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 torch.set_num_threads(2)
 

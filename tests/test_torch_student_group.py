@@ -24,7 +24,7 @@ from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.training import save_checkpoint
 from distillation_trajectories_torch.training import state as port_state
 from distillation_trajectories_torch.training import students as port_students
-from torch_parity import configs
+from torch_parity import configs, tmp_path  # tmp_path: each test's outputs removed when it ends
 
 torch.set_num_threads(2)
 SFS = [0.01, 0.05, 0.1]

@@ -19,7 +19,13 @@ from distillation_trajectories_tpu.training import students as jax_students
 from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.training import save_checkpoint
 from distillation_trajectories_torch.training import students as port_students
-from torch_parity import JaxDraws, check_losses, configs, file_set
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxDraws,
+    check_losses,
+    configs,
+    file_set,
+    tmp_path,
+)
 
 torch.set_num_threads(2)
 SFS = [0.01, 0.05, 0.1]

@@ -19,7 +19,7 @@ from distillation_trajectories_torch.training import save_checkpoint, train_stud
 from distillation_trajectories_torch.training.checkpoints import load_checkpoint
 from distillation_trajectories_torch.training.students import distill_diffusion_model
 
-from torch_parity import configs
+from torch_parity import configs, tmp_path  # tmp_path: each test's outputs removed when it ends
 
 KW = dict(epochs=2, limit_batches_per_epoch=2, num_samples_to_generate=4, samples_grid_size=2,
           dropout=0.3)

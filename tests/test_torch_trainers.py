@@ -34,7 +34,11 @@ from distillation_trajectories_torch.models import make_unet
 from distillation_trajectories_torch.training import students as port_students
 from distillation_trajectories_torch.training import teacher as port_teacher
 from distillation_trajectories_torch.utils.viz import save_image_grid
-from torch_parity import JaxDraws, configs
+from torch_parity import (  # tmp_path: each test's outputs removed when it ends
+    JaxDraws,
+    configs,
+    tmp_path,
+)
 
 # The packages export the function under the module's name.
 jax_continue = importlib.import_module("distillation_trajectories_tpu.training.continue_training")

@@ -16,6 +16,7 @@ from distillation_trajectories_tpu.metrics import fid as jax_fid
 from distillation_trajectories_tpu.utils import viz as jax_viz
 from distillation_trajectories_torch.metrics import fid
 from distillation_trajectories_torch.utils import viz
+from torch_parity import tmp_path  # noqa: F401  (each test's outputs removed when it ends)
 
 
 @pytest.fixture()

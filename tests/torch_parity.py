@@ -1,12 +1,16 @@
 """Shared pieces of the PyTorch-port parity tests: small configs, JAX
-variables carried into port models, and a draw source that replays the JAX
-trainers' PRNG key stream into the port's trainers."""
+variables carried into port models, a draw source that replays the JAX
+trainers' PRNG key stream into the port's trainers, and the ``tmp_path``
+every port test module imports, which removes what a test wrote once it
+ends."""
 
 import contextlib
+import shutil
 from unittest import mock
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from distillation_trajectories_tpu.config import Config as JaxConfig
@@ -18,6 +22,23 @@ from distillation_trajectories_torch.training.state import StepDraws
 
 KW = dict(dataset="MNIST", image_size=16, channels=1, batch_size=8, sample_steps=10,
           timesteps=10, epochs=1, compute_dtype="float32", dropout=0.0)
+
+
+@pytest.fixture
+def tmp_path(tmp_path):
+    """pytest's ``tmp_path``, removed with all it holds when the test ends
+    (a port test module imports this fixture, which overrides pytest's
+    there; module fixtures remove their ``tmp_path_factory`` trees the same
+    way).  The port's tests write checkpoints of full-width U-Nets, sample
+    grids and records: 6.1 GB a whole run, where the tests before the port
+    wrote 0.7 GB.  pytest keeps the trees of the last three runs and drops
+    the oldest only when a run ends, so four runs' trees share the disk
+    while a run goes on, and on a host with about 30 GB free the fourth run
+    in a row ran out of space (``OSError: [Errno 28]``) in whatever tests
+    were writing then: the trainer parity tests, which write the most and
+    run last."""
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)
 
 
 def configs(tmp_path=None, **kw):
