@@ -81,9 +81,13 @@ on first use.  Phases, each printing its own lines:
    trajectories and directions checked, each stage's wall seconds printed;
    (c) ``progressive_distill`` from phase 5's teacher (batch 128,
    teacher_steps 100, bf16, dropout 0.3): two plain rounds (100 → 50 → 25)
-   and one guided round (w ~ U[1, 5], 100 → 50) of 10 batches, with step
-   times, images/s and peak memory per round and every checkpoint read
-   back (phase 12 times the students' chains);
+   and one guided round (w ~ U[1, 5], 100 → 50) of 10 batches, each on the
+   captured epoch lane (2 eager warm-up steps, the capture, 8 replays; the
+   per-batch step patched to raise, each round's graph checked released
+   when the round ends), with each round's lane, epoch seconds a step (the
+   capture included), capture seconds, images/s and peak memory, and every
+   checkpoint read back (phase 12 times the students' chains, 13(d) the
+   step in both lanes);
 9. the sampler's opt-in lanes, migration and the orchestrator, on phase 5's
    checkpoints: (a) ``int8_matmul`` (``torch._int_mm``, zero-padded) on the
    card against the exact product, ``_qconv`` card vs CPU bit for bit and
@@ -166,7 +170,19 @@ on first use.  Phases, each printing its own lines:
    from phase 5's teacher, 10 batches, float32 with TF32 off: {0.01, 0.05}
    as one group step and 0.1 alone, held against ``vmap_students=False``
    (losses rtol 1e-5), with the group's epoch seconds against the two
-   sequential ones;
+   sequential ones; (d) progressive distillation's captured round: a hold
+   (float32, TF32 off, cuDNN deterministic, sf 0.1, 16x16x1, batch 8,
+   T=10 → 5, two epochs of 8 batches, plain, guided and
+   ``teacher_guided``) of the graph-replayed round against the eager
+   per-batch loop, run twice (generator end states equal, each weight
+   within Adam's bound, the loss and weight distances printed beside the
+   loop's own), and every replay of the last epoch against the eager step
+   from the same state (loss at rtol 1e-5, generator equal, weights after
+   the step within ``_hold_weights``); then phase 5's teacher at full width
+   (batch 128, T=100 → 50, bf16, dropout 0.3), plain and guided, 30
+   batches a turn, loop, graph, graph, loop: median synchronized step,
+   images/s, the device's idle share and kernels a step over 4 profiled
+   steps, capture seconds and peak memory;
 14. the samplers' captured lane (each maker captures its chain into a
    CUDA graph on the second call for a key and replays it): (a) the main
    path's chain through ``make_sweep_trajectory_fn`` (sf-1.0 teacher,
@@ -700,30 +716,6 @@ def profile_train_steps(step, n_steps, step_s, card):
         print("  forward / backward split: not measured (no kernels linked to CPU ops)")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"  top kernel {t / 1e3:.3f} ms x{n}: {name[:110]}")
-
-
-class _TimedSteps:
-    """Wraps a train-step factory so every step it makes is timed between
-    device synchronizations, with its loss kept and its device checked."""
-
-    def __init__(self, factory):
-        self.factory, self.runs = factory, []
-
-    def __call__(self, *args, **kwargs):
-        step, record = self.factory(*args, **kwargs), []
-        self.runs.append(record)
-
-        def timed(state, images, draws=None):
-            if images.device.type != "cuda" or next(state.model.parameters()).device.type != "cuda":
-                raise RuntimeError("a train step ran off the card")
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, loss = step(state, images, draws)
-            torch.cuda.synchronize()
-            record.append((time.perf_counter() - t0, float(loss)))
-            return state, loss
-
-        return timed
 
 
 def _step_summary(label, record, batch, card):
@@ -1525,35 +1517,47 @@ def phase_edit_demo(card, workdir):
     return launches
 
 
-class _RoundSteps(_TimedSteps):
-    """``_TimedSteps`` that also keeps, for each step it makes (one per
-    progressive round), the model that round trains and the peak device
-    memory of its steps."""
+class _RoundEpochs(_TimedEpochs):
+    """``_TimedEpochs`` that also keeps, for each epoch function it makes
+    (one per progressive round), the model that round trains, the peak
+    device memory of its epochs, its graph's replays and the capture
+    list the round releases when it ends."""
 
     def __init__(self, factory):
         super().__init__(factory)
-        self.models, self.peaks = [], []
+        self.models, self.peaks, self.replays, self.captures = [], [], [], []
 
     def __call__(self, *args, **kwargs):
         timed = super().__call__(*args, **kwargs)
         i = len(self.models)
         self.models.append(None)
         self.peaks.append(0)
+        self.replays.append(0)
+        self.captures.append(timed.captured)
         torch.cuda.reset_peak_memory_stats()
 
-        def step(state, images, draws=None):
-            out = timed(state, images, draws)
+        def epoch(state, dataset, idx):
+            warm = timed.captured[0].warm if timed.captured else 0
+            out = timed(state, dataset, idx)
+            self.replays[i] += len(idx) - (timed.captured[0].warm - warm)
             self.models[i] = state.model
             self.peaks[i] = torch.cuda.max_memory_allocated()
             return out
 
-        return step
+        epoch.captured = timed.captured
+        return epoch
+
+
+def _no_per_batch_step(*args, **kwargs):
+    raise RuntimeError("a progressive round took the per-batch loop on the card")
 
 
 def phase_progressive(card, workdir):
     """Phase 8(c): ``progressive_distill`` at full width from phase 5's
-    teacher, two plain rounds and one guided round, every checkpoint read
-    back (phase 12(d) and (e) time the students' chains)."""
+    teacher, two plain rounds and one guided round, each on the captured
+    epoch lane (the per-batch step patched to raise), every checkpoint read
+    back (phase 12(d) and (e) time the students' chains, 13(d) the lanes
+    in turns)."""
     from distillation_trajectories_torch import Config
     from distillation_trajectories_torch.models import load_unet_variables, make_unet
     from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
@@ -1572,8 +1576,9 @@ def phase_progressive(card, workdir):
           f"dropout {cfg.dropout}; rounds of one epoch of {PROG_BATCHES} batches: plain "
           f"{cfg.teacher_steps} -> {cfg.teacher_steps // 2} -> {cfg.teacher_steps // 4}, guided "
           f"w ~ U{list(PROG_GUIDANCE)} {cfg.teacher_steps} -> {cfg.teacher_steps // 2}")
-    timed = _RoundSteps(progressive.make_progressive_distill_step)
-    with mock.patch.object(progressive, "make_progressive_distill_step", timed):
+    timed = _RoundEpochs(progressive.make_progressive_epoch_fn)
+    with mock.patch.object(progressive, "make_progressive_epoch_fn", timed), \
+            mock.patch.object(progressive, "make_progressive_distill_step", _no_per_batch_step):
         t0 = time.perf_counter()
         plain, plain_steps = progressive.progressive_distill(cfg, teacher, rounds=2, seed=0)
         torch.cuda.synchronize()
@@ -1585,14 +1590,20 @@ def phase_progressive(card, workdir):
         guided_s = time.perf_counter() - t0
     if (plain_steps, guided_steps) != (cfg.teacher_steps // 4, cfg.teacher_steps // 2):
         raise RuntimeError(f"progressive rounds ended at {plain_steps} / {guided_steps} steps")
+    if any(timed.captures):
+        raise RuntimeError("a progressive round's graph outlived its round")
     rounds = (("plain", cfg.teacher_steps // 2, "2 teacher forwards"),
               ("plain", cfg.teacher_steps // 4, "2 teacher forwards"),
               ("guided", cfg.teacher_steps // 2, "4 teacher forwards (CFG pair x 2 updates)"))
-    for (kind, n, forwards), record, model, peak in zip(rounds, timed.runs, timed.models,
-                                                          timed.peaks):
-        _step_summary(f"progressive step {kind} -> {n} steps ({forwards} + student forward "
-                      f"and backward)", record, cfg.batch_size, card)
-        print(f"  peak device memory of the round's steps: {peak} bytes = "
+    for (kind, n, forwards), record, model, peak, replays in zip(
+            rounds, timed.runs, timed.models, timed.peaks, timed.replays):
+        if replays != PROG_BATCHES - 2:
+            raise RuntimeError(f"progressive {kind} -> {n}: {replays} replays, not "
+                               f"{PROG_BATCHES - 2} after the 2 warm-up steps")
+        _epoch_summary(f"progressive round {kind} -> {n} steps ({forwards} + student forward "
+                       f"and backward)", record, cfg.batch_size, card)
+        print(f"  lane: captured (2 eager warm-up steps, the capture {record[0][2]:.3f} s, "
+              f"{replays} replays); peak device memory of the round's epoch: {peak} bytes = "
               f"{peak / 2**30:.3f} GiB [{card}]")
         family = "progressive" if kind == "plain" else "progressive_cfg"
         ckpt_dir = os.path.join(cfg.models_dir, family, f"steps_{n}")
@@ -1606,7 +1617,7 @@ def phase_progressive(card, workdir):
     if timed.models[1] is not plain or timed.models[2] is not guided:
         raise RuntimeError("progressive_distill did not return the last round's student")
     print(f"progressive_distill wall: plain 2 rounds {plain_s:.3f} s, guided 1 round "
-          f"{guided_s:.3f} s (datasets, steps and async checkpoints included) [{card}]")
+          f"{guided_s:.3f} s (datasets, steps, captures and async checkpoints included) [{card}]")
 
 
 def phase_edit(card, workdir):
@@ -2347,25 +2358,28 @@ def _students_run(workdir, tag, compute_dtype, sweep_parallel):
     busy and window µs, and each student's epoch losses."""
     import shutil
 
-    from torch.profiler import ProfilerActivity, profile
-
     from distillation_trajectories_torch import Config
     from distillation_trajectories_torch.training import students as port_students
+    from distillation_trajectories_torch.utils.profiling import busy_and_window
 
     cfg = Config(base_dir=os.path.join(workdir, f"lanes_{tag}"), dataset="CIFAR10", epochs=1,
                  timesteps=TRAIN_T, sample_steps=TRAIN_T, limit_batches_per_epoch=10,
                  num_samples_to_generate=0, compute_dtype=compute_dtype).create_directories()
     shutil.copy(os.path.join(workdir, "output", "models", "teacher", "model_epoch_1.msgpack"),
                 cfg.teacher_models_dir)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    walls = []
+
+    def run():
         t0 = time.perf_counter()
         port_students.train_students(cfg, custom_size_factors=list(STUDENTS), seed=0,
                                      sweep_parallel=sweep_parallel)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy, window = _busy_and_window(kernels) if kernels else (float("nan"),) * 2
+        walls.append(time.perf_counter() - t0)
+
+    events = _device_events(run)  # the raw events: no event tree to build
+    busy, window = (busy_and_window((start, end) for _, start, end in events) if events
+                    else (float("nan"),) * 2)
+    wall = walls[0]
     if sweep_parallel:
         recs = _jsonl_records(os.path.join(cfg.results_dir, "sweep_parallel_metrics.jsonl"))
         losses = {sf: [r["avg_loss"] for r in recs if r["size_factor"] == sf] for sf in STUDENTS}
@@ -3005,8 +3019,10 @@ def _hold_weights(label, got_model, want_model, steps, lr, rel_limit=5e-3):
     (5e-3) and each weight to 2.2 x ``steps`` x ``lr`` (in its first 16
     steps Adam (0.9, 0.999) moves a weight by at most 1.1 lr a step),
     except the conv biases that feed a BatchNorm (true gradient 0, so they
-    follow the rounding alone), held to the second only.  Returns the worst relative
-    norm difference and the worst single difference."""
+    follow the rounding alone), held to the second only.  ``rel_limit=None``
+    holds the second alone and only reports the first (13(d)'s whole
+    rounds, where two eager runs land further apart than 5e-3).  Returns
+    the worst relative norm difference and the worst single difference."""
     worst_rel, worst_abs, want = 0.0, 0.0, dict(want_model.named_parameters())
     with torch.no_grad():
         for name, p in got_model.named_parameters():
@@ -3017,7 +3033,7 @@ def _hold_weights(label, got_model, want_model, steps, lr, rel_limit=5e-3):
                                    "steps, beyond what Adam can")
             if not name.endswith(("conv1.bias", "conv2.bias")):
                 rel = float(diff.norm() / want[name].norm())
-                if rel > rel_limit:
+                if rel_limit is not None and rel > rel_limit:
                     raise RuntimeError(f"{label}: {name} differs by {rel} of its norm")
                 worst_rel = max(worst_rel, rel)
     return worst_rel, worst_abs
@@ -3123,21 +3139,13 @@ def _idle_share(run, n):
     return 1 - busy / window, busy / 1e3 / n, len(events) // n
 
 
-def _time_lane(lane, cfg, loader, dataset, dp):
-    """13(b): one epoch of ``TRAIN_BATCHES`` through one lane from a fresh
-    seeded teacher, then ten more synchronized steps timed one by one and
-    four profiled."""
-    from distillation_trajectories_torch.models import make_unet
+def _time_lane(lane, cfg, loader, dataset, build):
+    """One epoch of ``TRAIN_BATCHES`` through one lane from a fresh state
+    (``build(lane) -> (state, epoch function or per-batch step)``), then
+    ten more synchronized steps timed one by one and four profiled."""
     from distillation_trajectories_torch.training.loop import run_train_epoch
-    from distillation_trajectories_torch.training.state import (
-        TorchDraws,
-        create_train_state,
-        make_teacher_epoch_fn,
-        make_teacher_train_step,
-    )
 
-    state = create_train_state(make_unet(cfg, 1.0, seed=0), cfg, TorchDraws(0, "cuda"))
-    fn = (make_teacher_epoch_fn if lane == "graph" else make_teacher_train_step)(dp, cfg.timesteps)
+    state, fn = build(lane)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -3148,7 +3156,7 @@ def _time_lane(lane, cfg, loader, dataset, dp):
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     if n != TRAIN_BATCHES or not np.isfinite(losses).all():
-        raise RuntimeError(f"13(b) {lane}: {n} steps, losses {losses}")
+        raise RuntimeError(f"{lane}: {n} steps, losses {losses}")
     if lane == "graph":
         captured = fn.captured[0]
         captured.i.zero_()  # replays below read the epoch's first rows again
@@ -3169,34 +3177,19 @@ def _time_lane(lane, cfg, loader, dataset, dp):
                 reserved=torch.cuda.memory_reserved(), loss=(float(losses[0]), float(losses[-1])))
 
 
-def _time_epoch_lanes(card):
-    """13(b): the teacher at full width (sf 1.0, the synthetic CIFAR-shaped
-    set, batch 128, T=100, bf16, dropout 0.3), ``TRAIN_BATCHES`` batches,
-    per-batch loop and graph-replayed epoch lane in turns."""
-    from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.data.datasets import DataLoader, load_dataset
-    from distillation_trajectories_torch.diffusion import get_diffusion_params
-    from distillation_trajectories_torch.training.loop import upload_dataset
-
-    cfg = Config(dataset="CIFAR10", timesteps=TRAIN_T, sample_steps=TRAIN_T,
-                 limit_batches_per_epoch=TRAIN_BATCHES)
-    images, labels = load_dataset(cfg)
-    loader = DataLoader(images, labels, cfg.batch_size, shuffle=True, seed=0)
-    t0 = time.perf_counter()
-    dataset = upload_dataset(loader, "cuda")
-    upload_s = time.perf_counter() - t0
-    print(f"13(b) dataset upload: {dataset.numel() * 4} bytes ({tuple(dataset.shape)} float32) "
-          f"in {upload_s:.4f} s = {dataset.numel() * 4 / upload_s / 1e9:.3f} GB/s [{card}]")
-    dp = get_diffusion_params(cfg.timesteps, cfg)
+def _lane_turns(label, cfg, loader, dataset, build, card):
+    """``TRAIN_BATCHES`` batches a turn, per-batch loop and graph-replayed
+    epoch lane in turns (``EPOCH_TURNS``), each turn printed; returns the
+    loop's and the graph's median steps (s)."""
     runs = {"loop": [], "graph": []}
     for lane in EPOCH_TURNS:
-        runs[lane].append(_time_lane(lane, cfg, loader, dataset, dp))
+        runs[lane].append(_time_lane(lane, cfg, loader, dataset, build))
     for lane, recs in runs.items():
         for i, r in enumerate(recs):
             idle = "not measured" if r["idle"] is None else f"{r['idle']:.3f}"
-            print(f"13(b) teacher {lane} turn {i + 1} (sf 1.0, batch {cfg.batch_size}, T={TRAIN_T}, "
-                  f"bf16, dropout {cfg.dropout}): epoch of {TRAIN_BATCHES} batches {r['epoch_s']:.3f} s "
-                  f"({cfg.batch_size * TRAIN_BATCHES / r['epoch_s']:.1f} images/s"
+            print(f"{label} {lane} turn {i + 1}: epoch of {TRAIN_BATCHES} batches "
+                  f"{r['epoch_s']:.3f} s ({cfg.batch_size * TRAIN_BATCHES / r['epoch_s']:.1f} "
+                  f"images/s"
                   + (f", capture {r['capture_s']:.3f} s and 2 warm-up steps included" if
                      r["capture_s"] is not None else "")
                   + f"); median synchronized step {r['med'] * 1e3:.3f} ms "
@@ -3207,8 +3200,52 @@ def _time_epoch_lanes(card):
                   f"{r['loss'][0]:.5f} -> {r['loss'][1]:.5f} [{card}]")
     loop = statistics.median(r["med"] for r in runs["loop"])
     graph = statistics.median(r["med"] for r in runs["graph"])
-    print(f"13(b) median step, loop {loop * 1e3:.3f} ms against graph {graph * 1e3:.3f} ms: "
+    print(f"{label} median step, loop {loop * 1e3:.3f} ms against graph {graph * 1e3:.3f} ms: "
           f"graph / loop {graph / loop:.3f} [{card}]")
+    return loop, graph
+
+
+def _full_width_set(cfg, card, label):
+    """The synthetic CIFAR-shaped set's loader (seed 0) and its upload."""
+    from distillation_trajectories_torch.data.datasets import DataLoader, load_dataset
+    from distillation_trajectories_torch.training.loop import upload_dataset
+
+    images, labels = load_dataset(cfg)
+    loader = DataLoader(images, labels, cfg.batch_size, shuffle=True, seed=0)
+    t0 = time.perf_counter()
+    dataset = upload_dataset(loader, "cuda")
+    upload_s = time.perf_counter() - t0
+    print(f"{label} dataset upload: {dataset.numel() * 4} bytes ({tuple(dataset.shape)} float32) "
+          f"in {upload_s:.4f} s = {dataset.numel() * 4 / upload_s / 1e9:.3f} GB/s [{card}]")
+    return loader, dataset
+
+
+def _time_epoch_lanes(card):
+    """13(b): the teacher at full width (sf 1.0, the synthetic CIFAR-shaped
+    set, batch 128, T=100, bf16, dropout 0.3), ``TRAIN_BATCHES`` batches,
+    per-batch loop and graph-replayed epoch lane in turns."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training.state import (
+        TorchDraws,
+        create_train_state,
+        make_teacher_epoch_fn,
+        make_teacher_train_step,
+    )
+
+    cfg = Config(dataset="CIFAR10", timesteps=TRAIN_T, sample_steps=TRAIN_T,
+                 limit_batches_per_epoch=TRAIN_BATCHES)
+    loader, dataset = _full_width_set(cfg, card, "13(b)")
+    dp = get_diffusion_params(cfg.timesteps, cfg)
+
+    def build(lane):
+        state = create_train_state(make_unet(cfg, 1.0, seed=0), cfg, TorchDraws(0, "cuda"))
+        make = make_teacher_epoch_fn if lane == "graph" else make_teacher_train_step
+        return state, make(dp, cfg.timesteps)
+
+    _lane_turns(f"13(b) teacher (sf 1.0, batch {cfg.batch_size}, T={TRAIN_T}, bf16, dropout "
+                f"{cfg.dropout})", cfg, loader, dataset, build, card)
 
 
 def _group_run(workdir, vmap_students):
@@ -3299,6 +3336,195 @@ def _hold_student_group(card, workdir):
           f"{g1:.3f} and {s1:.3f} ms [{card}]")
 
 
+PROG_FORMS = {"plain": (None, False), "guided": (PROG_GUIDANCE, False),
+              "teacher_guided": (PROG_GUIDANCE, True)}  # 13(d) hold
+
+
+PROG_PROBES = EPOCH_HOLD_IMAGES // 8  # 13(d): every row of the last epoch, replayed and eager
+
+
+def _train_tensors(state):
+    """Every tensor a train step updates in place: the weights, the
+    BatchNorm buffers and the Adam state."""
+    params = list(state.model.parameters())
+    return [*params, *state.model.buffers(),
+            *(t for p in params for t in state.optimizer.state[p].values())]
+
+
+def _replays_against_eager(label, state, captured, eager_step, dataset, lr):
+    """``PROG_PROBES`` steps, each replayed from the graph's state and then
+    taken by the eager per-batch step from that same state restored in
+    place (weights, buffers, Adam state, the draw generator), on the rows
+    of the last epoch.  The loss comes from the forward, which runs no
+    atomics, so it is held at rtol 1e-5; the generator must end where the
+    replay left it; the weights after the step as :func:`_hold_weights`
+    holds one step.  Returns the worst relative loss gap and weight gaps."""
+    import copy
+
+    gen, worst = state.draws.generator, [0.0, 0.0, 0.0]
+    for k in range(PROG_PROBES):
+        tensors = _train_tensors(state)
+        before, gen_before = [t.clone() for t in tensors], gen.get_state()
+        captured.i.fill_(k)
+        captured.graph.replay()
+        graph_loss = float(captured.losses[k])
+        graph_model, gen_after = copy.deepcopy(state.model), gen.get_state()
+        with torch.no_grad():
+            for t, b in zip(tensors, before):
+                t.copy_(b)
+        gen.set_state(gen_before)
+        _, loss = eager_step(state, dataset.index_select(0, captured.idx[k]))
+        loss = float(loss)
+        if abs(graph_loss - loss) > 1e-5 * abs(loss):
+            raise RuntimeError(f"{label}: replay {k} loss {graph_loss} against {loss} eager "
+                               "from the same state")
+        if not torch.equal(gen.get_state(), gen_after):
+            raise RuntimeError(f"{label}: replay {k} advanced the generator otherwise than "
+                               "the eager step")
+        rel, d = _hold_weights(f"{label} replay {k}", graph_model, state.model, 1, lr)
+        worst = [max(worst[0], abs(graph_loss - loss) / abs(loss)), max(worst[1], rel),
+                 max(worst[2], d)]
+    return worst
+
+
+def _hold_progressive_lane(card):
+    """13(d) hold: a progressive round's graph-replayed epoch lane against
+    the eager per-batch loop from one seed, for the plain, guided and
+    ``teacher_guided`` forms: float32, TF32 off, cuDNN deterministic,
+    sf 0.1, 16x16x1, batch 8, teacher T=10 -> S=5, dropout 0.3, two epochs
+    of 8 batches; the loop runs twice, as in 13(a).  Whole rounds: the
+    draw generators end in the same state and each weight within Adam's
+    bound (:func:`_hold_weights` without its norm limit); the losses and
+    the weights' relative norm distances are printed against the loop's
+    beside the loop's own distance to itself.  The upsample's backward adds
+    with atomics in no fixed order, and a progressive round carries that
+    rounding further than the teacher's: two eager loops of one round can
+    land further apart than 5e-3 in a tensor's relative norm, and a
+    replayed round's losses further than 1e-5 from the loop's, while each
+    replay equals the eager step from the same state.  So the loss is held
+    step by step: ``PROG_PROBES`` replays,
+    each against an eager step from the same state
+    (:func:`_replays_against_eager`), the loss at rtol 1e-5 and the
+    weights after the step as :func:`_hold_weights` holds one step."""
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training import progressive
+    from distillation_trajectories_torch.training.loop import run_train_epoch
+    from distillation_trajectories_torch.training.state import TorchDraws, create_train_state
+
+    cfg = Config(image_size=16, channels=1, batch_size=8, timesteps=10, sample_steps=10,
+                 compute_dtype="float32", dropout=0.3)
+    rng = np.random.default_rng(0)
+    images = rng.uniform(-1, 1, (EPOCH_HOLD_IMAGES, 16, 16, 1)).astype(np.float32)
+    labels = np.zeros(EPOCH_HOLD_IMAGES, np.int32)
+    dataset = torch.from_numpy(images).cuda()
+    dpt, dps = get_diffusion_params(10), get_diffusion_params(5)
+    steps = EPOCH_HOLD_EPOCHS * EPOCH_HOLD_IMAGES // 8
+    saved, det = _tf32_off(), torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    held = []
+    try:
+        for form, (guidance_range, teacher_guided) in PROG_FORMS.items():
+            teacher = make_unet(cfg, 0.1, seed=9)
+            args = (teacher, dpt["alphas"], dps["alphas"], 10, dpt)
+            kw = dict(guidance_range=guidance_range, teacher_guided=teacher_guided)
+            runs = {}
+            for run in ("graph", "loop", "loop again"):
+                graph = run == "graph"
+                fn = (progressive.make_progressive_epoch_fn if graph
+                      else progressive.make_progressive_distill_step)(*args, **kw)
+                state = create_train_state(make_unet(cfg, 0.1, seed=3), cfg,
+                                           TorchDraws(11, "cuda"))
+                loader = DataLoader(images, labels, 8, shuffle=True, seed=7)
+                losses = []
+                for _ in range(EPOCH_HOLD_EPOCHS):
+                    state, l, _ = run_train_epoch(
+                        state, train_step=fn, loader=loader, config=cfg, device="cuda",
+                        progress_desc="", log_label="", log_every=0, use_scan=graph,
+                        epoch_fn=fn, dataset_dev=dataset, reduce_loss=False)
+                    losses.append(l)
+                torch.cuda.synchronize()
+                if graph and not isinstance(fn.captured[0].graph, torch.cuda.CUDAGraph):
+                    raise RuntimeError(f"13(d) {form}: the progressive lane captured no CUDA graph")
+                runs[run] = (np.concatenate(losses), state, fn)
+            want_losses, want, _ = runs["loop"]
+            spread = {}
+            for run in ("graph", "loop again"):
+                losses, state, _ = runs[run]
+                if state.step != steps:
+                    raise RuntimeError(f"13(d) {form}: {run} took {state.step} steps, not {steps}")
+                if not torch.equal(state.draws.generator.get_state(),
+                                   want.draws.generator.get_state()):
+                    raise RuntimeError(f"13(d) {form}: the {run} left the draw generator "
+                                       "elsewhere than the loop")
+                if not np.isfinite(losses).all():
+                    raise RuntimeError(f"13(d) {form}: {run} losses {losses}")
+                spread[run] = (float(np.max(np.abs(losses - want_losses) / np.abs(want_losses))),
+                               *_hold_weights(f"13(d) {form} {run}", state.model, want.model,
+                                              steps, cfg.lr, rel_limit=None))
+            _, g, fn = runs["graph"]
+            probes = _replays_against_eager(
+                f"13(d) {form}", g, fn.captured[0],
+                progressive.make_progressive_distill_step(*args, **kw), dataset, cfg.lr)
+            held.append((form, spread, probes))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cudnn.deterministic = det
+    print(f"13(d) progressive round, graph replayed against the eager per-batch loop (f32, TF32 "
+          f"off, cuDNN deterministic, sf 0.1, 16x16x1, batch 8, T=10 -> 5, dropout 0.3, "
+          f"{EPOCH_HOLD_EPOCHS} epochs of {EPOCH_HOLD_IMAGES // 8} batches, 2 warm-up steps then "
+          f"replays; draw generator end states equal) [{card}]")
+    for form, spread, (pl, pr, pa) in held:
+        print(f"13(d) {form}: " + "; ".join(
+            f"{run}: {steps} step losses within rel {l:.3e} of the loop's, weights within rel "
+            f"norm {r:.3e} (reported) and abs {a:.3e} (2.2 x {steps} x lr)"
+            for run, (l, r, a) in spread.items())
+            + f"; {PROG_PROBES} replays against eager steps from the same state: losses within "
+            f"rel {pl:.3e} (rtol 1e-5), weights after the step within rel norm {pr:.3e} and abs "
+            f"{pa:.3e} (2.2 x lr), generator states equal [{card}]")
+
+
+def _time_progressive_lanes(card, workdir):
+    """13(d) timing: a progressive round from phase 5's teacher at full
+    width (sf 1.0, the synthetic CIFAR-shaped set, batch 128, T=100 -> 50,
+    bf16, dropout 0.3), plain and guided (w ~ U[1, 5], 4 teacher forwards),
+    ``TRAIN_BATCHES`` batches a turn, per-batch loop and graph-replayed
+    epoch lane in turns."""
+    import copy
+
+    from distillation_trajectories_torch import Config
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.scripts._common import load_teacher_from_arg
+    from distillation_trajectories_torch.training import progressive
+    from distillation_trajectories_torch.training.state import TorchDraws, create_train_state
+
+    cfg = Config(base_dir=workdir, dataset="CIFAR10", timesteps=TRAIN_T, sample_steps=TRAIN_T,
+                 limit_batches_per_epoch=TRAIN_BATCHES)
+    teacher = load_teacher_from_arg(cfg)
+    loader, dataset = _full_width_set(cfg, card, "13(d)")
+    n = cfg.teacher_steps
+    dpt, dps = get_diffusion_params(n, cfg), get_diffusion_params(n // 2, cfg)
+    ratios = []
+    for form, guidance_range in (("plain", None), ("guided", PROG_GUIDANCE)):
+
+        def build(lane):
+            make = (progressive.make_progressive_epoch_fn if lane == "graph"
+                    else progressive.make_progressive_distill_step)
+            fn = make(teacher, dpt["alphas"], dps["alphas"], n, dpt,
+                      guidance_range=guidance_range)
+            return create_train_state(copy.deepcopy(teacher), cfg, TorchDraws(0, "cuda")), fn
+
+        loop, graph = _lane_turns(
+            f"13(d) progressive {form} {n} -> {n // 2} (phase 5's teacher, sf 1.0, batch "
+            f"{cfg.batch_size}, bf16, dropout {cfg.dropout}, "
+            f"{2 if guidance_range is None else 4} teacher forwards)",
+            cfg, loader, dataset, build, card)
+        ratios.append(f"{form} {graph / loop:.3f}")
+    print(f"13(d) progressive graph / loop median step: {', '.join(ratios)} [{card}]")
+
+
 def _replay_ms(epoch_fn, n=5):
     captured = epoch_fn.captured[0]
     captured.i.zero_()
@@ -3316,7 +3542,10 @@ def phase_epoch_lanes(card, workdir):
     """Phase 13: the trainers' default lanes on the card."""
     for label, run in (("(a) hold", lambda: _hold_epoch_lane(card)),
                        ("(b) timed turns", lambda: _time_epoch_lanes(card)),
-                       ("(c) student group", lambda: _hold_student_group(card, workdir))):
+                       ("(c) student group", lambda: _hold_student_group(card, workdir)),
+                       ("(d) progressive hold", lambda: _hold_progressive_lane(card)),
+                       ("(d) progressive timed turns",
+                        lambda: _time_progressive_lanes(card, workdir))):
         t0 = time.perf_counter()
         run()
         print(f"phase epoch lanes {label}: {time.perf_counter() - t0:.1f} s [{card}]")

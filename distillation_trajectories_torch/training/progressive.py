@@ -15,6 +15,9 @@ one student forward replaces the teacher's two.
 
 The training step reaches no kernel: the teacher updates are the σ-free
 closed form :func:`_engine_c`, elementwise torch as in the JAX package.
+Where JAX jits the step, a round on one device runs it through the epoch
+lane (:func:`make_progressive_epoch_fn`): on the card one CUDA graph,
+captured after two eager warm-up steps, replayed a batch.
 The students sample through :func:`..diffusion.sampling.generate_trajectory_scan`,
 whose update tail is the Triton kernel on CUDA tensors.
 """
@@ -33,13 +36,15 @@ from ..data import get_data_loader
 from ..diffusion import get_diffusion_params
 from ..diffusion.process import q_sample
 from .checkpoints import AsyncCheckpointWriter, save_epoch
-from .loop import run_train_epoch
+from .loop import run_train_epoch, upload_dataset
 from .state import (
     StepDraws,
     TorchDraws,
     TrainState,
-    _apply_update,
+    _counted,
+    _epoch_fn,
     _schedule,
+    _update,
     create_train_state,
     make_eval_model_fn,
 )
@@ -107,6 +112,40 @@ def make_progressive_distill_step(
     with ``teacher_guided`` one forward at ``cond=w``; the student gets
     ``cond=w, mask=1``.  Otherwise teacher and student take cond 0, mask 0.
     """
+    return _counted(_progressive_body(teacher_model, teacher_alphas, student_alphas,
+                                      teacher_steps, teacher_cumprod_params,
+                                      guidance_range, teacher_guided))
+
+
+def make_progressive_epoch_fn(
+    teacher_model: torch.nn.Module,
+    teacher_alphas,
+    student_alphas,
+    teacher_steps: int,
+    teacher_cumprod_params,
+    guidance_range: Optional[Tuple[float, float]] = None,
+    teacher_guided: bool = False,
+):
+    """The progressive round's epoch lane, the counterpart of JAX's jitted
+    step (``training/progressive.py:148``, ``jax.jit`` with the state
+    donated): ``epoch(state, dataset, idx) -> (state, losses)`` runs the
+    step of :func:`make_progressive_distill_step` on each batch
+    ``dataset[idx[i]]``, its draws from ``state.draws`` in the per-batch
+    loop's order.  On CUDA the step is captured once into a CUDA graph
+    after its warm-up steps and replayed a batch (``state._epoch_fn``); on
+    the CPU it runs eagerly."""
+    return _epoch_fn(_progressive_body(teacher_model, teacher_alphas, student_alphas,
+                                       teacher_steps, teacher_cumprod_params,
+                                       guidance_range, teacher_guided))
+
+
+def _progressive_body(teacher_model, teacher_alphas, student_alphas, teacher_steps: int,
+                      teacher_cumprod_params, guidance_range, teacher_guided: bool):
+    """The progressive step's body ``(state, images, draws) -> loss``,
+    shared by the per-batch step and the epoch lane; it leaves
+    ``state.step`` alone.  Everything it reads from the schedules is
+    gathered on the device by the drawn ``j``: no host lookup, so a
+    captured replay takes each batch's own indices."""
     student_steps = len(student_alphas)
     if teacher_steps // 2 != student_steps:
         raise ValueError(f"teacher_steps {teacher_steps} does not halve to {student_steps}")
@@ -114,7 +153,7 @@ def make_progressive_distill_step(
     schedules: Dict[torch.device, Dict] = {}
     alphas: Dict[torch.device, Dict] = {}
 
-    def train_step(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws] = None):
+    def body(state: TrainState, images: torch.Tensor, draws: Optional[StepDraws]):
         if draws is None:
             draws = state.draws.progressive_step(images, student_steps, guidance_range)
         device = images.device
@@ -163,10 +202,10 @@ def make_progressive_distill_step(
         per = torch.mean((pred - eps_star) ** 2, dim=(1, 2, 3))
         weight = torch.clamp(c2s * c2s / 1e-4, max=1.0)
         loss = torch.mean(weight * per)
-        _apply_update(state, loss, None)
-        return state, loss.detach()
+        _update(state, loss, None)
+        return loss.detach()
 
-    return train_step
+    return body
 
 
 def progressive_distill(
@@ -192,12 +231,21 @@ def progressive_distill(
     (``model_epoch_{e}.dcp``) with ``Config.checkpoint_sharded``.  With
     ``guidance_range`` round 1's teacher makes the two CFG forwards and
     every later teacher, a w-conditioned student, one.
+
+    A round on one device runs the epoch lane
+    (:func:`make_progressive_epoch_fn`: one captured CUDA graph replayed a
+    batch on the card, eager on the CPU) over the image set uploaded once
+    a call, each epoch's batches the round's loader's; it reads neither
+    ``Config.epoch_scan`` nor ``DTT_EPOCH_SCAN``, which JAX's progressive
+    loop ignores too.  A state on a mesh takes the per-batch loop.  A
+    round's graph is released when the round ends.
     """
     device = resolve_device(config.device)
     epochs = epochs_per_round or config.epochs
     family = "progressive" if guidance_range is None else "progressive_cfg"
     cur_model, cur_steps = teacher_model, int(config.teacher_steps)
     writer = AsyncCheckpointWriter()
+    dataset_dev = None
     try:
         for r in range(rounds):
             next_steps = cur_steps // 2
@@ -208,28 +256,33 @@ def progressive_distill(
             dp_student = get_diffusion_params(next_steps, config)
             student = copy.deepcopy(cur_model).to(device)
             state = create_train_state(student, config, (draws or TorchDraws)(seed + 1000 * r, device))
-            step = make_progressive_distill_step(
-                cur_model, dp_teacher["alphas"], dp_student["alphas"], cur_steps, dp_teacher,
-                guidance_range=guidance_range,
-                teacher_guided=guidance_range is not None and r > 0,
-            )
+            use_scan = state.mesh is None  # a mesh's collectives cannot be captured
+            make = make_progressive_epoch_fn if use_scan else make_progressive_distill_step
+            fn = make(cur_model, dp_teacher["alphas"], dp_student["alphas"], cur_steps, dp_teacher,
+                      guidance_range=guidance_range,
+                      teacher_guided=guidance_range is not None and r > 0)
             loader = get_data_loader(config, seed=seed + r)
+            if use_scan and dataset_dev is None:
+                dataset_dev = upload_dataset(loader, device)
             print(f"[progressive] round {r + 1}/{rounds}: {cur_steps} -> {next_steps} steps, "
                   f"{epochs} epochs")
             ckpt_dir = os.path.join(config.models_dir, family, f"steps_{next_steps}")
             for epoch in range(epochs):
                 t0 = time.time()
                 state, avg, _ = run_train_epoch(
-                    state, train_step=step, loader=loader, config=config, device=device,
+                    state, train_step=fn, loader=loader, config=config, device=device,
                     progress_desc=f"Progressive {cur_steps}->{next_steps} epoch {epoch + 1}/{epochs}",
                     log_label=f"[progressive] steps={next_steps} epoch {epoch + 1}",
                     log_every=50, loss_fmt=".6f",
+                    use_scan=use_scan, epoch_fn=fn, dataset_dev=dataset_dev,
                 )
                 print(f"[progressive] steps={next_steps} epoch {epoch + 1}/{epochs} "
                       f"loss {avg:.6f} ({time.time() - t0:.1f}s)")
                 if (epoch + 1) % config.save_interval == 0 or epoch == epochs - 1:
                     save_epoch(writer, config, ckpt_dir, epoch + 1, state.model,
                                optimizer=state.optimizer)
+            if use_scan:
+                fn.captured.clear()  # the round's graph and its memory pool
             cur_model, cur_steps = state.model, next_steps
     finally:
         writer.close()

@@ -12,13 +12,14 @@ on the device seeded from the trainer's seed.  Tests pass a source (or the
 draws) holding JAX's values instead.
 
 The epoch lane (JAX ``make_teacher_epoch_fn``, ``make_distill_epoch_fn``,
-``make_multi_distill_epoch_fn``) runs the same step bodies over a
-device-resident dataset: each batch is gathered on the device by a row of
-``DataLoader.epoch_indices`` and each loss lands in a device tensor, so
-nothing waits for the host inside an epoch.  On CUDA the step is captured
-once into a ``torch.cuda.CUDAGraph`` and replayed for every batch (the
-counterpart of JAX's one ``lax.scan`` dispatch); on the CPU the same body
-runs eagerly.  Same-architecture students train as one step over a member
+``make_multi_distill_epoch_fn``, and the progressive round's jitted step
+through ``progressive.make_progressive_epoch_fn``) runs the same step
+bodies over a device-resident dataset: each batch is gathered on the
+device by a row of ``DataLoader.epoch_indices`` and each loss lands in a
+device tensor, so nothing waits for the host inside an epoch.  On CUDA
+the step is captured once into a ``torch.cuda.CUDAGraph`` and replayed
+for every batch (the counterpart of JAX's one ``lax.scan`` dispatch); on
+the CPU the same body runs eagerly.  Same-architecture students train as one step over a member
 axis: each member's step on its row of the stacked weights, one backward
 and one Adam step for the group.
 """
@@ -237,12 +238,6 @@ def _update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[float]) ->
             params = [p for _, p in state.model.named_parameters()]
             torch._foreach_mul_(ema, ema_rate)
             torch._foreach_add_(ema, params, alpha=1.0 - ema_rate)
-
-
-def _apply_update(state: TrainState, loss: torch.Tensor, ema_rate: Optional[float]) -> None:
-    """:func:`_update` and one more step on the count."""
-    _update(state, loss, ema_rate)
-    state.step += 1
 
 
 def _counted(body: Callable) -> Callable:

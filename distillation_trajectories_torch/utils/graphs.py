@@ -2,10 +2,12 @@
 package's ``jax.jit`` programs.
 
 Two lanes capture: the trainers' epoch step
-(``training/state.py::_CapturedStep``, JAX's ``lax.scan`` epoch) and the
-samplers' chains (:class:`CapturedCall`, behind the sampler makers, JAX's
-jitted ``lax.scan`` chains).  What they share is here: the eager warm-up
-on a side stream (a capture records what runs and runs nothing, so
+(``training/state.py::_CapturedStep``: JAX's ``lax.scan`` epochs of the
+teacher, the students and the student group, and the progressive round's
+jitted step, ``training/progressive.py::make_progressive_epoch_fn``) and
+the samplers' chains (:class:`CapturedCall`, behind the sampler makers,
+JAX's jitted ``lax.scan`` chains).  What they share is here: the eager
+warm-up on a side stream (a capture records what runs and runs nothing, so
 Triton's build, cuDNN's algorithm choices and cuBLAS's workspace must come
 before it), the capture itself, the memory pool the sampler graphs share,
 and a host-to-device copy that does not synchronize the host.
@@ -28,6 +30,16 @@ the manager, the grid and FID samplers, and the benches' chains
   ``editing/core.py::denoise_with_trajectory``, a bench's calibration
   chain): a capture that is never replayed costs an eager chain plus the
   graph's instantiation.
+
+Of JAX's other jitted programs (``tests/test_torch_compiled_lanes.py``
+lists every ``jax.jit`` site with its lane), these run eagerly: those run
+once or a few times a run (the editing directions, the noise-prediction
+analysis, FID's feature pass, the int8 calibration, the sweep's draws, a
+checkpoint's device copy, the initialisers); the per-batch train steps
+(the lane JAX takes off its default on one device, and the mesh lane,
+whose collectives cannot be captured); the metric suite, vectorised over
+the samples (one call per size and scale); LPIPS, which no CLI calls; and
+the spatial forward, whose halo all-gathers run inside it.
 """
 
 from __future__ import annotations

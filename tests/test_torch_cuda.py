@@ -1,7 +1,8 @@
 """The port on a CUDA GPU (skipped without one): the Triton kernel against
 its plain version, and a train step, the InceptionV3 trunk, AlexNet-LPIPS,
 the noise-prediction compute half, the sweep function's averaged chains,
-the editing chain, the progressive steps, the int8 lane's padded
+the editing chain, the progressive steps (and a progressive round's
+captured epoch lane against its eager per-batch loop), the int8 lane's padded
 ``torch._int_mm`` product, its conv and forward, and the sliding-window
 sampler on the card against the CPU; the engine's kernel launches under
 either value of ``Config.pallas_cfg_update``; a CFG chain sharded over two
@@ -556,6 +557,109 @@ def test_epoch_lane_graph_matches_eager_loop(cuda, family):
                 assert float(diff.max()) <= 2.2 * 12 * 1e-4, name
                 if not _bias_feeds_batch_norm(name):
                     assert float(diff.norm() / ref[name].norm()) <= 5e-3, name
+
+
+@pytest.mark.parametrize("guidance_range, teacher_guided",
+                         [(None, False), ((1.0, 5.0), False), ((1.0, 5.0), True)],
+                         ids=["plain", "guided", "teacher_guided"])
+def test_progressive_round_graph_matches_eager_loop(cuda, guidance_range, teacher_guided):
+    """A progressive round's captured epoch lane (``make_progressive_epoch_fn``:
+    2 eager steps, one capture, replays) against the eager per-batch loop
+    of ``make_progressive_distill_step`` from one seed: sf 0.1, 16x16x1,
+    batch 8, teacher T=10 → S=5, dropout 0.3, two epochs of 8 batches,
+    float32, TF32 off, cuDNN deterministic.
+
+    Whole rounds: the draw generators end in the same state and each
+    weight lies within 2.2 x steps x lr of the loop's, Adam's bound on two
+    runs' moves apart.  The upsample's backward adds with atomics in no
+    fixed order, and a progressive round carries that rounding far: a
+    replayed round's losses drift past 1e-5 from the loop's within a few
+    steps, and two eager loops' weights past 5e-3 in a tensor's relative
+    norm (``chip_smoke.py`` 13(d) prints both distances).  So the step is
+    held step by step: 4 replays, each
+    against the eager step from the same state restored in place
+    (weights, buffers, Adam state, generator): the loss at rtol 1e-5, the
+    generator left where the replay left it, and the weights after the
+    step as ``chip_smoke.py::_hold_weights`` holds one step (relative norm
+    5e-3 bar the conv biases that feed a BatchNorm, each weight within 2.2
+    x lr)."""
+    import numpy as np
+
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training import progressive
+    from distillation_trajectories_torch.training.loop import run_train_epoch
+    from distillation_trajectories_torch.training.state import TorchDraws, create_train_state
+
+    cfg = Config(image_size=16, channels=1, batch_size=8, timesteps=10, sample_steps=10,
+                 compute_dtype="float32", dropout=0.3)
+    images = np.random.default_rng(0).uniform(-1, 1, (64, 16, 16, 1)).astype(np.float32)
+    dataset = torch.from_numpy(images).to(cuda)
+    dpt, dps = get_diffusion_params(10), get_diffusion_params(5)
+    args = (make_unet(cfg, 0.1, seed=9), dpt["alphas"], dps["alphas"], 10, dpt)
+    kw = dict(guidance_range=guidance_range, teacher_guided=teacher_guided)
+    saved, det = _no_tf32(), torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    try:
+        for lane in ("graph", "loop"):
+            make = (progressive.make_progressive_epoch_fn if lane == "graph"
+                    else progressive.make_progressive_distill_step)
+            fn = make(*args, **kw)
+            state = create_train_state(make_unet(cfg, 0.1, seed=0), cfg, TorchDraws(4, cuda))
+            loader = DataLoader(images, np.zeros(64, np.int32), 8, shuffle=True, seed=7)
+            for _ in range(2):
+                state, _, _ = run_train_epoch(
+                    state, train_step=fn, loader=loader, config=cfg, device=cuda,
+                    progress_desc="", log_label="", log_every=0, use_scan=lane == "graph",
+                    epoch_fn=fn, dataset_dev=dataset, reduce_loss=False)
+            torch.cuda.synchronize()
+            runs[lane] = (state, fn)
+        (g, epoch_fn), (l, _) = runs["graph"], runs["loop"]
+        assert g.step == l.step == 16
+        assert torch.equal(g.draws.generator.get_state(), l.draws.generator.get_state())
+        _assert_adam_bound(g.model, l.model, 16, cfg.lr, rel_limit=None)
+
+        captured, eager = epoch_fn.captured[0], progressive.make_progressive_distill_step(*args, **kw)
+        assert isinstance(captured.graph, torch.cuda.CUDAGraph)
+        gen = g.draws.generator
+        for k in range(4):
+            params = list(g.model.parameters())
+            tensors = [*params, *g.model.buffers(),
+                       *(t for p in params for t in g.optimizer.state[p].values())]
+            before, gen_before = [t.clone() for t in tensors], gen.get_state()
+            captured.i.fill_(k)
+            captured.graph.replay()
+            replayed, gen_after = float(captured.losses[k]), gen.get_state()
+            after = {name: p.detach().clone() for name, p in g.model.named_parameters()}
+            with torch.no_grad():
+                for t, b in zip(tensors, before):
+                    t.copy_(b)
+            gen.set_state(gen_before)
+            _, loss = eager(g, dataset.index_select(0, captured.idx[k]))
+            assert abs(replayed - float(loss)) <= 1e-5 * abs(float(loss)), k
+            assert torch.equal(gen.get_state(), gen_after), k
+            _assert_adam_bound(after, dict(g.model.named_parameters()), 1, cfg.lr)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+        torch.backends.cudnn.deterministic = det
+
+
+def _assert_adam_bound(got, want, steps, lr, rel_limit=5e-3):
+    """Two trainings' weights (modules, or tensors by name) from one state:
+    each weight within 2.2 x steps x lr and, unless ``rel_limit`` is None,
+    each tensor within a relative norm difference of ``rel_limit``, bar
+    the conv biases that feed a BatchNorm."""
+    got, ref = (dict(m.named_parameters()) if isinstance(m, torch.nn.Module) else m
+                for m in (got, want))
+    with torch.no_grad():
+        for name, p in got.items():
+            diff = (p - ref[name]).abs()
+            assert float(diff.max()) <= 2.2 * steps * lr, name
+            if rel_limit is not None and not _bias_feeds_batch_norm(name):
+                assert float(diff.norm() / ref[name].norm()) <= rel_limit, name
 
 
 def test_continue_training_resumes_adam_on_the_graph_lane(cuda, tmp_path):

@@ -13,7 +13,9 @@ key stream replayed into the port (``torch_parity.JaxDraws``):
   step, ``0.1·g₂ + 0.9·mu₁`` after two);
 - ``make_guided_eval_fn``: a direct ``cond=w`` call, not the (0, 0) path;
 - one round of ``progressive_distill`` end to end, plain and guided (2
-  batches, 1 epoch): the epoch's loss at rtol 1e-4, the ``steps_4``
+  batches, 1 epoch; the port's round on its epoch lane, JAX's on its
+  per-batch loop of the jitted step, so the lane's batch order is JAX's):
+  the epoch's loss at rtol 1e-4, the ``steps_4``
   checkpoint read by JAX's ``load_checkpoint`` equal to the returned model;
 - the ``train_progressive`` CLI on the CPU, and the lanes that raise.
 """
@@ -171,12 +173,14 @@ def test_guided_eval_fn_feeds_w():
 
 
 class _LossRecorder:
-    """Wraps a package's ``make_progressive_distill_step`` so every step it
-    makes records its loss."""
+    """Wraps a package's progressive step maker so every step it makes
+    records its loss: JAX's ``make_progressive_distill_step``, and the
+    port's ``make_progressive_epoch_fn``, the lane a round runs on one
+    device (each epoch's per-step losses)."""
 
-    def __init__(self, monkeypatch, module):
-        self.losses, self._make = [], module.make_progressive_distill_step
-        monkeypatch.setattr(module, "make_progressive_distill_step", self)
+    def __init__(self, monkeypatch, module, name="make_progressive_distill_step"):
+        self.losses, self._make = [], getattr(module, name)
+        monkeypatch.setattr(module, name, self)
 
     def __call__(self, *args, **kwargs):
         made = self._make(*args, **kwargs)
@@ -187,8 +191,9 @@ class _LossRecorder:
     def _wrap(self, step):
         def recorded(*args):
             state, loss = step(*args)
-            self.losses.append(float(loss))
+            self.losses.extend(np.atleast_1d(np.asarray(loss)).tolist())
             return state, loss
+        recorded.captured = getattr(step, "captured", None)  # the port's round releases it
         return recorded
 
 
@@ -199,7 +204,7 @@ def test_progressive_round_matches_jax(tmp_path, monkeypatch, guidance_range):
     jcfg, tcfg = configs(tmp_path / "jax", **kw)[0], configs(tmp_path / "port", **kw)[1]
     teacher, tvars = _seeded(tcfg, 5)
     want = _LossRecorder(monkeypatch, jax_progressive)
-    got = _LossRecorder(monkeypatch, progressive)
+    got = _LossRecorder(monkeypatch, progressive, "make_progressive_epoch_fn")
     jax_progressive.progressive_distill(jcfg, jax_make_unet(jcfg, size_factor=0.1), tvars,
                                         rounds=1, seed=0, epochs_per_round=1,
                                         guidance_range=guidance_range)
