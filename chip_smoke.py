@@ -418,6 +418,17 @@ def _busy_and_window(kernels):
     return busy_and_window((e.time_range.start, e.time_range.end) for e in kernels)
 
 
+def _recorded_s(name, fn, *args, **kwargs):
+    """``(fn(*args, **kwargs), seconds)``: the call's result and the
+    seconds inside the program's spans named ``name`` (``graph.capture``,
+    ``epoch.capture``) that the call recorded."""
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    with recording() as rec:
+        out = fn(*args, **kwargs)
+    return out, sum(s.end_ns - s.start_ns for s in rec.spans if s.name == name) / 1e9
+
+
 def profile_breakdown(run, chain_s, card, label="one teacher CFG chain"):
     """Device time of one ``run()`` by kernel kind (torch.profiler, CUPTI),
     the device's idle share between its first and last kernel with the
@@ -527,7 +538,7 @@ def phase_main_path(card):
     run = lambda: chain(draws.noises, seeds, CFG_COND_PAIRS, 3.0,
                         step_noise=draws.step_noise)
     run()  # eager: the warm-up
-    run()  # the capture, then a replay
+    _, capture_s = _recorded_s("graph.capture", run)  # the capture, then a replay
     torch.cuda.synchronize()
     times = []
     for _ in range(3):
@@ -538,9 +549,8 @@ def phase_main_path(card):
     if tuple(traj.shape) != (SAMPLES, MAIN_T + 1, 32, 32, 3) or not torch.isfinite(traj).all():
         raise RuntimeError("teacher chain output is not finite or has the wrong shape")
     chain_s = min(times)
-    (graph,) = chain.graphs.graphs.values()
     print(f"teacher CFG chain, captured lane (sf 1.0, gs 3.0, T={MAIN_T}, {SAMPLES} samples; "
-          f"capture {graph.capture_s:.3f} s): {SAMPLES / chain_s:.2f} traj/s, best of "
+          f"capture {capture_s:.3f} s): {SAMPLES / chain_s:.2f} traj/s, best of "
           f"{[round(t, 4) for t in times]} s [{card}]")
     profile_breakdown(run, chain_s, card, label="one replay of the teacher CFG chain")
     print(f"sweep ({pairs} pairs: {len(STUDENTS)} students x {len(MAIN_GS)} scales x "
@@ -748,12 +758,12 @@ class _TimedEpochs:
                 raise RuntimeError("an epoch ran off the card")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, losses = epoch_fn(state, dataset, idx)
+            (state, losses), capture_s = _recorded_s("epoch.capture", epoch_fn, state, dataset,
+                                                     idx)
             torch.cuda.synchronize()
-            captured = epoch_fn.captured[0]
-            if not isinstance(captured.graph, torch.cuda.CUDAGraph):
+            if not isinstance(epoch_fn.captured[0].graph, torch.cuda.CUDAGraph):
                 raise RuntimeError("the epoch lane captured no CUDA graph")
-            record.append((time.perf_counter() - t0, losses.cpu().tolist(), captured.capture_s))
+            record.append((time.perf_counter() - t0, losses.cpu().tolist(), capture_s))
             return state, losses
 
         timed.captured = epoch_fn.captured
@@ -3149,10 +3159,10 @@ def _time_lane(lane, cfg, loader, dataset, build):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    state, losses, n = run_train_epoch(
-        state, train_step=fn, loader=loader, config=cfg, device="cuda", progress_desc="",
-        log_label="", log_every=0, use_scan=lane == "graph", epoch_fn=fn, dataset_dev=dataset,
-        reduce_loss=False)
+    (state, losses, n), capture_s = _recorded_s(
+        "epoch.capture", run_train_epoch, state, train_step=fn, loader=loader, config=cfg,
+        device="cuda", progress_desc="", log_label="", log_every=0, use_scan=lane == "graph",
+        epoch_fn=fn, dataset_dev=dataset, reduce_loss=False)
     torch.cuda.synchronize()
     epoch_s = time.perf_counter() - t0
     if n != TRAIN_BATCHES or not np.isfinite(losses).all():
@@ -3160,7 +3170,7 @@ def _time_lane(lane, cfg, loader, dataset, build):
     if lane == "graph":
         captured = fn.captured[0]
         captured.i.zero_()  # replays below read the epoch's first rows again
-        step, capture_s = captured.graph.replay, captured.capture_s
+        step = captured.graph.replay
     else:
         images = dataset[:cfg.batch_size]
         step, capture_s = (lambda: fn(state, images)), None
@@ -3589,7 +3599,7 @@ def _hold_sampler_graph(card):
         call(chain, 3.0)  # eager, on a side stream: the warm-up
         torch.cuda.synchronize()
         reserved = [torch.cuda.max_memory_reserved()]
-        call(chain, 3.0)  # the capture, then a replay
+        _, capture_s = _recorded_s("graph.capture", call, chain, 3.0)  # the capture, a replay
         torch.cuda.synchronize()
         reserved.append(torch.cuda.max_memory_reserved())
         for gs in GRAPH_GS:
@@ -3626,7 +3636,7 @@ def _hold_sampler_graph(card):
     events = _device_events(lambda: call(chain, 3.0))
     updates = sum("cfg_engine_update_kernel" in name for name, _, _ in events)
     htod = sorted({name for name, _, _ in events if "HtoD" in name})
-    print(f"14(a) one graph for gs {list(GRAPH_GS)} (capture {graph.capture_s:.3f} s, "
+    print(f"14(a) one graph for gs {list(GRAPH_GS)} (capture {capture_s:.3f} s, "
           f"{graph.launches[0]} launches a replay by the counter); a traced replay: "
           f"{len(events)} device events, {updates} of cfg_engine_update_kernel, host-to-device "
           f"copies {htod or 'none'}; the plain version called {plain_calls.count} times; peak "
@@ -3717,8 +3727,8 @@ def _hold_bench_makers(card):
     for label, (maker, calls) in _bench_maker_runs().items():
         t0 = time.perf_counter()
         with _PlainCalls() as plain_calls:
-            for _ in range(2):  # the eager warm-up, then the capture
-                calls[0][1]["graph"]()
+            calls[0][1]["graph"]()  # the eager warm-up
+            _, capture_s = _recorded_s("graph.capture", calls[0][1]["graph"])
             gaps = []
             for value, lanes in calls:
                 before = cfg_engine_update.launches
@@ -3732,7 +3742,7 @@ def _hold_bench_makers(card):
                                        f"chain (max abs gap {gaps[-1]:.3e}), or it counted {made} "
                                        f"launches")
         graphs = list(maker.graphs.graphs.values())
-        print(f"14(a) {label}: {len(graphs)} graph (capture {graphs[0].capture_s:.3f} s, "
+        print(f"14(a) {label}: {len(graphs)} graph (capture {capture_s:.3f} s, "
               f"{graphs[0].launches[0]} launches a replay), replay vs eager max abs gap "
               f"{max(gaps):.3e} at {[v for v, _ in calls]}, the plain version called "
               f"{plain_calls.count} times; {time.perf_counter() - t0:.1f} s [{card}]")
@@ -3785,8 +3795,8 @@ def _time_graph_lane(label, maker, graph_call, eager_call, card):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_reserved()
-    graph_call()
-    graph_call()  # eager warm-up, then the capture (the main path's: replays)
+    graph_call()  # eager warm-up
+    _, capture_s = _recorded_s("graph.capture", graph_call)  # the capture, then replays
     torch.cuda.synchronize()
     graphs = maker.graphs if isinstance(maker.graphs, tuple) else (maker.graphs,)
     captured = [g for calls in graphs for g in calls.graphs.values()]
@@ -3811,8 +3821,9 @@ def _time_graph_lane(label, maker, graph_call, eager_call, card):
               f"{kernels} kernels a chain, idle share {1 - busy_ms / 1e3 / med:.4f} of the "
               f"unprofiled median ({idle:.4f} of the profiled window, {GRAPH_PROFILED} chains) "
               f"[{card}]")
-    print(f"14(b) {label}: graph x{out['eager'] / out['graph']:.3f} the eager median; capture "
-          f"{sum(g.capture_s for g in captured):.3f} s ({len(captured)} graphs); sampler pool "
+    capture = f"capture {capture_s:.3f} s" if capture_s else "captured before these turns"
+    print(f"14(b) {label}: graph x{out['eager'] / out['graph']:.3f} the eager median; {capture} "
+          f"({len(captured)} graphs); sampler pool "
           f"{_pool_bytes()} bytes; reserved {before} bytes before, peak "
           f"{torch.cuda.max_memory_reserved()} after [{card}]")
 

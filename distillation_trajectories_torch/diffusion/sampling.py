@@ -42,6 +42,7 @@ import torch
 
 from ..ops.cfg_update import cfg_engine_update, cfg_engine_update_row
 from ..utils.graphs import CapturedCall, host_to_device
+from ..utils.profiling import span
 from .schedules import extract
 
 ModelFn = Callable[..., torch.Tensor]
@@ -266,13 +267,15 @@ def _generator_seed(seed: int, t: int) -> int:
 
 def seeded_normal(keys: Sequence[Tuple[int, int]], shape, device, dtype=torch.float32):
     """``[len(keys), *shape]`` standard normals; row ``i`` comes from a
-    generator seeded from ``keys[i] = (seed, t)`` alone."""
+    generator seeded from ``keys[i] = (seed, t)`` alone.  One ``draws``
+    span (``n``: the keys drawn)."""
     device = torch.device(device)
-    out = torch.empty((len(keys), *shape), device=device, dtype=dtype)
-    gen = torch.Generator(device=device)
-    for i, (seed, t) in enumerate(keys):
-        gen.manual_seed(_generator_seed(seed, t))
-        out[i].normal_(generator=gen)
+    with span("draws", n=len(keys)):
+        out = torch.empty((len(keys), *shape), device=device, dtype=dtype)
+        gen = torch.Generator(device=device)
+        for i, (seed, t) in enumerate(keys):
+            gen.manual_seed(_generator_seed(seed, t))
+            out[i].normal_(generator=gen)
     return out
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..parallel.mesh import shard_batch
+from ..utils.profiling import span
 
 
 def progress_iter(loader, desc, config):
@@ -71,13 +72,17 @@ def run_train_epoch(
     ``epoch_fn(state, dataset_dev, idx) -> (state, losses)`` over the
     epoch's indices from ``loader.epoch_indices``.  ``reduce_loss=False``
     returns the fetched per-step losses (``[n_batches]``, or the student
-    group's ``[n_batches, N]``) in place of their mean, in either lane."""
+    group's ``[n_batches, N]``) in place of their mean, in either lane.
+    The epoch lane's epoch is a ``train.epoch`` span (``batches``), its
+    loss fetch a ``train.loss_fetch`` span inside it."""
     if use_scan:
         idx = loader.epoch_indices(config.limit_batches_per_epoch)
         if not len(idx):
             return state, (0.0 if reduce_loss else np.zeros((0,), np.float32)), 0
-        state, losses_dev = epoch_fn(state, dataset_dev, idx)
-        losses_host = losses_dev.cpu().numpy()
+        with span("train.epoch", batches=len(idx)):
+            state, losses_dev = epoch_fn(state, dataset_dev, idx)
+            with span("train.loss_fetch"):
+                losses_host = losses_dev.cpu().numpy()
         return state, (float(np.mean(losses_host)) if reduce_loss else losses_host), len(idx)
 
     losses = []

@@ -28,7 +28,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +38,7 @@ from ..diffusion.schedules import schedule_on
 from ..parallel.collectives import all_reduce_, mean_gradients
 from ..parallel.mesh import DATA_AXIS, axis_group, axis_size, shard_batch
 from ..utils.graphs import capture, on_side_stream
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -365,7 +365,10 @@ class _CapturedStep:
     The graph reads its batch's index row from ``idx`` at the device
     counter ``i``, gathers the images from the dataset, runs the step body
     and writes the loss into row ``i`` of ``losses``, then advances
-    ``i``: one ``replay()`` per batch and nothing else from the host."""
+    ``i``: one ``replay()`` per batch and nothing else from the host.
+    Spans (:func:`..utils.profiling.span`): ``epoch.warmup`` an eager step
+    (attribute ``batch``), ``epoch.capture``, and one ``epoch.replay`` over
+    an epoch's replays (``batches``), not one a replay."""
 
     def __init__(self, state, dataset: torch.Tensor, idx: torch.Tensor):
         self.state, self.dataset = state, dataset
@@ -374,7 +377,6 @@ class _CapturedStep:
         self.losses = None  # [n_batches, *loss shape], from the first step
         self.warm = 0  # eager steps taken
         self.graph = None
-        self.capture_s = 0.0
 
     def matches(self, state, dataset, idx) -> bool:
         return self.state is state and self.dataset is dataset and self.idx.shape == idx.shape
@@ -389,21 +391,20 @@ class _CapturedStep:
                 self.losses = loss.new_zeros((self.idx.shape[0], *loss.shape))
             self.losses[i].copy_(loss)
 
-        on_side_stream(step, self.dataset.device)
+        with span("epoch.warmup", batch=i):
+            on_side_stream(step, self.dataset.device)
         self.state.step += 1
         self.warm += 1
 
     def capture(self, body) -> None:
-        t0 = time.perf_counter()
-
         def step():
             at = self.i.view(1)
             loss = body(self.state, self.dataset.index_select(0, self.idx.index_select(0, at)[0]))
             self.losses.index_copy_(0, at, loss.unsqueeze(0))
             self.i.add_(1)
 
-        self.graph, _ = capture(step, generators=_draw_generators(self.state))
-        self.capture_s = time.perf_counter() - t0
+        with span("epoch.capture"):
+            self.graph, _ = capture(step, generators=_draw_generators(self.state))
 
     def run(self, body, idx: torch.Tensor) -> torch.Tensor:
         """One epoch over ``idx``: warm-up steps while any are due, the
@@ -417,9 +418,10 @@ class _CapturedStep:
         if i < n and self.graph is None:
             self.capture(body)
         self.i.fill_(i)
-        for _ in range(i, n):
-            self.graph.replay()
-            self.state.step += 1
+        with span("epoch.replay", batches=n - i):
+            for _ in range(i, n):
+                self.graph.replay()
+                self.state.step += 1
         return self.losses.clone()
 
 
@@ -446,7 +448,7 @@ def _epoch_fn(body: Callable) -> Callable:
             captured[:] = [_CapturedStep(state, dataset, idx)]
         return state, captured[0].run(step, idx)
 
-    epoch.captured = captured  # the capture, for its timing and its graph
+    epoch.captured = captured  # the capture and its graph
     return epoch
 
 

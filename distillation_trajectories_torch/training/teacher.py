@@ -26,7 +26,7 @@ from ..diffusion import get_diffusion_params, subsampled_timestep_indices
 from ..diffusion.sampling import make_loop_fn
 from ..parallel.distributed import barrier, is_main_process
 from ..parallel.mesh import mesh_from_config, shard_train_state
-from ..utils.profiling import MetricsLogger, phase_timer
+from ..utils.profiling import MetricsLogger
 from ..utils.graphs import sampler_lane_captures
 from ..utils.viz import save_image_grid
 from .checkpoints import AsyncCheckpointWriter, save_epoch
@@ -119,8 +119,7 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
 
     loader = get_data_loader(config, seed=seed)
     if use_scan:
-        with phase_timer("teacher/dataset_upload"):
-            dataset_dev = upload_dataset(loader, device)
+        dataset_dev = upload_dataset(loader, device)
     print(f"[teacher] dataset={config.dataset} size={config.image_size} "
           f"batches/epoch={len(loader)} epochs={config.epochs}")
     metrics_log = MetricsLogger(os.path.join(config.results_dir, "teacher_metrics.jsonl"))
@@ -128,21 +127,20 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     try:
         for epoch in range(config.epochs):
             t0 = time.time()
-            with phase_timer("teacher_epoch"):
-                state, avg_loss, n_batches = run_train_epoch(
-                    state,
-                    train_step=train_step,
-                    loader=loader,
-                    config=config,
-                    device=device,
-                    progress_desc=f"Epoch {epoch + 1}/{config.epochs}",
-                    log_label=f"[teacher] epoch {epoch + 1}/{config.epochs}",
-                    log_every=log_every,
-                    loss_fmt=".5f",
-                    use_scan=use_scan,
-                    epoch_fn=epoch_fn,
-                    dataset_dev=dataset_dev,
-                )
+            state, avg_loss, n_batches = run_train_epoch(
+                state,
+                train_step=train_step,
+                loader=loader,
+                config=config,
+                device=device,
+                progress_desc=f"Epoch {epoch + 1}/{config.epochs}",
+                log_label=f"[teacher] epoch {epoch + 1}/{config.epochs}",
+                log_every=log_every,
+                loss_fmt=".5f",
+                use_scan=use_scan,
+                epoch_fn=epoch_fn,
+                dataset_dev=dataset_dev,
+            )
             dt = time.time() - t0
             print(f"[teacher] epoch {epoch + 1}/{config.epochs} "
                   f"avg loss {avg_loss:.5f} ({dt:.1f}s)")
@@ -152,10 +150,9 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
             if (epoch + 1) % config.save_interval == 0 or epoch == config.epochs - 1:
                 save_epoch(ckpt_writer, config, config.teacher_models_dir, epoch + 1,
                            state.model, optimizer=state.optimizer, ema=state.ema)
-                with phase_timer("teacher/grid"):
-                    save_grid(grid_fn, source,
-                              os.path.join(config.results_dir, f"samples_epoch_{epoch + 1}.png"),
-                              config, params=state.ema)
+                save_grid(grid_fn, source,
+                          os.path.join(config.results_dir, f"samples_epoch_{epoch + 1}.png"),
+                          config, params=state.ema)
     finally:
         metrics_log.close()
         ckpt_writer.close()

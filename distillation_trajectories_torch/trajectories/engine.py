@@ -46,6 +46,7 @@ from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, batch_metrics_
 from ..parallel.mesh import DATA_AXIS, axis_size, gather_batch, mesh_from_config, shard_batch
 from ..training.state import make_eval_fn_from_config
 from ..utils.graphs import sampler_lane_captures
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -248,10 +249,11 @@ def _sweep_inputs(config, num_samples: int, base_seed: int, timesteps: int,
     d = int(np.prod(shape))
     uniforms = None
     if d > WASSERSTEIN_SAMPLE_SIZE:
-        gen = torch.Generator(device=device).manual_seed(base_seed)
-        uniforms = torch.rand(
-            (num_samples, timesteps + 1, d), generator=gen, device=device
-        )
+        with span("draws", n=1):
+            gen = torch.Generator(device=device).manual_seed(base_seed)
+            uniforms = torch.rand(
+                (num_samples, timesteps + 1, d), generator=gen, device=device
+            )
     return SweepDraws(noises, step_noise, uniforms)
 
 
@@ -282,10 +284,10 @@ def sweep_compare_trajectories_multi(
     draws; one all-gather before the means restores the sample axis in
     the unsharded order.  A job it does not divide runs unsharded, as in
     JAX.
+
+    A call is one ``sweep.call`` span (``jobs``, ``pairs``); each student
+    chain's scoring a ``sweep.metrics`` span (``sf``, ``gs``) inside it.
     """
-    mesh = mesh_from_config(config) if config is not None else None
-    d = axis_size(mesh, DATA_AXIS)
-    device = _entry_device(config, device)
     jobs = [dict(job) for job in jobs]
     for job in jobs:
         job.setdefault("guidance_scales", (1.0, 3.0, 5.0))
@@ -293,6 +295,16 @@ def sweep_compare_trajectories_multi(
         job.setdefault("base_seed", 42)
         job.setdefault("timesteps", config.timesteps)
         job.setdefault("draws", None)
+    n = sum(len(job["guidance_scales"]) * len(job["students"]) * job["num_samples"]
+            for job in jobs)
+    with span("sweep.call", jobs=len(jobs), pairs=n):
+        return _sweep_multi(teacher_model, jobs, n, config, device, verbose)
+
+
+def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
+    mesh = mesh_from_config(config) if config is not None else None
+    d = axis_size(mesh, DATA_AXIS)
+    device = _entry_device(config, device)
     models = [teacher_model] + [m for job in jobs for m in job["students"].values()]
     for model in models:
         _check_model_device(model, device)
@@ -350,7 +362,8 @@ def sweep_compare_trajectories_multi(
                 s_trajs = fn_for(model, timesteps)(
                     draws.noises, seeds, pairs, gs_host, step_noise=draws.step_noise
                 )
-                metrics = batch_metrics_core(t_trajs, s_trajs, draws.uniforms)
+                with span("sweep.metrics", sf=sf, gs=gs):
+                    metrics = batch_metrics_core(t_trajs, s_trajs, draws.uniforms)
                 # Scalar metrics only (shape [S]); per-step vectors are
                 # dropped, as in the JAX sweep's output contract.
                 scalars = {
@@ -385,10 +398,6 @@ def sweep_compare_trajectories_multi(
         for out in outputs
     ]
     if verbose:
-        n = sum(
-            len(job["guidance_scales"]) * len(job["students"]) * job["num_samples"]
-            for job in jobs
-        )
         dt = time.perf_counter() - t0
         print(
             f"[sweep] generated+scored {n} trajectory pairs in {dt:.2f}s "

@@ -25,6 +25,7 @@ import torch
 
 from ..diffusion.sampling import draw_step_noise, seeded_normal
 from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, compute_trajectory_metrics
+from ..utils.profiling import span
 from .engine import _entry_device, make_paired_trajectory_fn
 
 _TRAJ_RE = re.compile(r"trajectory_size_(.+)_sample_(\d+)\.(npz|pkl)$")
@@ -88,11 +89,14 @@ class TrajectoryManager:
     def generate_trajectory(self, seed: Optional[int] = None, noise=None, step_noise=None):
         """One paired trajectory: ``(teacher, student)``, each a
         ``[T+1, H, W, C]`` numpy array.  ``noise`` (``[H, W, C]``) defaults
-        to the draw of ``(seed, 0)``; ``step_noise`` is ``[T-1, H, W, C]``."""
+        to the draw of ``(seed, 0)``; ``step_noise`` is ``[T-1, H, W, C]``.
+        A call is one ``pairs.call`` span (``seed``), its copy back to the
+        host a ``pairs.to_host`` span inside it."""
         seed = 0 if seed is None else seed
-        if noise is None:
-            noise = seeded_normal([(seed, 0)], self._shape(), self.device)[0]
-        return self.generate_trajectory_from_sample(noise, seed, step_noise)
+        with span("pairs.call", seed=seed):
+            if noise is None:
+                noise = seeded_normal([(seed, 0)], self._shape(), self.device)[0]
+            return self.generate_trajectory_from_sample(noise, seed, step_noise)
 
     def generate_trajectory_from_sample(self, sample, seed: Optional[int] = None,
                                         step_noise=None):
@@ -102,7 +106,8 @@ class TrajectoryManager:
         if step_noise is not None:
             step_noise = torch.as_tensor(step_noise)[:, None]
         t_trajs, s_trajs = self._pairs(sample, [seed], step_noise)
-        return (t_trajs[0].float().cpu().numpy(), s_trajs[0].float().cpu().numpy())
+        with span("pairs.to_host"):
+            return (t_trajs[0].float().cpu().numpy(), s_trajs[0].float().cpu().numpy())
 
     def _file_path(self, index: int) -> str:
         return os.path.join(

@@ -44,12 +44,13 @@ the spatial forward, whose halo all-gathers run inside it.
 
 from __future__ import annotations
 
-import time
 import weakref
 from typing import Callable, Dict, Hashable, Sequence
 
 import numpy as np
 import torch
+
+from .profiling import span
 
 
 def host_to_device(a: np.ndarray, device) -> torch.Tensor:
@@ -130,7 +131,6 @@ class _Graph:
     makes."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], counted):
-        t0 = time.perf_counter()
         with torch.no_grad():
             self.inputs = [a.detach().clone() for a in inputs]
         self.counted = counted
@@ -148,7 +148,6 @@ class _Graph:
                 c.launches = b
         _SAMPLER_POOL["graphs"] += 1
         weakref.finalize(self, _pool_graph_gone)
-        self.capture_s = time.perf_counter() - t0
 
     def __call__(self, inputs: Sequence[torch.Tensor]) -> torch.Tensor:
         with torch.no_grad():
@@ -173,7 +172,11 @@ class CapturedCall:
     static output: no two calls share storage.  ``counted`` are kernel
     wrappers with a ``launches`` count: the launches recorded while
     capturing are taken back and added again at each replay, so the counts
-    stay the device's.  A capture or replay that fails raises."""
+    stay the device's.  A capture or replay that fails raises.
+
+    Each call is one span (:func:`..utils.profiling.span`, attribute
+    ``key``, the caller's key): ``graph.warmup``, ``graph.capture`` (the
+    capture alone; its call's replay follows) or ``graph.replay``."""
 
     def __init__(self, counted=()):
         self.counted = tuple(counted)
@@ -185,7 +188,10 @@ class CapturedCall:
         entry = self.graphs.get(key)
         if entry is None and key not in self._warm:
             self._warm.add(key)
-            return on_side_stream(lambda: fn(*inputs), inputs[0].device)
+            with span("graph.warmup", key=key[0]):
+                return on_side_stream(lambda: fn(*inputs), inputs[0].device)
         if entry is None:
-            entry = self.graphs[key] = _Graph(fn, inputs, self.counted)
-        return entry(inputs)
+            with span("graph.capture", key=key[0]):
+                entry = self.graphs[key] = _Graph(fn, inputs, self.counted)
+        with span("graph.replay", key=key[0]):
+            return entry(inputs)

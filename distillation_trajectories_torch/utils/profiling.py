@@ -1,11 +1,23 @@
-"""Phase timers, a profiler trace, anomaly checks and the structured
-metrics log (port of the JAX package's ``utils/profiling.py``).
+"""The program's span recorder, phase timers, anomaly checks and the
+structured metrics log (port of the JAX package's ``utils/profiling.py``),
+and the one reading of a profile its tools share.
 
-``phase_timer`` times the calling thread's wall clock; work it launches on
-the GPU is inside the time only where the phase synchronizes.
-``profile_trace`` is ``torch.profiler`` where the JAX package runs
-``jax.profiler``; ``enable_nan_checks`` is autograd's anomaly detection
-where it sets ``jax_debug_nans``.  ``busy_and_window``, ``tally`` and
+``span(name, **attrs)`` marks a piece of the program's work.  Nothing is
+kept unless a :func:`recording` is open: then each span keeps its name, its
+start and end (``time.perf_counter_ns`` read at its edges and exported on
+the Unix clock in ns, the clock of ``torch.profiler``'s host events, by one
+offset taken when the recording starts), its thread, its parent (the span
+open on the same thread when it began), the id of its call (its root span:
+``sweep.call``, ``pairs.call``, ``train.epoch``) and its attributes.  Spans
+never enter the profiler's event stream.  With no recording open,
+``span`` reads one module-level flag and returns a shared no-op context.
+Like ``phase_timer`` they time the host: work a span launches on the GPU
+runs inside it only where the span synchronises.
+
+``phase_timer`` is a span that also adds its seconds to the process-wide
+phase registry, recording or not (``phase_times``, ``dump_phase_times``);
+``enable_nan_checks`` is autograd's anomaly detection where the JAX package
+sets ``jax_debug_nans``.  ``busy_and_window``, ``tally`` and
 ``trace_summary`` are the one reading of a profile that the sampler
 profiler (``scripts/profile_sampler.py``) and ``chip_smoke.py`` share;
 ``conv_flops`` is the one FLOP count of a forward that they and the step
@@ -15,8 +27,10 @@ ablation (``scripts/bench_r2.py``) use.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
@@ -24,17 +38,96 @@ from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 _PHASE_TIMES: Dict[str, list] = defaultdict(list)
 
 
+class Span(NamedTuple):
+    """One recorded span; times in Unix ns."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    thread: int
+    id: int
+    parent: Optional[int]
+    call: int  # the id of the outermost span open on its thread, its own where none was
+    attrs: dict
+
+
+class Recording:
+    """What one :func:`recording` kept: ``spans`` in the order they ended."""
+
+    def __init__(self):
+        self.offset_ns = time.time_ns() - time.perf_counter_ns()
+        self.spans: List[Span] = []
+
+
+_RECORDING: Optional[Recording] = None  # the flag: None while nothing records
+_IDS = itertools.count(1)
+_OPEN = threading.local()  # .stack: the spans open on this thread, outermost first
+_NOOP = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "rec", "phase", "log", "t0", "id", "parent", "call")
+
+    def __init__(self, name: str, attrs: dict, rec: Optional[Recording], phase: bool = False,
+                 log: bool = False):
+        self.name, self.attrs, self.rec, self.phase, self.log = name, attrs, rec, phase, log
+
+    def __enter__(self):
+        if self.rec is not None:
+            stack = getattr(_OPEN, "stack", None)
+            if stack is None:
+                stack = _OPEN.stack = []
+            self.id = next(_IDS)
+            self.parent = stack[-1].id if stack else None
+            self.call = stack[0].call if stack else self.id
+            stack.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        rec = self.rec
+        if rec is not None:
+            _OPEN.stack.remove(self)
+            rec.spans.append(Span(self.name, self.t0 + rec.offset_ns, t1 + rec.offset_ns,
+                                  threading.get_ident(), self.id, self.parent, self.call,
+                                  self.attrs))
+        if self.phase:
+            dt = (t1 - self.t0) / 1e9
+            _PHASE_TIMES[self.name].append(dt)
+            if self.log:
+                print(f"[timer] {self.name}: {dt:.3f}s")
+        return False
+
+
+def span(name: str, **attrs):
+    """A context marking ``name``: recorded, with ``attrs``, inside a
+    :func:`recording`; else the shared no-op context."""
+    rec = _RECORDING
+    if rec is None:
+        return _NOOP
+    return _Span(name, attrs, rec)
+
+
 @contextlib.contextmanager
-def phase_timer(name: str, log: bool = False):
-    """Time a phase; accumulate into the process-wide registry."""
-    t0 = time.perf_counter()
+def recording():
+    """Keep every span that ends in the block, from any thread; yields the
+    :class:`Recording` whose ``spans`` the caller reads when the block ends.
+    An inner recording keeps the spans that begin inside it, the outer one
+    the rest."""
+    global _RECORDING
+    outer, rec = _RECORDING, Recording()
+    _RECORDING = rec
     try:
-        yield
+        yield rec
     finally:
-        dt = time.perf_counter() - t0
-        _PHASE_TIMES[name].append(dt)
-        if log:
-            print(f"[timer] {name}: {dt:.3f}s")
+        _RECORDING = outer
+
+
+def phase_timer(name: str, log: bool = False):
+    """Time a phase into the process-wide registry (every time), as a
+    :func:`span` (recorded inside a :func:`recording`)."""
+    return _Span(name, {}, _RECORDING, phase=True, log=log)
 
 
 def phase_times() -> Dict[str, Dict[str, float]]:
@@ -45,11 +138,6 @@ def phase_times() -> Dict[str, Dict[str, float]]:
     }
 
 
-def add_phase_time(name: str, seconds: float) -> None:
-    """Record a duration measured elsewhere (e.g. on a background thread)."""
-    _PHASE_TIMES[name].append(seconds)
-
-
 def dump_phase_times(path: str) -> None:
     with open(path, "w") as f:
         json.dump(phase_times(), f, indent=2)
@@ -57,29 +145,6 @@ def dump_phase_times(path: str) -> None:
 
 def reset_phase_times() -> None:
     _PHASE_TIMES.clear()
-
-
-@contextlib.contextmanager
-def profile_trace(trace_dir: Optional[str] = None):
-    """``torch.profiler`` over the block (CPU and, where there is one, CUDA
-    activity), written as a Chrome trace into ``trace_dir`` or
-    ``DTT_PROFILE_DIR``; a no-op when neither is given."""
-    trace_dir = trace_dir or os.environ.get("DTT_PROFILE_DIR")
-    if not trace_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(trace_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
-    path = os.path.join(trace_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
-    prof.export_chrome_trace(path)
-    print(f"[profiler] trace written to {path}")
 
 
 KERNEL_KINDS = (  # first match wins

@@ -829,3 +829,44 @@ def test_bench_chain_maker_replays_its_eager_body(cuda):
         assert not torch.equal(a, b)  # each replay read w where it was set
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_maker_calls_record_warmup_then_capture_and_replay_then_replay(cuda):
+    """The sweep maker's first three calls for one key (T=10, float32) under
+    the span recorder: ``graph.warmup``; ``graph.capture`` then
+    ``graph.replay``; ``graph.replay``, each with the call's key, and the
+    step-noise draw before each."""
+    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    _, sweep, _ = _graph_lane_makers(cuda)
+    noises, _ = _chain_inputs(cuda, 2)
+    names = []
+    for _ in range(3):
+        with recording() as rec:
+            sweep(noises, list(range(4)), CFG_COND_PAIRS, 3.0)
+        torch.cuda.synchronize()
+        spans = sorted(rec.spans, key=lambda s: s.start_ns)
+        names.append([s.name for s in spans])
+        graph = [s for s in spans if s.name.startswith("graph.")]
+        assert all(s.attrs["key"] == CFG_COND_PAIRS.tobytes() for s in graph)
+    assert names == [["draws", "graph.warmup"], ["draws", "graph.capture", "graph.replay"],
+                     ["draws", "graph.replay"]]
+
+
+def test_epoch_records_two_warmups_one_capture_and_one_replay_span(cuda):
+    """An epoch of 6 batches on the epoch lane under the span recorder:
+    ``epoch.warmup`` for each of the 2 eager steps, ``epoch.capture`` once
+    and one ``epoch.replay`` over the 4 replays (no span a replay), all
+    inside ``train.epoch``; the next epoch records its replay span alone."""
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    with recording() as rec:
+        _epochs(cuda, "graph", "teacher", epochs=2)
+    spans = sorted(rec.spans, key=lambda s: s.start_ns)
+    epochs = [s for s in spans if s.name == "train.epoch"]
+    assert [s.attrs["batches"] for s in epochs] == [6, 6]
+    inside = [[s.name for s in spans if s.call == e.id and s is not e] for e in epochs]
+    assert inside == [["epoch.warmup", "epoch.warmup", "epoch.capture", "epoch.replay",
+                       "train.loss_fetch"], ["epoch.replay", "train.loss_fetch"]]
+    assert [s.attrs["batches"] for s in spans if s.name == "epoch.replay"] == [4, 6]
