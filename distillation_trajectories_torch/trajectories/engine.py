@@ -8,7 +8,9 @@ batch with the metric suite on the device.  The makers
 (:func:`make_sweep_trajectory_fn`, :func:`make_batch_trajectory_fn`,
 :func:`make_paired_trajectory_fn`) are the counterparts of JAX's jitted
 ones: on the card each captures its chain into a CUDA graph on its second
-call for a key and replays it.  The JAX package's TPU host machinery (AOT
+call for a key and replays it.  The sweep keeps its makers across calls
+(:func:`sweep_compare_trajectories_multi`), so a repeated sweep replays the
+graphs an earlier call captured.  The JAX package's TPU host machinery (AOT
 compile pool, ``CompiledWithFallback``, the watchdog) has no counterpart.
 
 The three random draws of a sweep — starting noises, per-step noise and the
@@ -25,8 +27,11 @@ unsharded result.  ``Config.spatial_shape`` sends
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -227,13 +232,90 @@ def make_sweep_trajectory_fn(model, timesteps: int, config=None):
     into the graph's scalar table, so one graph serves every guidance
     scale.  A replay reads the model's weights where they are, so it sees
     them changed in place.  Each call returns fresh storage.
-    ``fn._eager`` is the eager body."""
+    ``fn._eager`` is the eager body.
+
+    A maker made here lives as long as its caller holds it.  The makers of
+    :func:`sweep_compare_trajectories_multi` are resident instead: kept
+    across its calls while their model lives and is as it was when they
+    were built, bar the int8 ones, which fold the weights here."""
     alphas = get_diffusion_params(timesteps, config)["alphas"]
     model_fn = make_eval_fn_from_config(model, config)
     return make_batch_chain_fn(
         model_fn, timesteps, alphas, _store_dtype(config),
         captures=lambda device: sampler_lane_captures(device, model, config),
     )
+
+
+# The Config fields a sweep maker reads when it is built: the schedule
+# (get_diffusion_params), the forward (make_eval_fn_from_config), the store
+# dtype and whether it captures (sampler_lane_captures).
+_MAKER_FIELDS = ("noise_schedule", "beta_start", "beta_end", "compute_dtype", "sampler_quant",
+                 "trajectory_store_dtype", "spatial_shape", "mesh_shape")
+
+
+@dataclasses.dataclass
+class _Resident:
+    """A sweep maker kept across calls: what it assumed of its model when
+    built (:func:`_weights_stamp`), the maker, and the chains (CFG on or off,
+    the noises' shape and dtype) some call ran twice or more, so captured."""
+
+    stamp: tuple
+    fn: object
+    captured: set
+
+
+# The sweep's resident makers: for each model (a weak key), the makers its
+# latest sweep call used, by :func:`_maker_key`.
+_RESIDENT: "weakref.WeakKeyDictionary[torch.nn.Module, Dict[tuple, _Resident]]" = (
+    weakref.WeakKeyDictionary())
+
+
+def _weights_stamp(model: torch.nn.Module) -> tuple:
+    """Each parameter's and buffer's storage and in-place version, and each
+    module's mode."""
+    tensors = itertools.chain(model.parameters(), model.buffers())
+    return (tuple((t.data_ptr(), t._version) for t in tensors),
+            tuple(m.training for m in model.modules()))
+
+
+def _maker_key(timesteps: int, config, device) -> tuple:
+    """What a sweep maker is built from besides its model, and the TF32
+    switches its graph's kernels were chosen under."""
+    values = tuple(getattr(config, f, None) for f in _MAKER_FIELDS)
+    return (int(timesteps), str(device),
+            tuple(tuple(v) if isinstance(v, list) else v for v in values),
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+def _resident_makers(wanted, config, device):
+    """``({(id(model), T): _Resident}, makers built)`` for ``wanted``
+    (``{(id(model), T): (model, T)}``): a resident maker whose model is as it
+    was when the maker was built, else a new one.  Each model then keeps
+    just the makers of this call.  A maker reaches its model through a weak
+    proxy, so the store keeps no model alive.
+
+    An int8 maker (``Config.sampler_quant="int8"``) folds the weights when
+    it is built, so it is built every call and kept by none: a CUDA-graph
+    replay, as the trainers' captured lanes run a step, changes weights in
+    place without raising their ``_version``, and no stamp would see its
+    fold go stale.  The other makers read the weights in place."""
+    resident = getattr(config, "sampler_quant", "none") != "int8"
+    makers, kept, built = {}, {}, 0
+    for mkey, (model, timesteps) in wanted.items():
+        key = _maker_key(timesteps, config, device)
+        entry = _RESIDENT.get(model, {}).get(key) if resident else None
+        if entry is None or entry.stamp != _weights_stamp(model):
+            fn = make_sweep_trajectory_fn(weakref.proxy(model), timesteps, config)
+            # Stamped after the build, which puts the model in eval mode.
+            entry = _Resident(_weights_stamp(model), fn, set())
+            built += 1
+        makers[mkey] = entry
+        entries = kept.setdefault(model, {})
+        if resident:
+            entries[key] = entry
+    for model, entries in kept.items():
+        _RESIDENT[model] = entries
+    return makers, built
 
 
 def _sweep_inputs(config, num_samples: int, base_seed: int, timesteps: int,
@@ -285,8 +367,31 @@ def sweep_compare_trajectories_multi(
     the unsharded order.  A job it does not divide runs unsharded, as in
     JAX.
 
-    A call is one ``sweep.call`` span (``jobs``, ``pairs``); each student
-    chain's scoring a ``sweep.metrics`` span (``sf``, ``gs``) inside it.
+    The chain makers are resident: kept across calls, one per model and
+    T, so a later call with the same models, T, configuration and draw
+    shapes replays the graphs an earlier call captured, with no warm-up and
+    no capture.  A maker is built anew when its model has changed since:
+    a parameter or buffer with other storage or an in-place change
+    (``Tensor._version``: a write through ``.data`` is not counted), or a
+    module put in training mode; or when a ``Config`` field the maker
+    reads, or a TF32 switch, differs.  Under ``sampler_quant="int8"`` every
+    call builds its makers, which fold the weights, and keeps none.  The
+    store holds each model weakly and keeps, per model, the makers of its
+    latest call: dropping the models releases their graphs.  Until then
+    their graphs stay allocated between calls, through whatever the caller
+    runs next (a training epoch, say): each graph holds its static noises,
+    step noise and trajectories, 0.296 GiB for 256 samples of 32x32x3 at
+    T=50 in float32, and the shared sampler pool stays reserved for
+    them.  A chain the call runs once (in the CFG CLI's scales, each
+    model's CFG-off chain) runs the maker's eager body unless an earlier
+    call captured it: a graph kept alive for one run a call would hold its
+    static inputs and output for nothing.
+
+    A call is one ``sweep.call`` span (``jobs``, ``pairs``); inside it one
+    ``sweep.makers`` span (``built``, ``reused`` and ``eager_once``: makers
+    built and found resident, chains sent to the eager body as run once),
+    and each student chain's scoring a ``sweep.metrics`` span (``sf``,
+    ``gs``).
     """
     jobs = [dict(job) for job in jobs]
     for job in jobs:
@@ -311,8 +416,6 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
 
     t0 = time.perf_counter()
     draws_cache: Dict[tuple, SweepDraws] = {}
-    fn_cache: Dict[tuple, object] = {}
-    teacher_chain_cache: Dict[tuple, torch.Tensor] = {}
 
     def job_draws(job):
         if job["draws"] is not None:
@@ -325,15 +428,9 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
                 draws_cache[key] = _sweep_inputs(config, *key, device)
         return key, draws_cache[key]
 
-    def fn_for(model, timesteps):
-        key = (id(model), timesteps)
-        if key not in fn_cache:
-            fn_cache[key] = make_sweep_trajectory_fn(model, timesteps, config)
-        return fn_cache[key]
-
-    pending = []  # (job index, size factor, gs, {metric: [S] tensor}, sharded)
-    for ji, job in enumerate(jobs):
-        timesteps, s = job["timesteps"], job["num_samples"]
+    def job_rows(job):
+        """``(draws key, draws, seeds, samples, sharded)``: this rank's rows."""
+        s = job["num_samples"]
         dkey, draws = job_draws(job)
         seeds = np.arange(job["base_seed"], job["base_seed"] + s)
         sharded = d > 1 and s % d == 0
@@ -347,30 +444,58 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
                                                rows(draws.uniforms))
             draws = draws_cache[dkey]
             seeds, s = shard_batch(seeds, mesh).numpy(), s // d
+        return dkey, draws, seeds, s, sharded
+
+    # The call's chains in the order they run: at each scale of a job the
+    # teacher's (sf None; once per T, scale and draws, its trajectories
+    # shared across jobs), then each student's.  A chain's key is its
+    # maker's (the model and T) and its graph's (CFG on or off, the draws'
+    # shape and dtype); the call counts each key's runs before it runs them.
+    rows = [job_rows(job) for job in jobs]
+    plan, keys, wanted, teachers = [], [], {}, set()
+    for ji, (job, (dkey, draws, *_)) in enumerate(zip(jobs, rows)):
+        timesteps = job["timesteps"]
         for gs in job["guidance_scales"]:
             use_cfg = gs is not None and gs > 1.0
-            pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
-            gs_host = float(1.0 if gs is None else gs)
-            ck = (timesteps, use_cfg, gs_host, dkey)
-            t_trajs = teacher_chain_cache.get(ck)
-            if t_trajs is None:
-                t_trajs = fn_for(teacher_model, timesteps)(
-                    draws.noises, seeds, pairs, gs_host, step_noise=draws.step_noise
-                )
-                teacher_chain_cache[ck] = t_trajs
-            for sf, model in job["students"].items():
-                s_trajs = fn_for(model, timesteps)(
-                    draws.noises, seeds, pairs, gs_host, step_noise=draws.step_noise
-                )
-                with span("sweep.metrics", sf=sf, gs=gs):
-                    metrics = batch_metrics_core(t_trajs, s_trajs, draws.uniforms)
-                # Scalar metrics only (shape [S]); per-step vectors are
-                # dropped, as in the JAX sweep's output contract.
-                scalars = {
-                    k: v for k, v in metrics.items()
-                    if v.ndim == 1 and v.shape[0] == s
-                }
-                pending.append((ji, sf, gs, scalars, sharded))
+            tkey = (timesteps, use_cfg, float(1.0 if gs is None else gs), dkey)
+            chains = list(job["students"].items())
+            if tkey not in teachers:
+                teachers.add(tkey)
+                chains.insert(0, (None, teacher_model))
+            for sf, model in chains:
+                plan.append((ji, sf, gs, tkey))
+                keys.append(((id(model), timesteps),
+                             (use_cfg, tuple(draws.noises.shape), draws.noises.dtype)))
+                wanted[keys[-1][0]] = (model, timesteps)
+    runs = collections.Counter(keys)
+
+    with span("sweep.makers") as record:
+        makers, built = _resident_makers(wanted, config, device)
+        once = {(mk, chk) for (mk, chk), k in runs.items()
+                if k == 1 and chk not in makers[mk].captured}
+        if record is not None:
+            record.attrs.update(built=built, reused=len(makers) - built, eager_once=len(once))
+
+    teacher_trajs: Dict[tuple, torch.Tensor] = {}
+    pending = []  # (job index, size factor, gs, {metric: [S] tensor}, sharded)
+    for (ji, sf, gs, tkey), key in zip(plan, keys):
+        _, draws, seeds, s, sharded = rows[ji]
+        _, use_cfg, gs_host, _ = tkey
+        entry = makers[key[0]]
+        if runs[key] > 1:
+            entry.captured.add(key[1])
+        trajs = (entry.fn._eager if key in once else entry.fn)(
+            draws.noises, seeds, CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS, gs_host,
+            step_noise=draws.step_noise)
+        if sf is None:
+            teacher_trajs[tkey] = trajs
+            continue
+        with span("sweep.metrics", sf=sf, gs=gs):
+            metrics = batch_metrics_core(teacher_trajs[tkey], trajs, draws.uniforms)
+        # Scalar metrics only (shape [S]); per-step vectors are dropped, as
+        # in the JAX sweep's output contract.
+        scalars = {k: v for k, v in metrics.items() if v.ndim == 1 and v.shape[0] == s}
+        pending.append((ji, sf, gs, scalars, sharded))
 
     # One all-gather restores the sharded jobs' samples (rank r holds rows
     # r·l … (r+1)·l of each vector), then one transfer brings every vector.

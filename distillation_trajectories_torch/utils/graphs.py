@@ -29,7 +29,9 @@ the manager, the grid and FID samplers, and the benches' chains
   ``generate_trajectory_scan``, ``p_sample_loop``,
   ``editing/core.py::denoise_with_trajectory``, a bench's calibration
   chain): a capture that is never replayed costs an eager chain plus the
-  graph's instantiation.
+  graph's instantiation.  A chain that a sweep call runs only once is such
+  a call: the engine sends it to its maker's eager body unless an earlier
+  call captured it.
 
 Of JAX's other jitted programs (``tests/test_torch_compiled_lanes.py``
 lists every ``jax.jit`` site with its lane), these run eagerly: those run

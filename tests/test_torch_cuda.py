@@ -11,7 +11,8 @@ samplers' captured lane (a maker's CUDA graph against its eager body: one
 graph for three guidance scales, weights changed in place or given per
 call, 9 launches counted a T=10 replay), the benches' single-seed maker
 among them (one graph for three scales, and for two values of a guided
-student's ``w``).
+student's ``w``); and the sweep's makers kept across calls (a warm-up and a
+capture a model in the first of three calls, then replays alone).
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -19,6 +20,7 @@ installed; there, skip the JAX-importing conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -852,6 +854,122 @@ def test_maker_calls_record_warmup_then_capture_and_replay_then_replay(cuda):
         assert all(s.attrs["key"] == CFG_COND_PAIRS.tobytes() for s in graph)
     assert names == [["draws", "graph.warmup"], ["draws", "graph.capture", "graph.replay"],
                      ["draws", "graph.replay"]]
+
+
+def test_sweep_calls_replay_resident_makers(cuda):
+    """Three sweep calls with the same three models (16x16x1, T=10, float32,
+    TF32 off, scales 1, 2, 3 and 5) under the span recorder: the first
+    warms up and captures each model's CFG chain once, the next two only
+    replay it at every CFG scale; the third call's metric means equal those
+    of a call on freshly built models with the same draws (NaN where
+    ``trajectory_mse`` is, on both sides), and the third call reserves no
+    more than the second (which reserves a little more than the first,
+    whose captures emptied the allocator's cache)."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.trajectories import sweep_compare_trajectories_multi
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    scales = (1.0, 2.0, 3.0, 5.0)
+    cfg = Config(device="cuda", image_size=16, channels=1, timesteps=10, sample_steps=10,
+                 compute_dtype="float32")
+
+    def call(teacher, students):
+        job = {"students": students, "guidance_scales": scales, "num_samples": 4,
+               "base_seed": 3, "timesteps": 10}
+        with recording() as rec:
+            out = sweep_compare_trajectories_multi(teacher, [job], cfg, verbose=False)[0]
+        torch.cuda.synchronize()
+        names = [s.name for s in rec.spans]
+        return out, tuple(names.count(n) for n in ("graph.warmup", "graph.capture",
+                                                   "graph.replay"))
+
+    def models():
+        return (make_unet(cfg, size_factor=0.2, seed=5),
+                {sf: make_unet(cfg, size_factor=sf, seed=i) for i, sf in enumerate((0.1, 0.2))})
+
+    saved = _no_tf32()
+    try:
+        teacher, students = models()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        outs, counts, peaks = [], [], []
+        for _ in range(3):
+            out, n = call(teacher, students)
+            outs.append(out)
+            counts.append(n)
+            peaks.append(torch.cuda.max_memory_reserved())
+        cfg_scales = len(scales) - 1
+        assert counts == [(3, 3, 3 * (cfg_scales - 1)), (0, 0, 3 * cfg_scales),
+                          (0, 0, 3 * cfg_scales)]
+        assert peaks[2] == peaks[1]  # the steady calls reserve nothing more
+        np.testing.assert_equal(outs[2], call(*models())[0])  # NaN equals NaN
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("quant", ["none", "int8"])
+def test_sweep_between_replayed_epochs_sees_the_trained_weights(cuda, quant):
+    """An epoch of an sf-0.1 teacher on the epoch lane (2 eager steps, the
+    capture, 4 replays), a sweep, an epoch of 6 replays alone (the weights
+    change in place and no ``_version`` rises), then a sweep (16x16x1,
+    T=10, float32, TF32 off, scales 1, 2 and 3): the plain makers stay
+    resident and their replays read the trained weights in place; the int8
+    ones, which fold the weights, are built anew.  Either way the second
+    sweep's metric means equal those of a sweep on fresh copies of the
+    trained models."""
+    import copy
+
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader
+    from distillation_trajectories_torch.diffusion import get_diffusion_params
+    from distillation_trajectories_torch.models import make_unet
+    from distillation_trajectories_torch.training import state as st
+    from distillation_trajectories_torch.training.loop import run_train_epoch
+    from distillation_trajectories_torch.trajectories import sweep_compare_trajectories_multi
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    cfg = Config(device="cuda", image_size=16, channels=1, batch_size=8, timesteps=10,
+                 sample_steps=10, compute_dtype="float32", dropout=0.3, sampler_quant=quant)
+    images = np.random.default_rng(0).uniform(-1, 1, (48, 16, 16, 1)).astype(np.float32)
+    dataset = torch.from_numpy(images).to(cuda)
+    loader = DataLoader(images, np.zeros(48, np.int32), 8, shuffle=True, seed=7)
+    fn = st.make_teacher_epoch_fn(get_diffusion_params(10), 10)
+    state = st.create_train_state(make_unet(cfg, 0.1, seed=3), cfg, st.TorchDraws(11, cuda))
+    students = {0.2: make_unet(cfg, 0.2, seed=5)}
+
+    def epoch(state):
+        state, _, _ = run_train_epoch(
+            state, train_step=fn, loader=loader, config=cfg, device=cuda, progress_desc="",
+            log_label="", log_every=0, use_scan=True, epoch_fn=fn, dataset_dev=dataset,
+            reduce_loss=False)
+        torch.cuda.synchronize()
+        return state
+
+    def sweep(teacher, students):
+        job = {"students": students, "guidance_scales": (1.0, 2.0, 3.0), "num_samples": 4,
+               "base_seed": 3, "timesteps": 10}
+        with recording() as rec:
+            out = sweep_compare_trajectories_multi(teacher, [job], cfg, verbose=False)[0]
+        (makers,) = [s.attrs["built"] for s in rec.spans if s.name == "sweep.makers"]
+        return out, makers
+
+    saved = _no_tf32()
+    try:
+        state = epoch(state)
+        first, built = sweep(state.model, students)
+        assert built == 2
+        versions = [p._version for p in state.model.parameters()]
+        state = epoch(state)
+        assert [p._version for p in state.model.parameters()] == versions
+        second, built = sweep(state.model, students)
+        assert built == (0 if quant == "none" else 2)
+        endpoint = lambda out: out[0.2]["student_metrics"][3.0]["endpoint_distance"]
+        assert endpoint(second) != endpoint(first)
+        fresh = copy.deepcopy(state.model), {sf: copy.deepcopy(m) for sf, m in students.items()}
+        np.testing.assert_equal(second, sweep(*fresh)[0])  # NaN equals NaN
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def test_epoch_records_two_warmups_one_capture_and_one_replay_span(cuda):

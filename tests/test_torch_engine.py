@@ -2,7 +2,10 @@
 all three random draws injected from JAX, and JAX-written checkpoints
 loading into the port."""
 
+import copy
 import dataclasses
+import gc
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -195,3 +198,199 @@ def test_multi_job_sweep_takes_jobs_of_unequal_sample_counts():
     together = sweep_compare_trajectories_multi(model, jobs, tcfg, verbose=False)
     for job, got in zip(jobs, together):
         assert got == sweep_compare_trajectories_multi(model, [job], tcfg, verbose=False)[0]
+
+
+# -- the sweep's resident makers ---------------------------------------------
+
+
+def _resident_models(cfg):
+    teacher = make_unet(cfg, size_factor=0.2, device="cpu", seed=0)
+    return teacher, {0.1: make_unet(cfg, size_factor=0.1, device="cpu", seed=1),
+                     0.2: make_unet(cfg, size_factor=0.2, device="cpu", seed=2)}
+
+
+def _spied_sweep(monkeypatch):
+    """``(sweep(teacher, students, cfg, **job) -> (results, sweep.makers
+    attrs), built, paths)``: ``built`` lists the model (its first parameter)
+    of each maker made, ``paths`` each chain run as ``(first parameter,
+    "eager" or "maker", CFG on)``."""
+    from distillation_trajectories_torch.trajectories import engine
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    made = engine.make_sweep_trajectory_fn
+    built, paths = [], []
+
+    def spy(model, timesteps, config):
+        fn, first = made(model, timesteps, config), next(model.parameters())
+
+        def through(path, chain):
+            def run(noises, seeds, cond_pairs, gs, step_noise=None):
+                paths.append((first, path, bool(np.asarray(cond_pairs)[1, 0])))
+                return chain(noises, seeds, cond_pairs, gs, step_noise=step_noise)
+            return run
+
+        out = through("maker", fn)
+        out._eager, out.graphs = through("eager", fn._eager), fn.graphs
+        built.append(first)
+        return out
+
+    monkeypatch.setattr(engine, "make_sweep_trajectory_fn", spy)
+
+    def sweep(teacher, students, cfg, jobs=None, **job):
+        job = {"students": students, "guidance_scales": (1.0, 3.0, 5.0), "num_samples": 2,
+               "base_seed": 5, "timesteps": cfg.timesteps, **job}
+        with recording() as rec:
+            out = sweep_compare_trajectories_multi(teacher, jobs or [job], cfg, device="cpu",
+                                                   verbose=False)
+        (makers,) = [s.attrs for s in rec.spans if s.name == "sweep.makers"]
+        return out, makers
+
+    return sweep, built, paths
+
+
+def test_second_sweep_call_replays_resident_makers(monkeypatch):
+    """A second call with the same models, T and config builds no maker
+    (``built`` 0, ``reused`` 3) and returns the first call's results at the
+    same ``base_seed``."""
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4})
+    teacher, students = _resident_models(cfg)
+    sweep, built, _ = _spied_sweep(monkeypatch)
+    first, makers = sweep(teacher, students, cfg)
+    assert len(built) == 3 and makers == {"built": 3, "reused": 0, "eager_once": 3}
+    second, makers = sweep(teacher, students, cfg)
+    assert len(built) == 3 and makers == {"built": 0, "reused": 3, "eager_once": 3}
+    assert second == first
+    assert sweep(teacher, students, cfg, base_seed=6)[0] != first
+
+
+def _replace_storage(models):
+    p = next(models["student"].parameters())
+    p.data = p.data.clone()
+
+
+def _change_in_place(models):
+    with torch.no_grad():
+        next(models["student"].parameters()).mul_(1.01)
+
+
+@pytest.mark.parametrize("change, rebuilt", [
+    (_replace_storage, {"student"}),
+    (_change_in_place, {"student"}),
+    (lambda models: models["cfg"].update(timesteps=3), {"teacher", "student", "other"}),
+    (lambda models: models["cfg"].update(trajectory_store_dtype="bfloat16"),
+     {"teacher", "student", "other"}),
+    (lambda models: models["cfg"].update(sampler_quant="int8"), {"teacher", "student", "other"}),
+], ids=["storage", "in_place", "timesteps", "store_dtype", "int8"])
+def test_sweep_rebuilds_exactly_the_affected_makers(monkeypatch, change, rebuilt):
+    """A parameter given other storage or changed in place rebuilds that
+    model's maker alone; another T, store dtype or ``sampler_quant``
+    rebuilds every maker of the call.  Each result equals a call on fresh
+    copies of the models (makers built anew)."""
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4})
+    teacher, students = _resident_models(cfg)
+    models = {"teacher": teacher, "student": students[0.1], "other": students[0.2], "cfg": {}}
+    sweep, built, _ = _spied_sweep(monkeypatch)
+    sweep(teacher, students, cfg)
+    built.clear()
+    change(models)
+    cfg = dataclasses.replace(cfg, **models["cfg"])
+    got, makers = sweep(teacher, students, cfg, timesteps=cfg.timesteps)
+    firsts = {name: next(models[name].parameters()) for name in ("teacher", "student", "other")}
+    assert {name for name, p in firsts.items() if any(p is b for b in built)} == rebuilt
+    assert makers["built"] == len(built) == len(rebuilt)
+    assert makers["reused"] == 3 - len(rebuilt)
+    fresh = {sf: copy.deepcopy(m) for sf, m in students.items()}
+    assert got == sweep(copy.deepcopy(teacher), fresh, cfg, timesteps=cfg.timesteps)[0]
+
+
+def test_int8_sweep_refolds_weights_changed_in_place(monkeypatch):
+    """Under ``sampler_quant="int8"`` the maker folds the weights when it is
+    built, so every call builds its makers and the store keeps none: after
+    an in-place change the next call folds them again, and its results
+    equal those of fresh copies of the models."""
+    from distillation_trajectories_torch.trajectories import engine
+
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4, "sampler_quant": "int8"})
+    teacher, students = _resident_models(cfg)
+    sweep, built, _ = _spied_sweep(monkeypatch)
+    before = sweep(teacher, students, cfg)[0]
+    assert sweep(teacher, students, cfg)[0] == before and len(built) == 6
+    assert all(engine._RESIDENT[m] == {} for m in (teacher, *students.values()))
+    with torch.no_grad():
+        for p in teacher.parameters():
+            p.mul_(1.05)
+    after, makers = sweep(teacher, students, cfg)
+    assert makers == {"built": 3, "reused": 0, "eager_once": 3} and after != before
+    fresh = {sf: copy.deepcopy(m) for sf, m in students.items()}
+    assert after == sweep(copy.deepcopy(teacher), fresh, cfg)[0]
+
+
+@pytest.mark.parametrize("quant, built", [("none", 0), ("int8", 3)])
+def test_sweep_sees_weights_changed_without_a_version(monkeypatch, quant, built):
+    """A write that raises no ``_version`` (through ``.data`` here; on the
+    card, a CUDA-graph replay of a training step) leaves the stamp as it
+    was: the plain makers stay resident and read the new weights in place,
+    the int8 ones are built anew as every call.  Either way the results
+    equal those of fresh copies of the models."""
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4, "sampler_quant": quant})
+    teacher, students = _resident_models(cfg)
+    sweep, _, _ = _spied_sweep(monkeypatch)
+    before = sweep(teacher, students, cfg)[0]
+    versions = [p._version for p in teacher.parameters()]
+    for p in teacher.parameters():
+        p.data.mul_(1.05)
+    assert [p._version for p in teacher.parameters()] == versions
+    after, makers = sweep(teacher, students, cfg)
+    assert makers["built"] == built and after != before
+    fresh = {sf: copy.deepcopy(m) for sf, m in students.items()}
+    assert after == sweep(copy.deepcopy(teacher), fresh, cfg)[0]
+
+
+def test_collected_model_leaves_no_resident_maker(monkeypatch):
+    """The store keeps no model alive: once its models are deleted and
+    collected, their makers are gone too."""
+    from distillation_trajectories_torch.trajectories import engine
+
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4})
+    teacher, students = _resident_models(cfg)
+    sweep, _, _ = _spied_sweep(monkeypatch)
+    sweep(teacher, students, cfg)
+    refs = [weakref.ref(m) for m in (teacher, *students.values())]
+    makers = [weakref.ref(e.fn) for m in (teacher, *students.values())
+              for e in engine._RESIDENT[m].values()]
+    assert len(makers) == 3
+    del teacher, students
+    gc.collect()
+    assert all(r() is None for r in refs + makers)
+    assert not any(r() in engine._RESIDENT for r in refs)
+
+
+def test_chain_run_once_a_call_takes_the_eager_body(monkeypatch):
+    """Two jobs on the same draws share the teacher's chains: each model's
+    CFG-off chain runs once a call and goes to the maker's eager body, its
+    CFG chain runs twice or more and goes through the maker.  A chain an
+    earlier call ran twice (captured on the card) goes through the maker
+    even where this call runs it once."""
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4})
+    teacher, students = _resident_models(cfg)
+    sweep, _, paths = _spied_sweep(monkeypatch)
+    jobs = [{"students": {sf: m}, "guidance_scales": (1.0, 3.0, 5.0), "num_samples": 2,
+             "base_seed": 5, "timesteps": 4} for sf, m in students.items()]
+    _, makers = sweep(teacher, None, cfg, jobs=jobs)
+    assert makers == {"built": 3, "reused": 0, "eager_once": 3}
+    assert sorted({(path, cfg_on) for _, path, cfg_on in paths}) == [
+        ("eager", False), ("maker", True)]
+    assert len(paths) == 3 * 3  # three scales of three models: the teacher's serve both jobs
+    paths.clear()
+    twice = [dict(job, guidance_scales=(1.0,), base_seed=seed)
+             for job, seed in zip(jobs, (7, 8))]
+    _, makers = sweep(teacher, None, cfg, jobs=twice)  # CFG off: the teacher's runs twice
+    assert makers == {"built": 0, "reused": 3, "eager_once": 2}
+    teacher_first = next(teacher.parameters())
+    assert sorted((p is teacher_first, path) for p, path, _ in paths) == [
+        (False, "eager"), (False, "eager"), (True, "maker"), (True, "maker")]
+    paths.clear()
+    _, makers = sweep(teacher, None, cfg, jobs=[dict(jobs[0], guidance_scales=(1.0,))])
+    assert makers == {"built": 0, "reused": 2, "eager_once": 1}
+    assert sorted((p is teacher_first, path) for p, path, _ in paths) == [
+        (False, "eager"), (True, "maker")]

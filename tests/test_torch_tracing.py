@@ -141,6 +141,27 @@ def test_sweep_call_records_draws_and_metrics_inside_it(tmp_path):
     assert not any(s.name.startswith("graph.") for s in spans)  # the CPU captures nothing
 
 
+def test_sweep_call_records_its_makers_inside_it(tmp_path):
+    """One ``sweep.makers`` span inside each ``sweep.call``: the first call
+    builds the teacher's and the student's makers, the second finds both
+    resident; each model's two chains (CFG off and on) run once a call, so
+    go to the eager body."""
+    cfg = Config(base_dir=str(tmp_path), **KW)
+    teacher = make_unet(cfg, size_factor=0.2, seed=0, device="cpu")
+    job = {"students": {0.1: make_unet(cfg, size_factor=0.1, seed=1, device="cpu")},
+           "guidance_scales": (1.0, 3.0), "num_samples": 2, "base_seed": 5, "timesteps": 4}
+    attrs = []
+    for _ in range(2):
+        _, by_name, _ = _recorded(lambda: sweep_compare_trajectories_multi(
+            teacher, [job], cfg, device="cpu", verbose=False))
+        (call,), (makers,) = by_name["sweep.call"], by_name["sweep.makers"]
+        assert _inside(makers, call)
+        assert makers.end_ns <= min(s.start_ns for s in by_name["sweep.metrics"])
+        attrs.append(makers.attrs)
+    assert attrs == [{"built": 2, "reused": 0, "eager_once": 4},
+                     {"built": 0, "reused": 2, "eager_once": 4}]
+
+
 def test_sweep_records_the_uniforms_draw_past_the_subsample_size(tmp_path):
     cfg = Config(base_dir=str(tmp_path), **dict(KW, image_size=32, channels=3))
     teacher = make_unet(cfg, size_factor=0.1, seed=0, device="cpu")
