@@ -3,7 +3,9 @@
 The same dataclass as ``distillation_trajectories_tpu/config.py``: field
 names, defaults and the ``output/`` directory contract are identical, so the
 two packages share checkpoints, directory layouts and command lines.  The
-port adds one field, ``device``.
+port adds two fields: ``device``, and ``architecture`` (the U-Net, or the
+DiT transformer of ``models/dit.py``, which only the trajectory sweep
+runs).
 """
 
 from __future__ import annotations
@@ -156,9 +158,13 @@ class Config:
     # Root directory override (tests point this at a tmpdir).
     base_dir: Optional[str] = None
 
-    # --- PyTorch port addition ---
+    # --- PyTorch port additions ---
     # Device of the port's entry points; "cuda" raises when no GPU exists.
     device: str = "cuda"
+    # The model family models.make_model builds: "unet" (the published
+    # teacher/student U-Net, every path) or "dit" (models/dit.py: the
+    # trajectory sweep only; the paths built for the U-Net refuse it).
+    architecture: str = "unet"
 
     def __post_init__(self):
         if self.base_dir is None:

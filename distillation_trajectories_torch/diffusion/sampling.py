@@ -279,6 +279,23 @@ def seeded_normal(keys: Sequence[Tuple[int, int]], shape, device, dtype=torch.fl
     return out
 
 
+# The per-sample stream of class labels: the generator key ``(seed,
+# LABEL_STREAM)``, which no step's ``(seed, t)`` takes.
+LABEL_STREAM = 0xFFFFFFFF
+
+
+def sample_labels(seeds, num_classes: int, device) -> torch.Tensor:
+    """``[S]`` int64 class labels, uniform over ``[0, num_classes)``:
+    sample ``i``'s from its seed alone (splitmix64 of ``(seeds[i],
+    LABEL_STREAM)`` modulo ``num_classes``), so it does not depend on the
+    batch it rides in.  One ``draws`` span (``n``, ``kind="labels"``)."""
+    seeds = [int(s) for s in np.asarray(seeds).reshape(-1)]
+    with span("draws", n=len(seeds), kind="labels"):
+        labels = np.array([_generator_seed(s, LABEL_STREAM) % num_classes for s in seeds],
+                          dtype=np.int64)
+        return host_to_device(labels, device)
+
+
 def draw_step_noise(seeds, timesteps: int, shape, device, dtype=torch.float32):
     """Default per-step noise ``[T-1, S, *shape]``: sample ``i`` at step
     ``t`` from the generator of ``(seeds[i], t)``."""
@@ -298,12 +315,14 @@ def _engine_table(timesteps: int, alphas, g=1.0) -> np.ndarray:
     return np.array(rows, dtype=np.float32).reshape(-1, 4)
 
 
-def _engine_chain(model_fn, x, table, cond_pairs, step_noise, states):
+def _engine_chain(model_fn, x, table, cond_pairs, step_noise, states, labels=None):
     """Run the chain from ``x`` on ``table``'s scalars (an
     :func:`_engine_table` on ``x``'s device: step ``j`` launches the kernel
     on row ``j``, so nothing crosses from the host between steps), writing
     the ``T+1`` states into ``states`` (a ``[T+1, B, …]`` view, possibly of
-    another dtype)."""
+    another dtype).  ``labels`` (``[B]`` class labels of a class-conditional
+    model) go to every forward after its ``(cond, mask)``; without them the
+    forward takes those two alone."""
     pairs = np.asarray(cond_pairs, dtype=np.float32)
     b = x.shape[0]
     conds = [
@@ -314,25 +333,26 @@ def _engine_chain(model_fn, x, table, cond_pairs, step_noise, states):
         for c, m in pairs
     ]
     one_forward = bool(np.array_equal(pairs[0], pairs[1]))
+    extra = () if labels is None else (labels,)
     timesteps = table.shape[0] + 1
     states[0] = x
     for j, t in enumerate(range(timesteps - 1, 0, -1)):
         tvec = torch.full((b,), float(t), dtype=torch.float32, device=x.device)
-        uncond = model_fn(x, tvec, *conds[0])
-        cond = uncond if one_forward else model_fn(x, tvec, *conds[1])
+        uncond = model_fn(x, tvec, *conds[0], *extra)
+        cond = uncond if one_forward else model_fn(x, tvec, *conds[1], *extra)
         x = cfg_engine_update_row(x, uncond, cond, step_noise[j], table[j])
         states[j + 1] = x
     states[timesteps] = x
 
 
-def _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype):
+def _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype, labels=None):
     """``[S, T+1, H, W, C]`` states of the batched chain from ``noises``."""
     out = torch.empty(
         (noises.shape[0], table.shape[0] + 2, *noises.shape[1:]),
         dtype=store_dtype or noises.dtype,
         device=noises.device,
     )
-    _engine_chain(model_fn, noises, table, cond_pairs, step_noise, out.transpose(0, 1))
+    _engine_chain(model_fn, noises, table, cond_pairs, step_noise, out.transpose(0, 1), labels)
     return out
 
 
@@ -401,20 +421,23 @@ def generate_trajectory_batch_scan(
     guidance_scale,
     store_dtype: Optional[torch.dtype] = None,
     step_noise: Optional[torch.Tensor] = None,
+    labels: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Sample-batched, CFG-unified engine sampler (the sweep hot path).
 
     ``noises [S, H, W, C]`` ride the model's batch axis; ``cond_pairs``
     (:data:`CFG_COND_PAIRS` or :data:`NOCFG_COND_PAIRS`) selects the two
     forwards.  The default step noise draws sample ``i`` at step ``t`` from
-    the generator of ``(seeds[i], t)``.  Returns ``[S, T+1, H, W, C]``.
+    the generator of ``(seeds[i], t)``.  ``labels`` (``[S]``) are a
+    class-conditional model's (:func:`sample_labels`).  Returns
+    ``[S, T+1, H, W, C]``.
     """
     if step_noise is None:
         step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], noises.device)
     step_noise = _step_noise_for(step_noise, timesteps, noises)
     table = host_to_device(_engine_table(timesteps, alphas, float(guidance_scale)),
                            noises.device)
-    return _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype)
+    return _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype, labels)
 
 
 def _table_with_scale(tables, host_table, device, g):
@@ -432,14 +455,16 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
                         captures: Callable[[torch.device], bool]):
     """The makers' compiled chain (JAX's jitted
     :func:`generate_trajectory_batch_scan`): ``fn(noises, seeds,
-    cond_pairs, gs, step_noise=None) -> [S, T+1, H, W, C]`` of one model
-    forward at one T and store dtype.
+    cond_pairs, gs, step_noise=None, labels=None) -> [S, T+1, H, W, C]`` of
+    one model forward at one T and store dtype.
 
     Where ``captures(device)`` holds, each key (the cond pairs, so CFG on
     or off, and the inputs' shapes and dtypes) runs eagerly on its first
     call, is captured into a CUDA graph on its second and replayed from
     then on (:class:`..utils.graphs.CapturedCall`): the noises, the step
-    noise and the scalar table are the graph's inputs, and ``gs`` is
+    noise, the scalar table and, for a class-conditional model, the
+    ``labels`` are the graph's inputs (without labels the graph has the
+    first three alone), and ``gs`` is
     written into the table's column 3 before each replay, so one graph
     serves every guidance scale.  The step noise is drawn outside the
     graph (:func:`draw_step_noise` seeds a generator from the host per
@@ -448,21 +473,23 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
     tables: Dict[torch.device, torch.Tensor] = {}
     graphs = CapturedCall(counted=(cfg_engine_update,))
 
-    def eager(noises, seeds, cond_pairs, gs, step_noise=None):
+    def eager(noises, seeds, cond_pairs, gs, step_noise=None, labels=None):
         return generate_trajectory_batch_scan(model_fn, noises, timesteps, alphas, seeds,
-                                              cond_pairs, gs, store_dtype, step_noise)
+                                              cond_pairs, gs, store_dtype, step_noise, labels)
 
-    def fn(noises, seeds, cond_pairs, gs, step_noise=None):
+    def fn(noises, seeds, cond_pairs, gs, step_noise=None, labels=None):
         device = noises.device
         if not captures(device):
-            return eager(noises, seeds, cond_pairs, gs, step_noise)
+            return eager(noises, seeds, cond_pairs, gs, step_noise, labels)
         if step_noise is None:
             step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
         step_noise = _step_noise_for(step_noise, timesteps, noises)
         table = _table_with_scale(tables, host_table, device, float(gs))
         pairs = np.asarray(cond_pairs, dtype=np.float32)
-        body = lambda x, n, tab: _batch_states(model_fn, x, tab, pairs, n, store_dtype)
-        return graphs(pairs.tobytes(), body, noises, step_noise, table)
+        body = lambda x, n, tab, *lab: _batch_states(model_fn, x, tab, pairs, n, store_dtype,
+                                                     *lab)
+        inputs = (noises, step_noise, table) + (() if labels is None else (labels,))
+        return graphs(pairs.tobytes(), body, *inputs)
 
     fn._eager = eager
     fn.graphs = graphs

@@ -18,6 +18,7 @@ import torch
 
 from ..config import resolve_device
 from ..diffusion.sampling import engine_update, seeded_normal
+from ..models.dit import require_unet
 from ..trajectories.engine import _check_model_device
 
 
@@ -49,7 +50,9 @@ class EditingDraws:
 
 def editing_device(model: torch.nn.Module, config) -> torch.device:
     """``config.device`` resolved (raises when it is CUDA and no GPU
-    exists), checked against the device ``model`` is on."""
+    exists), checked against the device ``model`` is on; a DiT raises
+    (``ValueError``): the editing flows run the U-Net only."""
+    require_unet(model, "the editing flows")
     device = resolve_device(config.device)
     _check_model_device(model, device)
     return device

@@ -35,6 +35,7 @@ from scipy import linalg
 from ..config import resolve_device
 from ..diffusion.sampling import _generator_seed, make_loop_fn, subsampled_timestep_indices
 from ..diffusion.schedules import get_diffusion_params
+from ..models.dit import require_unet
 from ..models.inception import create_inception, preprocess_for_inception
 from ..training.state import make_eval_model_fn
 from ..utils.graphs import sampler_lane_captures
@@ -129,7 +130,9 @@ def make_sample_fn(model, config, num_samples: int):
     takes the variables as arguments: on the card (a model not sharded over
     a mesh) its loop is captured on the second call and replayed, the
     weights given copied into the graph before each replay
-    (:func:`..diffusion.sampling.make_loop_fn`)."""
+    (:func:`..diffusion.sampling.make_loop_fn`).  A DiT raises
+    (``ValueError``): FID runs the U-Net only."""
+    require_unet(model, "FID's sampler")
     dp = get_diffusion_params(config.sample_steps, config)
     loop = make_loop_fn(
         lambda params: make_eval_model_fn(model, params), _shape(config, num_samples),

@@ -42,6 +42,7 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from .dit import require_unet
 from .unet import DiffusionUNet, sinusoidal_time_embedding
 
 _BN_EPS = 1e-5  # the Block BatchNorm2d's eps
@@ -319,6 +320,7 @@ def make_quantized_eval_fn(
     scales (host floats, :func:`calibrate_activation_scales`);
     ``quant_blocks`` keeps int8 to that subset of Blocks.
     """
+    require_unet(model, "the int8 lane")
     qvars = quantize_unet_variables(model, nbits=nbits, quant_blocks=quant_blocks)
 
     def model_fn(x, t, cond=None, cond_mask=None):

@@ -370,8 +370,13 @@ def make_unet(config, size_factor: float = 1.0, device=None, seed: int = 0):
     """Build a U-Net from a Config (channels, dropout, compute dtype, norm,
     head, remat), initialised from ``seed`` on the CPU (so the weights do not
     depend on the device) and moved to ``device`` (default
-    ``config.device``) in channels-last layout."""
+    ``config.device``) in channels-last layout.  Raises ``ValueError`` on a
+    ``Config`` whose ``architecture`` is not ``"unet"``: the trainers, the
+    CLIs and the analyses build their models here, and none runs a DiT."""
     from ..config import resolve_device
+    from .dit import require_unet
+
+    require_unet(config, "make_unet (the trainers, CLIs and analyses)")
 
     device = resolve_device(config.device if device is None else device)
     dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32

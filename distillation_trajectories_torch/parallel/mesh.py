@@ -132,9 +132,12 @@ def param_spec(leaf: torch.Tensor, model_size: int):
 
 def shard_params(model: torch.nn.Module, mesh) -> torch.nn.Module:
     """Partition ``model`` in place for ``mesh``; see
-    :func:`.collectives.shard_module`."""
+    :func:`.collectives.shard_module`.  A DiT raises (``ValueError``): the
+    mesh lane shards the U-Net only."""
+    from ..models.dit import require_unet
     from .collectives import shard_module
 
+    require_unet(model, "the mesh lane")
     return shard_module(model, mesh)
 
 

@@ -37,6 +37,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.distributed.tensor import Shard
 
+from ..models.dit import require_unet
 from ..models.unet import DENSE, _align_corners_matrix
 from .collectives import all_gather_cat
 from .mesh import DATA_AXIS, axis_group, axis_rank, axis_size, make_mesh, shard_batch
@@ -169,6 +170,7 @@ def make_spatial_forward(model: nn.Module, mesh):
     calling it alike; ``params`` (tensors by name, or None for the
     model's own) come first, as in JAX's args-first boundary.  Puts
     ``model`` in eval mode."""
+    require_unet(model, "the spatial lane")
     if any(isinstance(m, nn.GroupNorm) for m in model.modules()):
         raise ValueError("spatial partitioning needs norm='batch': GroupNorm's "
                          "statistics span the image rows")

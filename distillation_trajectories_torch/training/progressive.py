@@ -35,6 +35,7 @@ from ..config import resolve_device
 from ..data import get_data_loader
 from ..diffusion import get_diffusion_params
 from ..diffusion.process import q_sample
+from ..models.dit import require_unet
 from .checkpoints import AsyncCheckpointWriter, save_epoch
 from .loop import run_train_epoch, upload_dataset
 from .state import (
@@ -240,6 +241,7 @@ def progressive_distill(
     loop ignores too.  A state on a mesh takes the per-batch loop.  A
     round's graph is released when the round ends.
     """
+    require_unet(teacher_model, "progressive distillation")
     device = resolve_device(config.device)
     epochs = epochs_per_round or config.epochs
     family = "progressive" if guidance_range is None else "progressive_cfg"

@@ -35,6 +35,7 @@ import torch
 
 from ..diffusion.process import q_sample
 from ..diffusion.schedules import schedule_on
+from ..models.dit import require_unet
 from ..parallel.collectives import all_reduce_, mean_gradients
 from ..parallel.mesh import DATA_AXIS, axis_group, axis_size, shard_batch
 from ..utils.graphs import capture, on_side_stream
@@ -134,6 +135,7 @@ def make_optimizer(model, config) -> torch.optim.Adam:
 
 
 def create_train_state(model: torch.nn.Module, config, draws, use_ema: bool = False) -> TrainState:
+    require_unet(model, "the trainers")
     ema = None
     if use_ema:
         ema = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -141,17 +143,21 @@ def create_train_state(model: torch.nn.Module, config, draws, use_ema: bool = Fa
 
 
 def make_eval_model_fn(model: torch.nn.Module, params: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
-    """Eval-mode forward closure ``(x, t, cond, cond_mask) -> ε̂``, run under
-    ``torch.no_grad()``; puts ``model`` in eval mode.  ``params`` (tensors by
-    parameter name, e.g. EMA weights) stand in for the model's own."""
+    """Eval-mode forward closure ``(x, t, cond, cond_mask, labels=None) ->
+    ε̂``, run under ``torch.no_grad()``; puts ``model`` in eval mode.
+    ``labels`` go to a class-conditional model (the DiT) and only there.
+    ``params`` (tensors by parameter name, e.g. EMA weights) stand in for
+    the model's own."""
     model.eval()
 
-    def model_fn(x, t, cond=None, cond_mask=None):
+    def model_fn(x, t, cond=None, cond_mask=None, labels=None):
+        kwargs = dict(cond=cond, cond_mask=cond_mask)
+        if labels is not None:
+            kwargs["labels"] = labels
         with torch.no_grad():
             if params is None:
-                return model(x, t, cond=cond, cond_mask=cond_mask)
-            return torch.func.functional_call(
-                model, params, (x, t), dict(cond=cond, cond_mask=cond_mask), strict=False)
+                return model(x, t, **kwargs)
+            return torch.func.functional_call(model, params, (x, t), kwargs, strict=False)
 
     return model_fn
 
@@ -167,8 +173,11 @@ def make_eval_fn_from_config(model: torch.nn.Module, config) -> Callable:
       s-way, halo rows exchanged), for sampling and editing alike;
     * otherwise the plain eval forward.
 
-    The two opt-ins cannot combine (``ValueError``), as in JAX."""
+    The two opt-ins cannot combine (``ValueError``), as in JAX; neither
+    takes a DiT (``ValueError``)."""
     spatial = config is not None and getattr(config, "spatial_shape", None)
+    if spatial:  # before the spatial mesh, which needs its ranks
+        require_unet(model, "the spatial lane")
     if config is not None and getattr(config, "sampler_quant", "none") == "int8":
         if spatial:
             raise ValueError(

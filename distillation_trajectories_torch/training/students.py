@@ -32,6 +32,7 @@ from ..config import resolve_device
 from ..data.datasets import DataLoader, load_dataset
 from ..diffusion import get_diffusion_params
 from ..models import load_unet_variables, make_unet, param_count
+from ..models.dit import require_unet
 from ..models.unet import DiffusionUNet
 from ..parallel.distributed import barrier
 from ..parallel.mesh import mesh_from_config, shard_params, shard_train_state
@@ -120,6 +121,7 @@ def distill_diffusion_model(
     ``dataset_dev``, the loader's images on the device, lets a sweep
     upload them once for the epoch lane.  Returns the trained student.
     """
+    require_unet(teacher_model, "the distillation trainer")
     own_writer = ckpt_writer is None
     writer = ckpt_writer or AsyncCheckpointWriter()
     mesh = mesh_from_config(config)
@@ -284,6 +286,7 @@ def train_students(
     (:func:`..parallel.sweep.distill_students_parallel`).  ``teacher_epoch``
     picks the teacher checkpoint (default: the latest).
     """
+    require_unet(config, "the student trainer")
     with phase_timer("students/teacher_load"):
         teacher = load_teacher(config, teacher_epoch)
     size_factors = custom_size_factors if custom_size_factors else config.student_size_factors

@@ -13,9 +13,11 @@ call for a key and replays it.  The sweep keeps its makers across calls
 graphs an earlier call captured.  The JAX package's TPU host machinery (AOT
 compile pool, ``CompiledWithFallback``, the watchdog) has no counterpart.
 
-The three random draws of a sweep — starting noises, per-step noise and the
-Wasserstein subsample keys — form one :class:`SweepDraws`, injectable as
-``draws=`` so that a test can hand in the JAX draws.
+The random draws of a sweep — starting noises, per-step noise, the
+Wasserstein subsample keys and, for a class-conditional teacher (the DiT of
+``models/dit.py``), each sample's class label — form one
+:class:`SweepDraws`, injectable as ``draws=`` so that a test can hand in
+the JAX draws.
 
 ``Config.mesh_shape`` shards a sweep's sample axis over the mesh's data
 axis (one process per rank): the draws are made for all samples on every
@@ -44,10 +46,12 @@ from ..diffusion.sampling import (
     draw_step_noise,
     generate_trajectory_scan,
     make_batch_chain_fn,
+    sample_labels,
     seeded_normal,
 )
 from ..diffusion.schedules import get_diffusion_params
 from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, batch_metrics_core
+from ..models.dit import require_unet
 from ..parallel.mesh import DATA_AXIS, axis_size, gather_batch, mesh_from_config, shard_batch
 from ..training.state import make_eval_fn_from_config
 from ..utils.graphs import sampler_lane_captures
@@ -62,16 +66,19 @@ class SweepDraws:
     ``step_noise``: ``[T-1, S, H, W, C]``; row ``j`` is step ``t = T-1-j``.
     ``uniforms``: ``[S, T+1, H·W·C]`` Wasserstein subsample keys, or None
     when a state has no more pixels than the subsample size.
+    ``labels``: ``[S]`` int64 class labels of a class-conditional model's
+    chains, or None for the U-Net.
     """
 
     noises: torch.Tensor
     step_noise: torch.Tensor
     uniforms: Optional[torch.Tensor] = None
+    labels: Optional[torch.Tensor] = None
 
     def to(self, device) -> "SweepDraws":
         return SweepDraws(
             *(None if v is None else torch.as_tensor(v).to(device)
-              for v in (self.noises, self.step_noise, self.uniforms))
+              for v in (self.noises, self.step_noise, self.uniforms, self.labels))
         )
 
 
@@ -219,9 +226,9 @@ def make_paired_trajectory_fn(teacher_model, student_model, timesteps: int, conf
 
 
 def make_sweep_trajectory_fn(model, timesteps: int, config=None):
-    """``fn(noises [S,H,W,C], seeds [S], cond_pairs [2,2], gs, step_noise=None)
-    -> trajs [S, T+1, H, W, C]`` for one model; CFG or not is the runtime
-    ``cond_pairs`` input.
+    """``fn(noises [S,H,W,C], seeds [S], cond_pairs [2,2], gs, step_noise=None,
+    labels=None) -> trajs [S, T+1, H, W, C]`` for one model; CFG or not is
+    the runtime ``cond_pairs`` input, ``labels`` a DiT's ``[S]`` classes.
 
     The counterpart of JAX's jitted sweep function: on the card (unless the
     forward is spatially partitioned or the model sharded over a mesh,
@@ -319,11 +326,13 @@ def _resident_makers(wanted, config, device):
 
 
 def _sweep_inputs(config, num_samples: int, base_seed: int, timesteps: int,
-                  device) -> SweepDraws:
+                  num_classes: Optional[int], device) -> SweepDraws:
     """Default draws of a sweep job: sample ``i`` has seed ``base_seed+i``;
     its starting noise comes from the generator of ``(seed, 0)`` and its
     step-t noise from that of ``(seed, t)``; the Wasserstein keys from one
-    generator seeded with ``base_seed``."""
+    generator seeded with ``base_seed``; with ``num_classes`` (a
+    class-conditional teacher), its label from its seed
+    (:func:`..diffusion.sampling.sample_labels`)."""
     seeds = [base_seed + i for i in range(num_samples)]
     shape = (config.image_size, config.image_size, config.channels)
     noises = seeded_normal([(s, 0) for s in seeds], shape, device)
@@ -336,7 +345,8 @@ def _sweep_inputs(config, num_samples: int, base_seed: int, timesteps: int,
             uniforms = torch.rand(
                 (num_samples, timesteps + 1, d), generator=gen, device=device
             )
-    return SweepDraws(noises, step_noise, uniforms)
+    labels = None if num_classes is None else sample_labels(seeds, num_classes, device)
+    return SweepDraws(noises, step_noise, uniforms, labels)
 
 
 def sweep_compare_trajectories_multi(
@@ -355,6 +365,13 @@ def sweep_compare_trajectories_multi(
     drawn from ``base_seed``).  Teacher chains are cached across jobs per
     (T, scale, draws); student chains are freed once scored.  All metric
     scalars come to the host in one transfer at the end.
+
+    The teacher and students are U-Nets, keyed by size factor, or DiTs
+    (``models/dit.py``), keyed by any name (the variant's, say): a
+    class-conditional family, whose chains take each sample's label as a
+    further input of the captured chain (drawn from the sample's seed,
+    :class:`SweepDraws`); the CFG pair is then null class against label.
+    A sweep does not mix the two, and a DiT sweep takes no mesh.
 
     Returns one ``{size_factor: {"teacher_metrics": {gs: {...}},
     "student_metrics": {gs: {...}}}}`` per job: per-sample scalar metrics
@@ -407,10 +424,16 @@ def sweep_compare_trajectories_multi(
 
 
 def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
+    models = [teacher_model] + [m for job in jobs for m in job["students"].values()]
+    num_classes = getattr(teacher_model, "num_classes", None)
+    if any(getattr(m, "num_classes", None) != num_classes for m in models):
+        raise ValueError("a sweep's teacher and students must all be U-Nets or all be "
+                         "class-conditional DiTs of one label set")
+    if config is not None and tuple(config.mesh_shape) != (1, 1):
+        require_unet(teacher_model, "the sweep's mesh lane (Config.mesh_shape)")
     mesh = mesh_from_config(config) if config is not None else None
     d = axis_size(mesh, DATA_AXIS)
     device = _entry_device(config, device)
-    models = [teacher_model] + [m for job in jobs for m in job["students"].values()]
     for model in models:
         _check_model_device(model, device)
 
@@ -419,11 +442,13 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
 
     def job_draws(job):
         if job["draws"] is not None:
+            if (job["draws"].labels is None) != (num_classes is None):
+                raise ValueError("a DiT sweep's draws carry labels, a U-Net sweep's none")
             key = ("injected", id(job["draws"]))
             if key not in draws_cache:
                 draws_cache[key] = job["draws"].to(device)
         else:
-            key = (job["num_samples"], job["base_seed"], job["timesteps"])
+            key = (job["num_samples"], job["base_seed"], job["timesteps"], num_classes)
             if key not in draws_cache:
                 draws_cache[key] = _sweep_inputs(config, *key, device)
         return key, draws_cache[key]
@@ -484,9 +509,11 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
         entry = makers[key[0]]
         if runs[key] > 1:
             entry.captured.add(key[1])
+        # A U-Net's chain is called as it always was; a DiT's takes its labels.
+        labels = {} if draws.labels is None else {"labels": draws.labels}
         trajs = (entry.fn._eager if key in once else entry.fn)(
             draws.noises, seeds, CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS, gs_host,
-            step_noise=draws.step_noise)
+            step_noise=draws.step_noise, **labels)
         if sf is None:
             teacher_trajs[tkey] = trajs
             continue

@@ -25,6 +25,7 @@ import torch
 
 from ..diffusion.sampling import draw_step_noise, seeded_normal
 from ..metrics.trajectory_metrics import WASSERSTEIN_SAMPLE_SIZE, compute_trajectory_metrics
+from ..models.dit import require_unet
 from ..utils.profiling import span
 from .engine import _entry_device, make_paired_trajectory_fn
 
@@ -61,6 +62,8 @@ class TrajectoryManager:
 
     def __init__(self, teacher_model, student_model, config, size_factor: float = 1.0,
                  fixed_samples=None, device=None):
+        for model in (teacher_model, student_model):
+            require_unet(model, "TrajectoryManager")
         self.teacher_model = teacher_model
         self.student_model = student_model
         self.config = config

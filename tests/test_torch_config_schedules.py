@@ -26,14 +26,15 @@ torch.set_num_threads(2)
 def test_config_fields_defaults_and_directories_match_jax(tmp_path, monkeypatch):
     jax_fields = {f.name for f in dataclasses.fields(JaxConfig)}
     port_fields = {f.name for f in dataclasses.fields(Config)}
-    assert port_fields - jax_fields == {"device"}
+    port_only = {"device", "architecture"}
+    assert port_fields - jax_fields == port_only
     assert jax_fields <= port_fields
 
     ref = JaxConfig(base_dir=str(tmp_path))
     port = Config(base_dir=str(tmp_path))
     # Every attribute, including the derived directory contract.
-    assert {k: v for k, v in vars(port).items() if k != "device"} == vars(ref)
-    assert port.device == "cuda"
+    assert {k: v for k, v in vars(port).items() if k not in port_only} == vars(ref)
+    assert (port.device, port.architecture) == ("cuda", "unet")
     assert port.student_dir(0.5) == ref.student_dir(0.5)
     # base_dir defaults to the repo root in both packages.
     assert Config().base_dir == JaxConfig().base_dir

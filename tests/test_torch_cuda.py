@@ -11,8 +11,9 @@ samplers' captured lane (a maker's CUDA graph against its eager body: one
 graph for three guidance scales, weights changed in place or given per
 call, 9 launches counted a T=10 replay), the benches' single-seed maker
 among them (one graph for three scales, and for two values of a guided
-student's ``w``); and the sweep's makers kept across calls (a warm-up and a
-capture a model in the first of three calls, then replays alone).
+student's ``w``); the sweep's makers kept across calls (a warm-up and a
+capture a model in the first of three calls, then replays alone); and the
+DiT's fused attention and its captured chain, labels a graph input.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -988,3 +989,70 @@ def test_epoch_records_two_warmups_one_capture_and_one_replay_span(cuda):
     assert inside == [["epoch.warmup", "epoch.warmup", "epoch.capture", "epoch.replay",
                        "train.loss_fetch"], ["epoch.replay", "train.loss_fetch"]]
     assert [s.attrs["batches"] for s in spans if s.name == "epoch.replay"] == [4, 6]
+
+
+def _dit(cuda, seed, dtype=torch.bfloat16, **sizes):
+    from distillation_trajectories_torch.models.dit import DiT, init_dit_
+
+    sizes = {"depth": 2, "hidden_size": 384, "num_heads": 6, **sizes}
+    model = DiT(input_size=32, in_channels=4, dtype=dtype, **sizes).to(cuda)
+    return init_dit_(model, torch.Generator(device=cuda).manual_seed(seed)).eval()
+
+
+@pytest.mark.parametrize("hidden, heads", [(384, 6), (1152, 16)])  # head dims 64 and 72
+def test_dit_forward_launches_fused_attention(cuda, hidden, heads):
+    """A two-block DiT forward on the card (bf16 autocast, 32x32x4, 256
+    tokens) under the profiler, at DiT-S/2's width and head dim 64 and at
+    DiT-XL/2's width and head dim 72 (not a power of two): its attention
+    runs in PyTorch's fused kernels (flash, cuDNN or memory-efficient), and
+    no math-path softmax kernel is launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _dit(cuda, 0, hidden_size=hidden, num_heads=heads)
+    x = torch.randn((8, 32, 32, 4), device=cuda)
+    t = torch.full((8,), 17.0, device=cuda)
+    ones = torch.ones((8, 1), device=cuda)
+    labels = torch.arange(8, device=cuda)
+    model(x, t, ones, ones, labels)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = model(x, t, ones, ones, labels)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    fused = [n for n in names if any(k in n for k in ("flash", "fmha", "sdpa", "attention"))]
+    assert fused, names
+    assert not [n for n in names if "softmax" in n.lower()], names
+    assert out.shape == (8, 32, 32, 4) and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+
+
+def test_dit_chain_replay_equals_its_eager_body(cuda):
+    """The sweep maker's captured chain of a DiT (bf16 autocast, 32x32x4,
+    T=10): the labels ride in as a graph input, so one graph serves two
+    label sets and two guidance scales, each replay equal to the eager body
+    bit for bit; the graph's inputs are the noises, the step noise, the
+    scalar table and the labels."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+    from distillation_trajectories_torch.trajectories.engine import make_sweep_trajectory_fn
+
+    cfg = Config(device="cuda", image_size=32, channels=4, timesteps=10, architecture="dit")
+    model = _dit(cuda, 1)
+    sweep = make_sweep_trajectory_fn(model, 10, cfg)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    noises = torch.randn((4, 32, 32, 4), device=cuda, generator=gen)
+    step_noise = torch.randn((9, 4, 32, 32, 4), device=cuda, generator=gen)
+    seeds = list(range(4))
+    a, b = torch.tensor([1, 2, 3, 999], device=cuda), torch.tensor([7, 7, 0, 5], device=cuda)
+    sweep(noises, seeds, CFG_COND_PAIRS, 4.0, step_noise=step_noise, labels=a)
+    outs = []
+    for labels, gs in ((a, 4.0), (b, 4.0), (a, 1.5)):
+        got = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise, labels=labels)
+        want = sweep._eager(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise,
+                            labels=labels)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (labels, gs)
+        outs.append(got)
+    assert not torch.equal(outs[0], outs[1])  # the labels reach the graph
+    (graph,) = sweep.graphs.graphs.values()
+    assert [tuple(i.shape) for i in graph.inputs] == [(4, 32, 32, 4), (9, 4, 32, 32, 4),
+                                                      (9, 4), (4,)]
