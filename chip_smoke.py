@@ -14,6 +14,18 @@ on first use.  Phases, each printing its own lines:
    ``(1, 7, 5, 1)`` shape, through its row entry (the four scalars a
    ``[4]`` float32 row in device memory, as the chains call it; the float
    entry checked equal), with errors, device times and the memory bound;
+   then the DiT block's fused adaLN kernels (``ln_modulate``,
+   ``gate_add_ln_modulate``) against their plain compositions at DiT-XL/2's
+   8,192 token rows of 1,152 (32 samples of 256 tokens, bf16 ``y`` and
+   ``h``, the modulations strided chunks of a ``[32, 6D]`` output) and at
+   the students' widths 768 and 384, each alone with its device time, the
+   plain composition's as the block ran it under autocast (``library_ms``)
+   and its byte bound; then the DiT path: one DiT-XL/2 chain of the DiT
+   cell's 32 samples of 32x32x4 latents (bf16, CFG, T=10) through the
+   sweep's chain maker, called three times (eager, captured, replayed),
+   with each forward's adaLN launches checked (one ``ln_modulate`` and
+   two ``gate_add_ln_modulate`` a block) and every eager forward's
+   ``dit.forward`` span reading "fused";
 3. the sampler with the kernel tail (the kernel launched once a step, the
    plain version never called) against the plain tail on the card
    (float32, TF32 off, sf 0.1, T=10), and a small sweep on the card
@@ -206,8 +218,9 @@ on first use.  Phases, each printing its own lines:
    device busy ms and idle share over 2 profiled chains, capture seconds,
    the shared pool's bytes and peak reserved memory.
 
-The kernel record counts the launches of phases 4, 6(b), 7(b), 8(b), 9(d),
-10 (the ranks' included), 11, 12 and 14.  The last
+The CFG-update record counts the launches of phase 2's DiT chain and of
+phases 4, 6(b), 7(b), 8(b), 9(d), 10 (the ranks' included), 11, 12 and
+14; each adaLN record those of phase 2's DiT chain.  The last
 lines are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a GPU or when any
 phase fails.
@@ -324,6 +337,134 @@ def phase_kernel(card):
     return record
 
 
+ADALN_SAMPLES, ADALN_TOKENS = 32, 256  # the DiT cell's batch; 16x16 patches of 32x32 latents
+
+
+def _adaln_operands(width, gen):
+    """The float32 residual rows, a bf16 branch output and the bf16
+    adaLN chunks ``(gate, shift, scale)`` of two ``[B, 6D]`` outputs."""
+    b, n = ADALN_SAMPLES, ADALN_TOKENS
+    x = torch.randn((b, n, width), device="cuda", generator=gen) * 3 + 0.5
+    y = torch.randn((b, n, width), device="cuda", generator=gen).bfloat16()
+    mods = torch.randn((b, 6 * width), device="cuda", generator=gen).bfloat16().chunk(6, dim=1)
+    return x, y, mods[2], mods[3], mods[4]
+
+
+def phase_adaln(card):
+    """The fused adaLN kernels at the DiT cell's shapes, each alone: device
+    time against the byte bound, the plain composition as ``library_ms``
+    (bf16 ``h`` the autocast cast of its float32 result, ``gate·y`` in bf16
+    as autocast leaves it); returns the DiT-XL/2 width's records.  The gated
+    kernel writes ``x'`` over ``x``: the timed calls drift each set's ``x``
+    by ``gate·y`` a call, the same bytes."""
+    from distillation_trajectories_torch.ops.adaln import (
+        gate_add_ln_modulate,
+        gate_add_ln_modulate_reference,
+        ln_modulate,
+        ln_modulate_reference,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = []
+    for width in (1152, 768, 384):
+        # Four operand sets (226 MB at width 1152) cycled, so each call finds
+        # its rows outside the 50 MB L2, as the forward does.
+        sets = [_adaln_operands(width, gen) for _ in range(4)]
+        ring = itertools.cycle(sets)
+        rows = ADALN_SAMPLES * ADALN_TOKENS
+        mod_bytes = ADALN_SAMPLES * width * 2
+        kernels = (
+            ("ln_modulate", lambda x, y, g, sh, sc: ln_modulate(x, sh, sc),
+             lambda x, y, g, sh, sc: ln_modulate_reference(x, sh, sc).bfloat16(),
+             rows * width * (4 + 2) + 2 * mod_bytes),
+            ("gate_add_ln_modulate", gate_add_ln_modulate,
+             lambda x, y, g, sh, sc: tuple(
+                 a.bfloat16() if i else a
+                 for i, a in enumerate(gate_add_ln_modulate_reference(x, y, g, sh, sc))),
+             rows * width * (4 + 2 + 4 + 2) + 3 * mod_bytes),
+        )
+        for name, kernel, plain, bytes_moved in kernels:
+            with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+                got = kernel(sets[0][0].clone(), *sets[0][1:])  # x' is written over x
+                torch.cuda.synchronize()
+                x, y, gate, shift, scale = sets[0]
+                want = (ln_modulate_reference(x, shift, scale) if name == "ln_modulate"
+                        else gate_add_ln_modulate_reference(x, y, gate, shift, scale))
+                got_h, want_h = (got, want) if name == "ln_modulate" else (got[1], want[1])
+                if name != "ln_modulate" and not torch.equal(got[0], want[0]):
+                    raise RuntimeError(f"{name} x' differs from the plain composition's")
+                max_abs = compare(f"{name} h (bf16) vs the plain composition D={width}",
+                                  got_h.float(), want_h, 2**-7, 1e-5)
+                kernel_ms = device_time_ms(lambda: kernel(*next(ring)), 200)
+                plain_ms = device_time_ms(lambda: plain(*next(ring)), 50)
+            bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+            print(f"{name} D={width} [{rows}, {width}]: kernel_ms={kernel_ms:.5f} "
+                  f"library_ms={plain_ms:.5f} (the plain composition) bound_ms={bound_ms:.5f} "
+                  f"(bytes {bytes_moved} at 3.35 TB/s) share_of_bound={bound_ms / kernel_ms:.3f} "
+                  f"[{card}]")
+            if width == 1152:
+                records.append(dict(name=name, max_abs_err=max_abs, ms=kernel_ms,
+                                    bound_ms=bound_ms, bound_by="bytes", library_ms=plain_ms))
+    return records
+
+
+DIT_T = 10
+
+
+def phase_dit(card):
+    """Phase 2's DiT path: a DiT-XL/2 teacher's chain at the DiT cell's
+    batch and latent shape through ``make_sweep_trajectory_fn``, the
+    sweep's maker, run eagerly, captured and replayed.  Returns the
+    launches ``(cfg_engine_update, ln_modulate, gate_add_ln_modulate)``
+    the three calls counted, each checked against the forwards' count."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+    from distillation_trajectories_torch.models.dit import make_dit
+    from distillation_trajectories_torch.ops.adaln import gate_add_ln_modulate, ln_modulate
+    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
+    from distillation_trajectories_torch.trajectories.engine import make_sweep_trajectory_fn
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    cfg = Config(device="cuda", image_size=32, channels=4, timesteps=DIT_T,
+                 compute_dtype="bfloat16", architecture="dit")
+    model = make_dit(cfg, "DiT-XL/2", seed=0).eval()
+    depth = len(model.blocks)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    noises = torch.randn((ADALN_SAMPLES, 32, 32, 4), device="cuda", generator=gen)
+    labels = torch.randint(0, 1000, (ADALN_SAMPLES,), device="cuda", generator=gen)
+    seeds = list(range(ADALN_SAMPLES))
+    sweep = make_sweep_trajectory_fn(model, DIT_T, cfg)
+    counted = (cfg_engine_update, ln_modulate, gate_add_ln_modulate)
+    for k in counted:
+        k.launches = 0
+    forwards = 2 * (DIT_T - 1)  # CFG: two forwards a step
+    want = (DIT_T - 1, forwards, 2 * depth * forwards)
+    with recording() as rec:
+        for call in ("eager", "captured", "replayed"):
+            before = tuple(k.launches for k in counted)
+            t0 = time.perf_counter()
+            trajs = sweep(noises, seeds, CFG_COND_PAIRS, 4.0, labels=labels)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            made = tuple(k.launches - b for k, b in zip(counted, before))
+            print(f"DiT-XL/2 chain ({call}, {ADALN_SAMPLES} samples, T={DIT_T}, CFG): "
+                  f"{wall:.3f} s, launches cfg_engine_update/ln_modulate/gate_add_ln_modulate "
+                  f"{made} (expected {want}: {forwards} forwards of {depth} blocks) [{card}]")
+            if made != want:
+                raise RuntimeError(f"the DiT chain's {call} call launched {made}, expected {want}")
+    if not torch.isfinite(trajs).all():
+        raise RuntimeError("the DiT chain's trajectories are not finite")
+    paths = [sp.attrs["adaln"] for sp in rec.spans if sp.name == "dit.forward"]
+    if len(paths) < forwards or set(paths) != {"fused"}:
+        raise RuntimeError(f"the DiT chain's eager forwards ran {sorted(set(paths))}, "
+                           f"{len(paths)} of them")
+    print(f"DiT-XL/2 chain: {len(paths)} eager forwards, every dit.forward span adaln=fused")
+    launches = tuple(k.launches for k in counted)
+    del model, sweep, trajs
+    torch.cuda.empty_cache()
+    return launches
+
+
 class _PlainCalls:
     """Counts the calls of the kernel's plain version while in place (its
     wrapper looks it up at each call)."""
@@ -390,7 +531,7 @@ def phase_sampler(card):
     kw = dict(image_size=16, channels=1, timesteps=10, sample_steps=10,
               compute_dtype="float32")
     results = {}
-    draws = _sweep_inputs(Config(device="cpu", **kw), 4, 42, 10, "cpu")
+    draws = _sweep_inputs(Config(device="cpu", **kw), 4, 42, 10, None, "cpu")
     for device in ("cuda", "cpu"):
         dcfg = Config(device=device, **kw)
         teacher = make_unet(dcfg, size_factor=0.2, seed=0)
@@ -532,7 +673,7 @@ def phase_main_path(card):
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
 
-    draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, "cuda")
+    draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, None, "cuda")
     chain = make_sweep_trajectory_fn(teacher, MAIN_T, cfg)
     seeds = np.arange(42, 42 + SAMPLES)
     run = lambda: chain(draws.noises, seeds, CFG_COND_PAIRS, 3.0,
@@ -3584,7 +3725,7 @@ def _hold_sampler_graph(card):
 
     cfg = Config(timesteps=MAIN_T, sample_steps=MAIN_T)  # 32x32x3, bf16, cuda
     teacher = make_unet(cfg, size_factor=1.0, seed=0)
-    draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, "cuda")
+    draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, None, "cuda")
     seeds = np.arange(42, 42 + SAMPLES)
     chain = make_sweep_trajectory_fn(teacher, MAIN_T, cfg)
     call = lambda fn, gs: fn(draws.noises, seeds, CFG_COND_PAIRS, gs,  # noqa: E731
@@ -3648,7 +3789,7 @@ def _hold_sampler_graph(card):
     # The int8 lane's chain captures too (torch._int_mm inside the graph).
     qcfg = Config(timesteps=10, sample_steps=10, sampler_quant="int8")
     qchain = make_sweep_trajectory_fn(teacher, 10, qcfg)
-    qdraws = _sweep_inputs(qcfg, 8, 7, 10, "cuda")
+    qdraws = _sweep_inputs(qcfg, 8, 7, 10, None, "cuda")
     qcall = lambda fn: fn(qdraws.noises, np.arange(7, 15), CFG_COND_PAIRS, 3.0,  # noqa: E731
                           step_noise=qdraws.step_noise)
     qcall(qchain)
@@ -3772,7 +3913,7 @@ def _graph_lane_chains(workdir):
     teacher = load_teacher_from_arg(cfg)
     t = cfg.teacher_steps
     sweep = make_sweep_trajectory_fn(teacher, t, cfg)
-    draws = _sweep_inputs(cfg, 10, 42, t, "cuda")
+    draws = _sweep_inputs(cfg, 10, 42, t, None, "cuda")
     sweep_call = lambda fn: fn(draws.noises, np.arange(42, 52), CFG_COND_PAIRS,  # noqa: E731
                                3.0, step_noise=draws.step_noise)
     paired = make_paired_trajectory_fn(teacher, load_student(cfg, 0.5), t, cfg, use_cfg=False)
@@ -3864,7 +4005,11 @@ def main():
 
     t0 = time.perf_counter()
     record = phase_kernel(card)
-    print(f"phase kernel: {time.perf_counter() - t0:.1f} s (Triton build included)")
+    adaln_records = phase_adaln(card)
+    dit_launches, *adaln_launches = phase_dit(card)
+    for r, n in zip(adaln_records, adaln_launches):
+        r["launches"] = n
+    print(f"phase kernel: {time.perf_counter() - t0:.1f} s (Triton builds included)")
     t0 = time.perf_counter()
     phase_sampler(card)
     print(f"phase sampler: {time.perf_counter() - t0:.1f} s")
@@ -3903,9 +4048,10 @@ def main():
         t0 = time.perf_counter()
         graph_launches = phase_sampler_graphs(card, workdir)
         print(f"phase sampler graphs: {time.perf_counter() - t0:.1f} s [{card}]")
-    total = (launches + cli_launches + clis_launches + edit_launches + lane_launches
+    total = (dit_launches + launches + cli_launches + clis_launches + edit_launches + lane_launches
              + multi_launches + last_launches + bench_launches + graph_launches)
-    print(f"cfg_engine_update launches: {launches} (main path, phase 4) + {cli_launches} "
+    print(f"cfg_engine_update launches: {dit_launches} (DiT chain, phase 2) + {launches} "
+          f"(main path, phase 4) + {cli_launches} "
           f"(CFG-sweep CLI, phase 6) + {clis_launches} (analysis CLIs, phase 7) + "
           f"{edit_launches} (editing demo, phase 8) + {lane_launches} (the window dispatch's "
           f"sequential chain, phase 9) + {multi_launches} "
@@ -3924,7 +4070,12 @@ def main():
         "launches": total,
         **record,
         "library_ms": None,
-    }]}))
+    }] + [{
+        "route": "triton",
+        "source": "distillation_trajectories_torch/ops/adaln_triton.py",
+        "replaces": None,
+        **r,
+    } for r in adaln_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

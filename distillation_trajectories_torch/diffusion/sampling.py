@@ -40,10 +40,15 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..ops.adaln import gate_add_ln_modulate, ln_modulate
 from ..ops.cfg_update import cfg_engine_update, cfg_engine_update_row
 from ..utils.graphs import CapturedCall, host_to_device
 from ..utils.profiling import span
 from .schedules import extract
+
+# The kernel wrappers a chain's forward and update launch: a captured
+# chain's replays count their launches as the eager chain does.
+COUNTED_KERNELS = (cfg_engine_update, ln_modulate, gate_add_ln_modulate)
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -471,7 +476,7 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
     ``(seed, t)``).  ``fn._eager`` is the eager body."""
     host_table = _engine_table(timesteps, alphas)
     tables: Dict[torch.device, torch.Tensor] = {}
-    graphs = CapturedCall(counted=(cfg_engine_update,))
+    graphs = CapturedCall(counted=COUNTED_KERNELS)
 
     def eager(noises, seeds, cond_pairs, gs, step_noise=None, labels=None):
         return generate_trajectory_batch_scan(model_fn, noises, timesteps, alphas, seeds,
@@ -518,7 +523,7 @@ def make_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
     is a tensor changed in place.  ``fn._eager`` is the eager body."""
     host_table = _engine_table(timesteps, alphas)
     tables: Dict[torch.device, torch.Tensor] = {}
-    graphs = CapturedCall(counted=(cfg_engine_update,))
+    graphs = CapturedCall(counted=COUNTED_KERNELS)
 
     def eager(noise, seed, guidance_scale=None, use_cfg=None, step_noise=None):
         return generate_trajectory_scan(model_fn, noise, timesteps, alphas, seed, guidance_scale,

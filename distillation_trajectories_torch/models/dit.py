@@ -44,6 +44,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.adaln import gate_add_ln_modulate, ln_modulate
 from ..utils.profiling import span
 
 # Published sizes (DiT models.py: DiT_XL_2, DiT_B_2, DiT_S_2).
@@ -54,7 +55,6 @@ DIT_VARIANTS: Dict[str, Dict[str, int]] = {
 }
 NUM_CLASSES = 1000
 FREQ_DIM = 256
-LN_EPS = 1e-6
 
 
 def _fused_backends():
@@ -100,10 +100,6 @@ def sincos_pos_embed_2d(dim: int, grid: int) -> np.ndarray:
     g = np.arange(grid, dtype=np.float32)
     cols, rows = np.meshgrid(g, g)
     return np.concatenate([one_d(dim // 2, cols), one_d(dim // 2, rows)], axis=1)
-
-
-def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    return x * (1 + scale.unsqueeze(1)) + shift.unsqueeze(1)
 
 
 class PatchEmbed(nn.Module):
@@ -164,30 +160,23 @@ class Mlp(nn.Module):
 
 
 class DiTBlock(nn.Module):
+    """One adaLN-Zero block's weights: :meth:`DiT.trunk` runs it, joined to
+    its neighbours at the seams."""
+
     def __init__(self, hidden: int, num_heads: int, mlp_ratio: float):
         super().__init__()
-        self.norm1 = nn.LayerNorm(hidden, elementwise_affine=False, eps=LN_EPS)
         self.attn = Attention(hidden, num_heads)
-        self.norm2 = nn.LayerNorm(hidden, elementwise_affine=False, eps=LN_EPS)
         self.mlp = Mlp(hidden, int(hidden * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden, 6 * hidden))
 
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        shift1, scale1, gate1, shift2, scale2, gate2 = self.adaLN_modulation(c).chunk(6, dim=1)
-        x = x + gate1.unsqueeze(1) * self.attn(modulate(self.norm1(x), shift1, scale1))
-        return x + gate2.unsqueeze(1) * self.mlp(modulate(self.norm2(x), shift2, scale2))
-
 
 class FinalLayer(nn.Module):
+    """The final adaLN layer's weights: :meth:`DiT.trunk` ends in it."""
+
     def __init__(self, hidden: int, patch: int, out_channels: int):
         super().__init__()
-        self.norm_final = nn.LayerNorm(hidden, elementwise_affine=False, eps=LN_EPS)
         self.linear = nn.Linear(hidden, patch * patch * out_channels)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden, 2 * hidden))
-
-    def forward(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        shift, scale = self.adaLN_modulation(c).chunk(2, dim=1)
-        return self.linear(modulate(self.norm_final(x), shift, scale))
 
 
 class DiT(nn.Module):
@@ -198,9 +187,15 @@ class DiT(nn.Module):
     ``cond * cond_mask > 0``; the other samples, and all of them without
     ``labels`` or ``cond``, take the null class.
 
+    On CUDA tensors the block's LayerNorm, modulate, gate and residual
+    passes run in the fused kernels of :mod:`..ops.adaln`, which have no
+    backward: a forward on the card runs under ``torch.no_grad()`` (every
+    sampler path does), and one that autograd would record raises.  On CPU
+    tensors they run in their plain versions (:meth:`trunk`).
+
     Each eager forward is one ``dit.forward`` span (variant, batch,
-    tokens, heads, head_dim, backends); a CUDA-graph replay runs no
-    Python, so records none."""
+    tokens, heads, head_dim, backends, and ``adaln``: "fused" or "plain");
+    a CUDA-graph replay runs no Python, so records none."""
 
     architecture = "dit"
 
@@ -247,6 +242,27 @@ class DiT(nn.Module):
         x = x.reshape(b, g, g, p, p, c).permute(0, 1, 3, 2, 4, 5)
         return x.reshape(b, g * p, g * p, c)
 
+    def trunk(self, x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """The blocks and the final layer on the ``[B, N, D]`` float32 token
+        rows ``x`` under conditioning ``c``: the published block's
+        arithmetic, with every modulation computed first (each depends on
+        ``c`` alone), so that each seam, attention to MLP and one block's
+        end to the next normalisation, is one gated add joined to the next
+        LayerNorm and modulate (:mod:`..ops.adaln`, which updates ``x`` in
+        place)."""
+        mods = [block.adaLN_modulation(c).chunk(6, dim=1) for block in self.blocks]
+        final = self.final_layer.adaLN_modulation(c).chunk(2, dim=1)
+        h = ln_modulate(x, *mods[0][:2])
+        for block, (_, _, gate1, shift2, scale2, gate2), (shift, scale, *_) in zip(
+                self.blocks, mods, mods[1:] + [final]):
+            # ``h`` names a branch's input, then its output: the input is
+            # freed before the seam's pass.
+            h = block.attn(h)
+            x, h = gate_add_ln_modulate(x, h, gate1, shift2, scale2)
+            h = block.mlp(h)
+            x, h = gate_add_ln_modulate(x, h, gate2, shift, scale)
+        return self.final_layer.linear(h)
+
     def forward(self, x, t, cond=None, cond_mask=None, labels=None):
         b = x.shape[0]
         if t.ndim > 1:
@@ -254,14 +270,12 @@ class DiT(nn.Module):
         y = self.classes(cond, cond_mask, labels, b, x.device)
         with span("dit.forward", variant=self.variant, batch=b, tokens=self.grid ** 2,
                   heads=self.num_heads, head_dim=self.blocks[0].attn.head_dim,
-                  backends=FUSED_SDPA), \
+                  backends=FUSED_SDPA, adaln="fused" if x.is_cuda else "plain"), \
                 torch.autocast(device_type=x.device.type, dtype=self.dtype,
                                enabled=self.dtype != torch.float32, cache_enabled=False):
             h = self.x_embedder(x.permute(0, 3, 1, 2)) + self.pos_embed
             c = self.t_embedder(t) + self.y_embedder(y)
-            for block in self.blocks:
-                h = block(h, c)
-            out = self.unpatchify(self.final_layer(h, c))
+            out = self.unpatchify(self.trunk(h.contiguous(), c))
         return out[..., : self.in_channels].float().contiguous()
 
 

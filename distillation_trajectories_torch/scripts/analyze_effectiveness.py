@@ -96,8 +96,8 @@ def compute_real_metrics(config, size_factors, guidance_scales, num_samples,
         print(f"Teacher model unavailable ({e}); using synthetic demo data")
         return None
 
-    draws = (_sweep_inputs(config, num_samples, 0, config.timesteps, device) if draws is None
-             else draws.to(device))
+    draws = (_sweep_inputs(config, num_samples, 0, config.timesteps, None, device)
+             if draws is None else draws.to(device))
     seeds = np.arange(num_samples)
     teacher_fn = make_sweep_trajectory_fn(teacher, config.timesteps, config)
     teacher_chains = {}  # per scale, shared by every size

@@ -77,7 +77,7 @@ def run(args, config=None, draws=None) -> Tuple[Dict[float, np.ndarray], Dict[fl
     guidance_scales = parse_float_list(args.guidance_scales)
     teacher = load_teacher_from_arg(config, args.teacher_model)
     student = load_student(config, args.size_factor)
-    draws = (_sweep_inputs(config, args.num_samples, args.seed, config.timesteps, device)
+    draws = (_sweep_inputs(config, args.num_samples, args.seed, config.timesteps, None, device)
              if draws is None else draws.to(device))
     seeds = np.arange(args.seed, args.seed + args.num_samples)
     fns = {"teacher": make_sweep_trajectory_fn(teacher, config.timesteps, config),

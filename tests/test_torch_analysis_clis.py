@@ -148,6 +148,27 @@ def test_trajectories_cli_matches_jax(trained, tmp_path):
     _pngs_over_1kb(tmp_path / "port")
 
 
+@pytest.mark.parametrize("cli", ["trajectories", "effectiveness"])
+def test_cli_default_draws_are_the_sweeps(trained, tmp_path, cli):
+    """Without injected draws each CLI draws the sweep's own U-Net draws
+    (``_sweep_inputs``, no labels) from its seeds: its result equals the
+    run handed those draws."""
+    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
+
+    root, _ = trained
+    cfg = _port_config(root, timesteps=T)
+    flags = ["--guidance_scales", "1.0,3.0", "--timesteps", str(T), "--num_samples", "2",
+             "--output_dir", str(tmp_path)]
+    if cli == "trajectories":
+        args = analyze_trajectories.parse_args(_flags(root, "--size_factor", "0.1", *flags))
+        run, base_seed = analyze_trajectories.run, args.seed
+    else:
+        args = analyze_effectiveness.parse_args(_flags(root, "--size_factors", "0.1", *flags))
+        run, base_seed = analyze_effectiveness.run, 0
+    want = run(args, cfg, _sweep_inputs(cfg, 2, base_seed, T, None, "cpu"))
+    np.testing.assert_equal(run(args, cfg), want)
+
+
 def test_effectiveness_cli_matches_jax(trained, tmp_path):
     root, _ = trained
     args = analyze_effectiveness.parse_args(_flags(

@@ -13,7 +13,9 @@ call, 9 launches counted a T=10 replay), the benches' single-seed maker
 among them (one graph for three scales, and for two values of a guided
 student's ``w``); the sweep's makers kept across calls (a warm-up and a
 capture a model in the first of three calls, then replays alone); and the
-DiT's fused attention and its captured chain, labels a graph input.
+DiT's fused attention and its captured chain, labels a graph input; the
+DiT block's fused adaLN kernels against their float32 compositions, their
+refusals, and a DiT-S/2 forward through them against the plain forward.
 
 Imports neither JAX nor the JAX package, so it also runs where JAX is not
 installed; there, skip the JAX-importing conftest:
@@ -739,7 +741,9 @@ def test_captured_chain_replays_the_eager_chain(cuda):
                 assert made == 9 and torch.equal(got, want), gs
             assert not plain
         (graph,) = sweep.graphs.graphs.values()
-        assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9]
+        # A replay's launches of each counted wrapper: the CFG update's 9, and
+        # none of the DiT's adaLN kernels in a U-Net chain.
+        assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9, 0, 0]
         assert torch.equal(first, sweep._eager(noises, seeds, CFG_COND_PAIRS, 3.0,
                                                step_noise=step_noise))
         assert first.untyped_storage().data_ptr() != got.untyped_storage().data_ptr()
@@ -826,7 +830,8 @@ def test_bench_chain_maker_replays_its_eager_body(cuda):
                     torch.cuda.synchronize()
                     assert made == 9 and torch.equal(got, want), (name, g)
                 (graph,) = chain.graphs.graphs.values()
-                assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9]
+                assert isinstance(graph.graph, torch.cuda.CUDAGraph) and \
+                    graph.launches == [9, 0, 0]  # the CFG update's; no adaLN kernel
             assert not plain
         a, b = (call("guided", chains["guided"][0], g) for g in (2.0, 4.5))
         assert not torch.equal(a, b)  # each replay read w where it was set
@@ -1013,10 +1018,11 @@ def test_dit_forward_launches_fused_attention(cuda, hidden, heads):
     t = torch.full((8,), 17.0, device=cuda)
     ones = torch.ones((8, 1), device=cuda)
     labels = torch.arange(8, device=cuda)
-    model(x, t, ones, ones, labels)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        out = model(x, t, ones, ones, labels)
-        torch.cuda.synchronize()
+    with torch.no_grad():  # the adaLN kernels have no backward
+        model(x, t, ones, ones, labels)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = model(x, t, ones, ones, labels)
+            torch.cuda.synchronize()
     names = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     fused = [n for n in names if any(k in n for k in ("flash", "fmha", "sdpa", "attention"))]
     assert fused, names
@@ -1030,10 +1036,18 @@ def test_dit_chain_replay_equals_its_eager_body(cuda):
     T=10): the labels ride in as a graph input, so one graph serves two
     label sets and two guidance scales, each replay equal to the eager body
     bit for bit; the graph's inputs are the noises, the step noise, the
-    scalar table and the labels."""
+    scalar table and the labels.  Every eager forward runs the fused adaLN
+    kernels (its span says "fused"), and a replay counts the launches of
+    its eager body: 18 forwards of one ``ln_modulate`` and four
+    ``gate_add_ln_modulate`` each."""
     from distillation_trajectories_torch.config import Config
     from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
+    from distillation_trajectories_torch.ops.adaln import gate_add_ln_modulate, ln_modulate
     from distillation_trajectories_torch.trajectories.engine import make_sweep_trajectory_fn
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    def launches():
+        return ln_modulate.launches, gate_add_ln_modulate.launches
 
     cfg = Config(device="cuda", image_size=32, channels=4, timesteps=10, architecture="dit")
     model = _dit(cuda, 1)
@@ -1043,16 +1057,203 @@ def test_dit_chain_replay_equals_its_eager_body(cuda):
     step_noise = torch.randn((9, 4, 32, 32, 4), device=cuda, generator=gen)
     seeds = list(range(4))
     a, b = torch.tensor([1, 2, 3, 999], device=cuda), torch.tensor([7, 7, 0, 5], device=cuda)
-    sweep(noises, seeds, CFG_COND_PAIRS, 4.0, step_noise=step_noise, labels=a)
-    outs = []
-    for labels, gs in ((a, 4.0), (b, 4.0), (a, 1.5)):
-        got = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise, labels=labels)
-        want = sweep._eager(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise,
-                            labels=labels)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), (labels, gs)
-        outs.append(got)
+    with recording() as rec:
+        sweep(noises, seeds, CFG_COND_PAIRS, 4.0, step_noise=step_noise, labels=a)
+        outs = []
+        for labels, gs in ((a, 4.0), (b, 4.0), (a, 1.5)):
+            start = launches()
+            got = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise, labels=labels)
+            replayed = launches()
+            want = sweep._eager(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise,
+                                labels=labels)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (labels, gs)
+            outs.append(got)
+            assert [n - m for n, m in zip(replayed, start)] == [18, 72]
+            assert [n - m for n, m in zip(launches(), replayed)] == [18, 72]
+    forwards = [s.attrs["adaln"] for s in rec.spans if s.name == "dit.forward"]
+    assert len(forwards) > 18 and set(forwards) == {"fused"}
     assert not torch.equal(outs[0], outs[1])  # the labels reach the graph
     (graph,) = sweep.graphs.graphs.values()
     assert [tuple(i.shape) for i in graph.inputs] == [(4, 32, 32, 4), (9, 4, 32, 32, 4),
                                                       (9, 4), (4,)]
+
+
+def _adaln_operands(cuda, width, b, n, low, seed=0):
+    """Float32 residual rows ``[b, n, width]``, a branch output and the
+    ``(gate, shift, scale)`` chunks (strided views) of two ``[b, 6D]``
+    adaLN outputs, the last three in ``low`` (the autocast dtype)."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, n, width), device=cuda, generator=gen) * 3 + 0.5
+    y = torch.randn((b, n, width), device=cuda, generator=gen).to(low)
+    first = torch.randn((b, 6 * width), device=cuda, generator=gen).to(low).chunk(6, dim=1)
+    second = torch.randn((b, 6 * width), device=cuda, generator=gen).to(low).chunk(6, dim=1)
+    return x, y, first[2], second[0], second[1]
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp of each value of float32 ``v`` (8 significant bits)."""
+    return torch.exp2(torch.floor(torch.log2(v.abs())) - 7)
+
+
+@pytest.mark.parametrize("gated", [False, True], ids=["ln_modulate", "gate_add_ln_modulate"])
+@pytest.mark.parametrize("width", [384, 768, 1152])
+@pytest.mark.parametrize("b, n", [(32, 256), (3, 100)], ids=["8192rows", "300rows"])
+@pytest.mark.parametrize("low", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_adaln_kernel_matches_its_plain_composition(cuda, gated, width, b, n, low):
+    """Each fused adaLN kernel against its plain composition on the same
+    operands (the modulations strided chunks, bf16 under autocast with a
+    bf16 branch output, or float32 throughout): under autocast ``x'``
+    equals the composition's bit for bit (the kernel rounds ``gate·y`` to
+    bf16 as PyTorch does, then sums in float32) and ``h`` lies within one
+    bf16 ulp of the composition's float32 result (within 1e-5 near zero,
+    where the statistics' float32 rounding shows); in float32 ``h`` lies
+    within float32 rounding of its statistics (1e-5) and ``x'`` within two
+    float32 roundings of ``|x| + 2|gate·y|`` (the kernel may contract the
+    product and the sum into one fused multiply-add).  ``x'`` is written
+    over ``x``; ``ln_modulate`` leaves ``x`` as it was."""
+    from distillation_trajectories_torch.ops.adaln import (
+        gate_add_ln_modulate,
+        gate_add_ln_modulate_reference,
+        ln_modulate,
+        ln_modulate_reference,
+    )
+
+    x, y, gate, shift, scale = _adaln_operands(cuda, width, b, n, low)
+    x0 = x.clone()
+    counter = gate_add_ln_modulate if gated else ln_modulate
+    before = counter.launches
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16,
+                                         enabled=low == torch.bfloat16):
+        if gated:
+            got_x, got_h = gate_add_ln_modulate(x, y, gate, shift, scale)
+        else:
+            got_h = ln_modulate(x, shift, scale)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    if gated:
+        want_x, want_h = gate_add_ln_modulate_reference(x0, y, gate, shift, scale)
+        assert got_x is x  # the residual stream updated in place
+        if low == torch.bfloat16:
+            assert torch.equal(got_x, want_x)
+        else:
+            tol = 2.0 ** -23 * (x0.abs() + 2 * (gate.unsqueeze(1) * y).abs())
+            assert ((got_x - want_x).abs() <= tol).all()
+    else:
+        want_h = ln_modulate_reference(x0, shift, scale)
+        assert torch.equal(x, x0)
+    assert want_h.dtype == torch.float32
+    assert got_h.dtype == low and got_h.shape == x.shape and got_h.is_contiguous()
+    if low == torch.bfloat16:
+        assert ((got_h.float() - want_h).abs() <= _bf16_ulp(want_h) + 1e-5).all()
+    else:
+        torch.testing.assert_close(got_h, want_h, rtol=1e-5, atol=1e-5)
+
+
+def _bad_adaln_calls(cuda):
+    from distillation_trajectories_torch.ops.adaln import gate_add_ln_modulate, ln_modulate
+
+    x, y, gate, shift, scale = _adaln_operands(cuda, 384, 2, 16, torch.bfloat16)
+    wide = _adaln_operands(cuda, 2064, 2, 16, torch.bfloat16)
+    leaf = x.clone().requires_grad_()
+    col_strided = torch.randn((384, 2), device=cuda).bfloat16().t()
+    return {
+        "x not contiguous": lambda: ln_modulate(x.transpose(0, 1).contiguous().transpose(0, 1),
+                                                shift, scale),
+        "x bf16": lambda: ln_modulate(x.bfloat16(), shift, scale),
+        "x 2-D": lambda: ln_modulate(x.reshape(-1, 384), shift, scale),
+        "width over 2048": lambda: ln_modulate(wide[0], wide[3], wide[4]),
+        "shift shape": lambda: ln_modulate(x, shift[:1], scale),
+        "scale column stride": lambda: ln_modulate(x, shift, col_strided),
+        "scale float16": lambda: ln_modulate(x, shift, scale.half()),
+        "y shape": lambda: gate_add_ln_modulate(x, y[:, :8], gate, shift, scale),
+        "y on the CPU": lambda: gate_add_ln_modulate(x, y.cpu(), gate, shift, scale),
+        "y not of gate's dtype": lambda: gate_add_ln_modulate(x, y.float(), gate, shift, scale),
+        "gate on the CPU": lambda: gate_add_ln_modulate(x, y, gate.cpu(), shift, scale),
+        "autograd records": lambda: ln_modulate(leaf, shift, scale),
+    }
+
+
+BAD_ADALN_CALLS = ["x not contiguous", "x bf16", "x 2-D", "width over 2048", "shift shape",
+                   "scale column stride", "scale float16", "y shape", "y on the CPU",
+                   "y not of gate's dtype", "gate on the CPU", "autograd records"]
+
+
+@pytest.mark.parametrize("call", BAD_ADALN_CALLS)
+def test_adaln_wrappers_raise_on_what_the_kernel_does_not_take(cuda, call):
+    """On the card a wrapper launches its kernel or raises: no fallback to
+    the plain composition for any operand the kernel does not take."""
+    from distillation_trajectories_torch.ops.adaln import gate_add_ln_modulate, ln_modulate
+
+    before = ln_modulate.launches + gate_add_ln_modulate.launches
+    with pytest.raises(ValueError):
+        _bad_adaln_calls(cuda)[call]()
+    assert ln_modulate.launches + gate_add_ln_modulate.launches == before
+
+
+# Relative L2 of a DiT-S/2 forward (bf16 autocast) fused against plain.  The
+# two round alike and differ only by float32 reordering in the statistics,
+# which flips a few of h's bf16 roundings; twelve bf16 blocks spread those
+# to their own noise floor: 2.9e-3 measured on the H100, where the plain
+# forward lies 4.9e-3 from the float32 one.
+DIT_FUSED_VS_PLAIN = 1e-2
+
+
+def test_dit_forward_runs_the_fused_kernels_and_matches_the_plain_one(cuda):
+    """A DiT-S/2 forward on the card (12 blocks of width 384, bf16
+    autocast, 8 samples of 256 tokens): under ``torch.no_grad()`` it runs
+    the fused kernels, one ``ln_modulate`` and two ``gate_add_ln_modulate``
+    a block, its ``dit.forward`` span says "fused", and it lies within
+    ``DIT_FUSED_VS_PLAIN`` relative L2 of the same forward through the
+    plain compositions (the model's adaLN calls patched to them), which
+    launches neither kernel; both lie as close to the float32 model.  A
+    forward on the card that autograd would record raises."""
+    from unittest import mock
+
+    from distillation_trajectories_torch.models import dit
+    from distillation_trajectories_torch.models.dit import DIT_VARIANTS
+    from distillation_trajectories_torch.ops.adaln import (
+        gate_add_ln_modulate,
+        gate_add_ln_modulate_reference,
+        ln_modulate,
+        ln_modulate_reference,
+    )
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    sizes = {k: DIT_VARIANTS["DiT-S/2"][k] for k in ("depth", "hidden_size", "num_heads")}
+    model = _dit(cuda, 3, **sizes)
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((8, 32, 32, 4), device=cuda, generator=gen)
+    t = torch.full((8,), 250.0, device=cuda)
+    ones = torch.ones((8, 1), device=cuda)
+    labels = torch.arange(8, device=cuda) * 97
+
+    def launches():
+        return ln_modulate.launches, gate_add_ln_modulate.launches
+
+    before = launches()
+    with torch.no_grad():
+        with recording() as rec:
+            fused = model(x, t, ones, ones, labels)
+        after = launches()
+        with mock.patch.object(dit, "ln_modulate", ln_modulate_reference), \
+                mock.patch.object(dit, "gate_add_ln_modulate", gate_add_ln_modulate_reference):
+            plain = model(x, t, ones, ones, labels)
+    assert after == (before[0] + 1, before[1] + 2 * sizes["depth"])
+    assert launches() == after
+    assert [s.attrs["adaln"] for s in rec.spans if s.name == "dit.forward"] == ["fused"]
+    with pytest.raises(ValueError, match="no backward"):
+        model(x, t, ones, ones, labels)
+    assert launches() == after
+    model.dtype = torch.float32
+    with torch.no_grad():
+        exact = model(x, t, ones, ones, labels)
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+
+    gap = rel(fused, plain)
+    print(f"DiT-S/2 fused vs plain {gap:.3e}, fused vs float32 {rel(fused, exact):.3e}, "
+          f"plain vs float32 {rel(plain, exact):.3e}")
+    assert gap < DIT_FUSED_VS_PLAIN
+    assert rel(fused, exact) < 1.1 * rel(plain, exact)

@@ -4,12 +4,17 @@ its forward against the plain reference (``h100_bench/reference/dit.py``), the
 ``(cond, mask)`` to label / null-class mapping, a whole sweep call with a
 DiT teacher and two DiT students against the reference chain and metric
 suite, the labels' draw, the factory and the published sizes, the U-Net
-sweep unchanged bit for bit, and every path built for the U-Net refusing a
-DiT."""
+sweep unchanged bit for bit, every path built for the U-Net refusing a
+DiT, and the adaLN passes: their plain versions bit-equal to the published
+block's composition, the trunk's seams through them, and their module
+importing no Triton."""
 
 import hashlib
 import json
 import os
+import subprocess
+import sys
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -169,7 +174,7 @@ def test_dit_sweep_matches_the_reference_chain_and_metric_suite(tmp_path):
     forwards = [s for s in rec.spans if s.name == "dit.forward"]
     assert forwards and forwards[0].attrs == {
         "variant": teacher.variant, "batch": S, "tokens": 16, "heads": 4, "head_dim": 16,
-        "backends": ("flash", "cudnn", "efficient")}
+        "backends": ("flash", "cudnn", "efficient"), "adaln": "plain"}
 
     seeds = [base + i for i in range(S)]
     noises = D.seeded_normal([(s, 0) for s in seeds], (8, 8, 4), "cpu")
@@ -346,3 +351,92 @@ def test_a_sweep_does_not_mix_the_families(tmp_path):
     with pytest.raises(ValueError, match="draws carry labels"):
         sweep_compare_trajectories_multi(dit, [{"students": {"S": dit}, "draws": draws,
                                                 "timesteps": 4}], cfg, verbose=False)
+
+
+def _published_ln_modulate(x, shift, scale):
+    """The published block's ``modulate(norm(x), shift, scale)``."""
+    norm = torch.nn.LayerNorm(x.shape[-1], elementwise_affine=False, eps=1e-6)
+    return norm(x) * (1 + scale.unsqueeze(1)) + shift.unsqueeze(1)
+
+
+@pytest.mark.parametrize("autocast", [False, True], ids=["float32", "bf16-autocast"])
+def test_adaln_plain_versions_are_the_published_composition_bit_for_bit(autocast):
+    """The plain versions compute ``modulate(norm(x), shift, scale)`` and
+    ``x + gate·y`` as the published block writes them, bit for bit, in
+    float32 and under bf16 autocast (bf16 modulations and branch output);
+    the wrappers take them on CPU tensors and count no launch, the gated
+    one writing ``x'`` over its ``x`` as on the card."""
+    from distillation_trajectories_torch.ops import adaln
+
+    gen = torch.Generator().manual_seed(7)
+    low = torch.bfloat16 if autocast else torch.float32
+    x = torch.randn((3, 10, 48), generator=gen) * 2
+    y = torch.randn((3, 10, 48), generator=gen).to(low)
+    gate, shift, scale = torch.randn((3, 6 * 48), generator=gen).to(low).chunk(6, dim=1)[:3]
+    before = adaln.ln_modulate.launches, adaln.gate_add_ln_modulate.launches
+    with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):
+        h = adaln.ln_modulate_reference(x, shift, scale)
+        want_h = _published_ln_modulate(x, shift, scale)
+        x2, h2 = adaln.gate_add_ln_modulate_reference(x, y, gate, shift, scale)
+        want_x2 = x + gate.unsqueeze(1) * y
+        want_h2 = _published_ln_modulate(want_x2, shift, scale)
+        x_in = x.clone()
+        wrapped = adaln.ln_modulate(x, shift, scale), *adaln.gate_add_ln_modulate(
+            x_in, y, gate, shift, scale)
+    assert h.dtype == torch.float32 and x2.dtype == torch.float32
+    for got, want in zip((h, x2, h2) + tuple(wrapped), (want_h, want_x2, want_h2) * 2):
+        assert torch.equal(got, want)
+    assert wrapped[1] is x_in
+    assert (adaln.ln_modulate.launches, adaln.gate_add_ln_modulate.launches) == before
+
+
+def test_adaln_module_imports_no_triton_on_the_cpu():
+    code = ("import sys; import distillation_trajectories_torch.ops.adaln; "
+            "import distillation_trajectories_torch.models.dit; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'triton'))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    assert out.strip() == "[]"
+
+
+def test_trunk_joins_each_seam_in_one_gated_pass():
+    """The trunk runs one ``ln_modulate`` (the first block's attention
+    input) and two ``gate_add_ln_modulate`` a block (attention to MLP, and
+    the block's end to the next block's or the final layer's norm), with
+    each block's own gates and the next normalisation's shift and scale;
+    through the wrappers on the CPU it equals the trunk of the pure plain
+    versions bit for bit."""
+    from distillation_trajectories_torch.models import dit
+    from distillation_trajectories_torch.ops import adaln
+
+    model, _ = _dit(TEACHER, 5)
+    gen = torch.Generator().manual_seed(8)
+    x = torch.randn((2, 16, 64), generator=gen)
+    c = torch.randn((2, 64), generator=gen)
+    calls = []
+
+    def spy(name, fn):
+        def call(*args):
+            calls.append((name, args[-2:]))
+            return fn(*args)
+        return call
+
+    with torch.no_grad():
+        with mock.patch.object(dit, "ln_modulate", adaln.ln_modulate_reference), \
+                mock.patch.object(dit, "gate_add_ln_modulate",
+                                  adaln.gate_add_ln_modulate_reference):
+            plain = model.trunk(x.clone(), c)
+        with mock.patch.object(dit, "ln_modulate", spy("ln", dit.ln_modulate)), \
+                mock.patch.object(dit, "gate_add_ln_modulate",
+                                  spy("gated", dit.gate_add_ln_modulate)):
+            got = model.trunk(x.clone(), c)  # the trunk updates its x in place
+        mods = [b.adaLN_modulation(c).chunk(6, dim=1) for b in model.blocks]
+        final = model.final_layer.adaLN_modulation(c).chunk(2, dim=1)
+    assert torch.equal(got, plain)
+    names = [n for n, _ in calls]
+    assert names == ["ln"] + ["gated"] * (2 * TEACHER["depth"])
+    want = [mods[0][:2]]
+    for i, m in enumerate(mods):
+        want += [m[3:5], (mods[i + 1] if i + 1 < len(mods) else final)[:2]]
+    for (_, got_mods), want_mods in zip(calls, want):
+        assert all(torch.equal(a, b) for a, b in zip(got_mods, want_mods))
