@@ -34,11 +34,10 @@ on first use.  Phases, each printing its own lines:
    and students {0.1, 0.5} (seeded random weights), 32x32x3, 256 samples,
    T=50, guidance scales (1.0, 3.0), bf16 compute — with the kernel's
    launch count checked, the plain version checked unused, metrics checked
-   finite, and traj/s, pairs/s and peak memory printed (each maker's key is
-   called once a sweep, so the sweep's chains run eagerly); then the
-   teacher CFG chain through its maker, captured (an eager warm-up, the
-   capture), best of 3 replays and one replay profiled, with peak reserved
-   memory and the sampler pool's bytes;
+   finite, and peak memory printed (each chain runs once in this one call,
+   so the engine runs it through its maker with ``eager=True``).  The
+   benchmark's ``cifar10-32.sweep`` cell times this traffic; 14(a) holds
+   the teacher's captured chain;
 5. training: one teacher step and one distillation step on the card
    against the CPU (float32, TF32 off, sf 0.1, 16x16x1, batch 8, T=10,
    dropout 0, shared weights and draws); then ``train_teacher`` at full
@@ -48,12 +47,13 @@ on first use.  Phases, each printing its own lines:
    sf {0.1, 0.5} from that checkpoint, both through the trainers' default
    epoch lane (a captured CUDA graph replayed a batch) — with each epoch's
    seconds a step (capture included), images/s, checkpoint and grid
-   times, peak memory, and a few per-batch teacher steps timed and
-   profiled (forward, backward, optimizer) printed, the PNG writer that
+   times, peak memory, and the losses of a few per-batch teacher steps
+   printed, the PNG writer that
    wrote the grids named (the raw grid where matplotlib does not import),
    and a failure when a loss is not finite or does not fall, no graph was
    captured, the checkpoint read back does not reproduce the trained
-   model, or anything ran on the CPU;
+   model, or anything ran on the CPU (the ``cifar10-32.train`` cell times
+   the teacher's epoch lane);
 6. analysis, on phase 5's checkpoints (teacher, students {0.1, 0.5}):
    (a) the InceptionV3 trunk (299x299, batch 2), its preprocessing,
    AlexNet-LPIPS (64x64, batch 8), the paired trajectory function (T=10)
@@ -62,8 +62,8 @@ on first use.  Phases, each printing its own lines:
    CLI's ``run`` half with the full sweep's two jobs (``heatmaps``: 10
    guidance scales, 10 samples, T=100; ``trio``: T=50), the kernel's launch
    count checked and every transformed metric checked in [0, 1], with
-   wall seconds, traj/s and peak memory (its T=100 teacher chain is timed
-   in both lanes in 14(b));
+   wall seconds, traj/s and peak memory (the ``cifar10-32.cfg-cli-b10``
+   cell times this traffic);
    (c) the FID CLI's ``run`` half (50 samples per model, 100 sampling
    steps, InceptionV3 at 299x299 in batches of 32), FIDs checked finite
    and stamped ``seeded-random``, the comparison figures' PNG writer
@@ -82,8 +82,8 @@ on first use.  Phases, each printing its own lines:
    the count derived from each CLI's arguments, wall seconds, traj/s and
    peak memory printed, and the outputs checked (finite chains, distances
    and metrics, cosines in [-1, 1], variance ratios in [0, 1], the text
-   and npz files written) (its batch-1 T=100 paired call is timed in both
-   lanes in 14(b)).  Nothing here imports matplotlib either;
+   and npz files written) (the ``cifar10-32.pairs-b1`` cell times their
+   batch-1 T=100 paired call).  Nothing here imports matplotlib either;
 8. editing and progressive distillation: (a) the editing chain (engine
    mode, inpainting ``post_step``) and the plain, guided and
    ``teacher_guided`` progressive steps on the card against the CPU, in
@@ -154,9 +154,7 @@ on first use.  Phases, each printing its own lines:
    main path's traj/s over 5 timed replays of the captured chain, the eager
    chain's seconds beside them, the metric suite's pairs/s, the
    CPU baseline, the update tail it ran, ``use_pallas`` true, in its record
-   and its ledger line in the workdir; then its chain timed again in
-   turns with the step noise drawn inside and before each timed call, the
-   mean and the best of each); (b) ``bench_r2`` ``pallas``
+   and its ledger line in the workdir); (b) ``bench_r2`` ``pallas``
    (the kernel against the plain tail in turns, batch 256, T=50, bf16,
    each arm's seconds printed and the chains' deviation held under
    ``PALLAS_CHAIN_ATOL``), ``ablate`` (batch 256) and
@@ -172,13 +170,9 @@ on first use.  Phases, each printing its own lines:
    lane against the eager per-batch loop from one seed (float32, TF32 off,
    cuDNN deterministic, sf 0.1, 16x16x1, batch 8, T=10, dropout 0.3, two
    epochs of 8 batches): the draw generator's end state equal, each step's
-   loss at rtol 1e-5, the weights held as ``_hold_weights`` says; (b) the
-   teacher at full width (sf 1.0, the synthetic CIFAR-shaped set, batch
-   128, T=100, bf16, dropout 0.3, 30 batches), loop and graph in turns
-   (loop, graph, graph, loop): each turn's epoch seconds, median
-   synchronized step, the device's idle share and kernels a step over 4
-   profiled steps, capture seconds and peak memory, after the dataset
-   upload's bytes and seconds; (c) ``train_students`` {0.01, 0.05, 0.1}
+   loss at rtol 1e-5, the weights held as ``_hold_weights`` says (the
+   ``cifar10-32.train`` and ``mnist-16.train`` cells time the teacher's
+   epoch lane); (c) ``train_students`` {0.01, 0.05, 0.1}
    from phase 5's teacher, 10 batches, float32 with TF32 off: {0.01, 0.05}
    as one group step and 0.1 alone, held against ``vmap_students=False``
    (losses rtol 1e-5), with the group's epoch seconds against the two
@@ -194,13 +188,14 @@ on first use.  Phases, each printing its own lines:
    (batch 128, T=100 → 50, bf16, dropout 0.3), plain and guided, 30
    batches a turn, loop, graph, graph, loop: median synchronized step,
    images/s, the device's idle share and kernels a step over 4 profiled
-   steps, capture seconds and peak memory;
+   steps, capture seconds and peak memory, after the dataset upload's
+   bytes and seconds;
 14. the samplers' captured lane (each maker captures its chain into a
    CUDA graph on the second call for a key and replays it): (a) the main
    path's chain through ``make_sweep_trajectory_fn`` (sf-1.0 teacher,
    batch 256, 32x32x3, T=50, bf16): one graph serves gs 2.0, 3.0 and 7.5,
    each replay equal to the eager body bit for bit with 49 launches
-   counted, a replay after the weights change in place equal to the eager
+   counted and finite, a replay after the weights change in place equal to the eager
    chain with them, 49 launches of the kernel in a traced replay's device
    events and no host-to-device copy, the plain version never called, and
    the int8 lane's chain (batch 8, T=10) replayed equal to its eager body,
@@ -210,13 +205,11 @@ on first use.  Phases, each printing its own lines:
    ``int8_static_mixed`` arm (gs 3.0) and ``bench_progressive``'s guided
    student at w 2.0 and 5.0 on one graph (its ``w`` a tensor set in
    place), each replay equal to the eager body bit for bit with 49
-   launches counted and the plain version never called; (b)
-   three chains in both lanes in turns (eager, graph, graph, eager, 2
-   calls a turn): the main path's, the CFG-sweep CLI's teacher chain
-   (phase 5's teacher, batch 10, T=100, gs 3.0) and a batch-1 T=100 paired
-   call (phase 5's teacher and sf-0.5 student, no CFG): median seconds,
-   device busy ms and idle share over 2 profiled chains, capture seconds,
-   the shared pool's bytes and peak reserved memory.
+   launches counted and the plain version never called.  The eager body
+   is the maker's call with ``eager=True``.  The benchmark's cells time
+   these chains in both lanes (``cifar10-32.sweep``, ``.cfg-cli-b10``,
+   ``.pairs-b1``: each model's CFG chain replayed, its CFG-off chain
+   eager).
 
 The CFG-update record counts the launches of phase 2's DiT chain and of
 phases 4, 6(b), 7(b), 8(b), 9(d), 10 (the ranks' included), 11, 12 and
@@ -552,13 +545,6 @@ def phase_sampler(card):
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
-def _busy_and_window(kernels):
-    """Device busy time and window of profiler events, in µs."""
-    from distillation_trajectories_torch.utils.profiling import busy_and_window
-
-    return busy_and_window((e.time_range.start, e.time_range.end) for e in kernels)
-
-
 def _recorded_s(name, fn, *args, **kwargs):
     """``(fn(*args, **kwargs), seconds)``: the call's result and the
     seconds inside the program's spans named ``name`` (``graph.capture``,
@@ -570,16 +556,14 @@ def _recorded_s(name, fn, *args, **kwargs):
     return out, sum(s.end_ns - s.start_ns for s in rec.spans if s.name == name) / 1e9
 
 
-def profile_breakdown(run, chain_s, card, label="one teacher CFG chain"):
+def profile_breakdown(run, call_s, card, label):
     """Device time of one ``run()`` by kernel kind (torch.profiler, CUPTI),
     the device's idle share between its first and last kernel with the
     profiler on, and the idle share that busy time implies for the
-    unprofiled call of ``chain_s`` seconds.  Device activity only: the
-    host operator events (about 150,000 for a T=100 CFG chain) would make
-    the profiled run and the reading of its events several times slower."""
+    unprofiled call of ``call_s`` seconds.  Device activity only."""
     from torch.profiler import ProfilerActivity, profile
 
-    from distillation_trajectories_torch.utils.profiling import tally
+    from distillation_trajectories_torch.utils.profiling import busy_and_window, tally
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
@@ -589,13 +573,13 @@ def profile_breakdown(run, chain_s, card, label="one teacher CFG chain"):
     if not kernels:
         print("profile: torch.profiler recorded no device events: breakdown not measured")
         return
-    busy, window = _busy_and_window(kernels)
+    busy, window = busy_and_window((e.time_range.start, e.time_range.end) for e in kernels)
     by_kind, by_name = tally((e.name, e.time_range.elapsed_us()) for e in kernels)
     total = sum(t for _, t in by_kind.values())
     print(f"profile ({label}, profiler on): {len(kernels)} kernels, "
           f"device busy {busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window, "
           f"idle share {1 - busy / window:.3f}; against the unprofiled "
-          f"{chain_s * 1e3:.3f} ms call, idle share {1 - busy / 1e6 / chain_s:.3f} [{card}]")
+          f"{call_s * 1e3:.3f} ms call, idle share {1 - busy / 1e6 / call_s:.3f} [{card}]")
     for kind, (n, t) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
         print(f"  {kind}: {t / 1e3:.3f} ms ({t / total:.1%}) in {n} launches")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
@@ -615,14 +599,9 @@ def _pool_bytes():
 
 def phase_main_path(card):
     from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
     from distillation_trajectories_torch.models import make_unet, param_count
     from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
-    from distillation_trajectories_torch.trajectories import (
-        make_sweep_trajectory_fn,
-        sweep_compare_trajectories,
-    )
-    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
+    from distillation_trajectories_torch.trajectories import sweep_compare_trajectories
 
     cfg = Config(timesteps=MAIN_T, sample_steps=MAIN_T)  # 32x32x3, bf16, cuda
     teacher = make_unet(cfg, size_factor=1.0, seed=0)
@@ -636,13 +615,11 @@ def phase_main_path(card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cfg_engine_update.launches = 0
-    t0 = time.perf_counter()
     with _PlainCalls() as plain_calls:
         out = sweep_compare_trajectories(
             teacher, students, cfg, guidance_scales=MAIN_GS, num_samples=SAMPLES,
             base_seed=42, verbose=False)
         torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
     launches = cfg_engine_update.launches
     peak = torch.cuda.max_memory_allocated()
     peak_reserved = torch.cuda.max_memory_reserved()
@@ -665,44 +642,9 @@ def phase_main_path(card):
                 ("endpoint_distance", "trajectory_mse", "path_length_similarity",
                  "mean_directional_consistency", "mean_wasserstein")))
 
-    pairs = len(MAIN_GS) * len(STUDENTS) * SAMPLES
-    t0 = time.perf_counter()
-    sweep_compare_trajectories(
-        teacher, students, cfg, guidance_scales=MAIN_GS, num_samples=SAMPLES,
-        base_seed=43, verbose=False)
-    torch.cuda.synchronize()
-    second_s = time.perf_counter() - t0
-
-    draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, None, "cuda")
-    chain = make_sweep_trajectory_fn(teacher, MAIN_T, cfg)
-    seeds = np.arange(42, 42 + SAMPLES)
-    run = lambda: chain(draws.noises, seeds, CFG_COND_PAIRS, 3.0,
-                        step_noise=draws.step_noise)
-    run()  # eager: the warm-up
-    _, capture_s = _recorded_s("graph.capture", run)  # the capture, then a replay
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        traj = run()
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    if tuple(traj.shape) != (SAMPLES, MAIN_T + 1, 32, 32, 3) or not torch.isfinite(traj).all():
-        raise RuntimeError("teacher chain output is not finite or has the wrong shape")
-    chain_s = min(times)
-    print(f"teacher CFG chain, captured lane (sf 1.0, gs 3.0, T={MAIN_T}, {SAMPLES} samples; "
-          f"capture {capture_s:.3f} s): {SAMPLES / chain_s:.2f} traj/s, best of "
-          f"{[round(t, 4) for t in times]} s [{card}]")
-    profile_breakdown(run, chain_s, card, label="one replay of the teacher CFG chain")
-    print(f"sweep ({pairs} pairs: {len(STUDENTS)} students x {len(MAIN_GS)} scales x "
-          f"{SAMPLES} samples, {chains} chains, draws and scoring included; each maker's key "
-          f"called once a sweep, so its chains run eagerly): "
-          f"first call {first_s:.3f} s = {pairs / first_s:.2f} pairs/s; "
-          f"second call {second_s:.3f} s = {pairs / second_s:.2f} pairs/s [{card}]")
-    print(f"peak device memory (first sweep): {peak} bytes = {peak / 2**30:.3f} GiB "
-          f"allocated, {peak_reserved} bytes reserved; after the captured chain "
-          f"{torch.cuda.max_memory_reserved()} bytes reserved, the sampler pool "
-          f"{_pool_bytes()} bytes [{card}]")
+    print(f"peak device memory (the sweep of {len(MAIN_GS) * len(STUDENTS) * SAMPLES} pairs, "
+          f"{chains} chains): {peak} bytes = {peak / 2**30:.3f} GiB allocated, {peak_reserved} "
+          f"bytes reserved [{card}]")
     return launches
 
 
@@ -788,98 +730,6 @@ def _hold_step_card_vs_cpu(label, cfg, images, draws, make_step):
           f"loss {got:.7f} vs {want:.7f} (rtol 1e-5); gradients within rtol 1e-4 / "
           f"atol 5e-5 of each tensor's max, worst {grad_err:.3e} of it; batch_stats "
           f"within rtol 1e-5 / atol 1e-6, worst abs {stats_err:.3e}")
-
-
-_TRAIN_KINDS = (  # first match wins
-    ("optimizer (multi-tensor)", ("multi_tensor",)),
-    ("upsample", ("upsample",)),
-    ("max pool", ("max_pool",)),
-    ("batch norm", ("batch_norm",)),
-    ("dropout mask", ("bernoulli",)),
-    ("concat", ("CatArray", "cat_")),
-    ("random normal / randint", ("normal", "philox", "random")),
-    ("reduction", ("reduce_kernel",)),
-    ("copy / cast", ("copy",)),
-    ("convolution", ("conv", "xmma", "implicit_gemm", "cudnn", "dgrad", "wgrad")),
-    ("matmul", ("gemm", "cutlass", "cublas")),
-    ("elementwise", ("elementwise", "vectorized", "unrolled", "Functor")),
-)
-
-
-def _phase_of(event):
-    """forward / backward / optimizer of a CPU op, by its ancestors."""
-    while event is not None:
-        if event.name.startswith("Optimizer.step"):
-            return "optimizer"
-        if event.name.startswith("autograd::engine::evaluate_function"):
-            return "backward"
-        event = event.cpu_parent
-    return "forward"
-
-
-def profile_train_steps(step, n_steps, step_s, card):
-    """Device time of ``n_steps`` teacher steps by kernel kind and by phase
-    (torch.profiler, CUPTI), and the device's idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from distillation_trajectories_torch.utils.profiling import kernel_kind, tally
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_steps):
-            step()
-        torch.cuda.synchronize()
-    events = prof.events()
-    # Device rows of record_function ranges (Optimizer.step#Adam.step) span
-    # kernels and gaps: they are not kernels.
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
-    if not kernels:
-        print("train profile: torch.profiler recorded no device events: not measured")
-        return
-    busy, window = _busy_and_window(kernels)
-    kind_of = lambda name: kernel_kind(name, _TRAIN_KINDS)
-    by_kind, by_name = tally(((e.name, e.time_range.elapsed_us()) for e in kernels),
-                             _TRAIN_KINDS)
-    by_phase = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CPU and e.kernels:
-            phase = _phase_of(e)
-            for k in e.kernels:
-                n, t = by_phase.get((phase, kind_of(k.name)), (0, 0.0))
-                by_phase[(phase, kind_of(k.name))] = (n + 1, t + k.duration)
-    total = sum(t for _, t in by_kind.values())
-    print(f"train profile ({n_steps} teacher steps, sf 1.0, batch 128, bf16, profiler on): "
-          f"{len(kernels)} kernels ({len(kernels) / n_steps:.0f} per step), device busy "
-          f"{busy / 1e3:.3f} ms of a {window / 1e3:.3f} ms window, idle share "
-          f"{1 - busy / window:.3f}; against {n_steps} unprofiled median steps "
-          f"({n_steps * step_s * 1e3:.3f} ms) idle share {1 - busy / 1e6 / (n_steps * step_s):.3f} [{card}]")
-    for kind, (n, t) in sorted(by_kind.items(), key=lambda kv: -kv[1][1]):
-        print(f"  {kind}: {t / 1e3:.3f} ms ({t / total:.1%}) in {n} launches")
-    if by_phase:
-        for phase in ("forward", "backward", "optimizer"):
-            rows = {k: v for (p, k), v in by_phase.items() if p == phase}
-            t_phase = sum(t for _, t in rows.values())
-            print(f"  {phase}: {t_phase / 1e3:.3f} ms ({t_phase / total:.1%}) in "
-                  f"{sum(n for n, _ in rows.values())} launches: " + ", ".join(
-                      f"{k} {t / 1e3:.3f} ms" for k, (n, t) in
-                      sorted(rows.items(), key=lambda kv: -kv[1][1])[:6]))
-    else:
-        print("  forward / backward split: not measured (no kernels linked to CPU ops)")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"  top kernel {t / 1e3:.3f} ms x{n}: {name[:110]}")
-
-
-def _step_summary(label, record, batch, card):
-    times = [t for t, _ in record]
-    losses = [l for _, l in record]
-    if not all(np.isfinite(losses)):
-        raise RuntimeError(f"{label}: a loss is not finite: {losses}")
-    med = statistics.median(times[3:])
-    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-    print(f"{label}: {len(record)} steps, median step {med * 1e3:.3f} ms after 3 warm-up "
-          f"steps (first step {times[0] * 1e3:.1f} ms), {batch / med:.1f} images/s; loss "
-          f"{first:.5f} (mean of first 5) -> {last:.5f} (last 5) [{card}]")
-    return med, first, last
 
 
 class _TimedEpochs:
@@ -1022,21 +872,15 @@ def phase_train_main(card, workdir):
           f"fetch + encode + write): {ckpt_s:.3f} s; 16-sample grid (p_sample_loop, "
           f"T={TRAIN_T}, 2 forwards per step): {grid_s:.3f} s [{card}]")
 
-    # A few more teacher steps of the per-batch lane, timed, then profiled
-    # (phase 13 profiles the graph-replayed lane beside it).
+    # A few more teacher steps of the per-batch lane on the same state.
     step = teacher.make_teacher_train_step(get_diffusion_params(cfg.timesteps, cfg),
                                            cfg.timesteps)
     images = torch.rand((cfg.batch_size, 32, 32, 3), device="cuda", generator=gen) * 2 - 1
-    record = []
-    for _ in range(7):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, loss = step(state, images)
-        torch.cuda.synchronize()
-        record.append((time.perf_counter() - t0, float(loss)))
-    med, _, _ = _step_summary("teacher per-batch step (sf 1.0, the same state)", record,
-                              cfg.batch_size, card)
-    profile_train_steps(lambda: step(state, images), 4, med, card)
+    losses = [float(step(state, images)[1]) for _ in range(7)]
+    if not all(np.isfinite(losses)):
+        raise RuntimeError(f"teacher per-batch step: a loss is not finite: {losses}")
+    print(f"teacher per-batch step (sf 1.0, the same state): {len(losses)} steps, loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f} [{card}]")
 
     # Students from the teacher's checkpoint.
     distill = _TimedEpochs(students.make_distill_epoch_fn)
@@ -1544,7 +1388,6 @@ def phase_clis(card, workdir):
 
 PROG_BATCHES = 10  # batches per progressive round (one epoch)
 PROG_GUIDANCE = (1.0, 5.0)
-PROG_W = 3.0
 
 
 def phase_edit_check():
@@ -2916,65 +2759,6 @@ def phase_bench(card, workdir):
           f"chain {rec['eager_seconds']} s), {rec['pairs_per_s']} "
           f"pairs/s, x{rec['vs_baseline']} {rec['baseline_source']}; update tail "
           f"use_pallas={rec['use_pallas']} (record and ledger line) [{card}]")
-    return launches + _bench_method_split(card, turns=1)
-
-
-class _PreDrawn:
-    """``BenchDraws`` with each seed's step noise drawn ahead of the timed
-    calls: the timing then holds the chain alone.  ``seconds`` holds each
-    seed's draw, timed alone between synchronizations."""
-
-    def __init__(self, draws, seeds, timesteps, shape):
-        self.noise, self.uniforms = draws.noise, draws.uniforms
-        self.steps, self.seconds = {}, []
-        for seed in seeds:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            self.steps[seed] = draws.step_noise(seed, timesteps, shape)
-            torch.cuda.synchronize()
-            self.seconds.append(time.perf_counter() - t0)
-
-    def step_noise(self, seed, timesteps, shape):
-        return self.steps[seed]
-
-
-def _bench_method_split(card, turns=2, iters=2):
-    """``bench_main_path`` at its defaults but ``iters`` timed chains, in
-    turns with its step noise
-    drawn inside each timed call (as ``bench`` and the JAX bench draw it)
-    and before it: the traj/s of each from the mean call (``bench``'s
-    method) and from the best call (phase 4's); returns the launches."""
-    from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
-    from distillation_trajectories_torch.scripts import bench
-    from distillation_trajectories_torch.scripts._common import BenchDraws
-
-    args = bench.parse_args(["--iters", str(iters)])
-    shape = (args.batch, args.image_size, args.image_size, 3)
-    draws = BenchDraws("cuda")
-    before = cfg_engine_update.launches
-    seconds, draw_s = {"inside": [], "before": []}, []
-    for _ in range(turns):
-        for label in seconds:
-            pre = (None if label == "inside" else
-                   _PreDrawn(draws, range(args.iters + 1), args.timesteps, shape))
-            seconds[label] += bench.bench_main_path(args, pre)[1]  # the captured chain's
-            draw_s += pre.seconds[1:] if pre else []  # seed 0's draw is the warm-ups'
-            del pre
-    launches = cfg_engine_update.launches - before
-    want = 2 * turns * (2 + 2 * args.iters) * (args.timesteps - 1)
-    rate = {label: (args.batch * len(s) / sum(s), args.batch / min(s))
-            for label, s in seconds.items()}
-    print(f"bench method split ({turns} turns of {args.iters} timed chains each, batch "
-          f"{args.batch}, T={args.timesteps}): step noise drawn inside the timed call "
-          f"{rate['inside'][0]:.3f} traj/s from the mean call, {rate['inside'][1]:.3f} from the "
-          f"best; drawn before {rate['before'][0]:.3f} / {rate['before'][1]:.3f}; one chain's "
-          f"draw alone {statistics.median(draw_s) * 1e3:.3f} ms (median of {len(draw_s)}, "
-          f"{min(draw_s) * 1e3:.3f}-{max(draw_s) * 1e3:.3f}); calls (s) "
-          f"{ {k: [round(x, 4) for x in v] for k, v in seconds.items()} }; {launches} kernel "
-          f"launches (expected {want}) [{card}]")
-    _finite("bench method split", *(x for r in rate.values() for x in r))
-    if launches != want:
-        raise RuntimeError(f"bench method split launched the kernel {launches} times, not {want}")
     return launches
 
 
@@ -3156,7 +2940,7 @@ def phase_benches(card, workdir):
 
 EPOCH_HOLD_IMAGES = 64  # 13(a): 8 batches of 8 an epoch
 EPOCH_HOLD_EPOCHS = 2
-EPOCH_TURNS = ("loop", "graph", "graph", "loop")  # 13(b)
+EPOCH_TURNS = ("loop", "graph", "graph", "loop")  # 13(d)'s timed turns
 GROUP_SIZES = (0.01, 0.05, 0.1)  # 13(c): 0.01 and 0.05 floor to one U-Net
 GROUP_BATCHES = 10
 
@@ -3369,34 +3153,6 @@ def _full_width_set(cfg, card, label):
     print(f"{label} dataset upload: {dataset.numel() * 4} bytes ({tuple(dataset.shape)} float32) "
           f"in {upload_s:.4f} s = {dataset.numel() * 4 / upload_s / 1e9:.3f} GB/s [{card}]")
     return loader, dataset
-
-
-def _time_epoch_lanes(card):
-    """13(b): the teacher at full width (sf 1.0, the synthetic CIFAR-shaped
-    set, batch 128, T=100, bf16, dropout 0.3), ``TRAIN_BATCHES`` batches,
-    per-batch loop and graph-replayed epoch lane in turns."""
-    from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion import get_diffusion_params
-    from distillation_trajectories_torch.models import make_unet
-    from distillation_trajectories_torch.training.state import (
-        TorchDraws,
-        create_train_state,
-        make_teacher_epoch_fn,
-        make_teacher_train_step,
-    )
-
-    cfg = Config(dataset="CIFAR10", timesteps=TRAIN_T, sample_steps=TRAIN_T,
-                 limit_batches_per_epoch=TRAIN_BATCHES)
-    loader, dataset = _full_width_set(cfg, card, "13(b)")
-    dp = get_diffusion_params(cfg.timesteps, cfg)
-
-    def build(lane):
-        state = create_train_state(make_unet(cfg, 1.0, seed=0), cfg, TorchDraws(0, "cuda"))
-        make = make_teacher_epoch_fn if lane == "graph" else make_teacher_train_step
-        return state, make(dp, cfg.timesteps)
-
-    _lane_turns(f"13(b) teacher (sf 1.0, batch {cfg.batch_size}, T={TRAIN_T}, bf16, dropout "
-                f"{cfg.dropout})", cfg, loader, dataset, build, card)
 
 
 def _group_run(workdir, vmap_students):
@@ -3692,7 +3448,6 @@ def _replay_ms(epoch_fn, n=5):
 def phase_epoch_lanes(card, workdir):
     """Phase 13: the trainers' default lanes on the card."""
     for label, run in (("(a) hold", lambda: _hold_epoch_lane(card)),
-                       ("(b) timed turns", lambda: _time_epoch_lanes(card)),
                        ("(c) student group", lambda: _hold_student_group(card, workdir)),
                        ("(d) progressive hold", lambda: _hold_progressive_lane(card)),
                        ("(d) progressive timed turns",
@@ -3703,9 +3458,6 @@ def phase_epoch_lanes(card, workdir):
 
 
 GRAPH_GS = (2.0, 3.0, 7.5)  # 14(a): one graph serves each
-GRAPH_TURNS = ("eager", "graph", "graph", "eager")  # 14(b)
-GRAPH_CALLS_A_TURN = 2
-GRAPH_PROFILED = 2  # chains under the profiler, a lane
 
 
 def _hold_sampler_graph(card):
@@ -3713,8 +3465,7 @@ def _hold_sampler_graph(card):
     batch 256, 32x32x3, T=50, bf16): the replay against the eager body at
     three guidance scales on one graph and after an in-place weight
     change, the launches by the counter and by device events, no host copy
-    in a replay, the plain version never called.  Returns the chain's
-    maker and its call for 14(b)."""
+    in a replay, the plain version never called."""
     from distillation_trajectories_torch import Config
     from distillation_trajectories_torch.diffusion.sampling import CFG_COND_PAIRS
     from distillation_trajectories_torch.models import make_unet
@@ -3728,8 +3479,8 @@ def _hold_sampler_graph(card):
     draws = _sweep_inputs(cfg, SAMPLES, 42, MAIN_T, None, "cuda")
     seeds = np.arange(42, 42 + SAMPLES)
     chain = make_sweep_trajectory_fn(teacher, MAIN_T, cfg)
-    call = lambda fn, gs: fn(draws.noises, seeds, CFG_COND_PAIRS, gs,  # noqa: E731
-                             step_noise=draws.step_noise)
+    call = lambda fn, gs, eager=False: fn(  # noqa: E731
+        draws.noises, seeds, CFG_COND_PAIRS, gs, step_noise=draws.step_noise, eager=eager)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # earlier phases' cached blocks out of the peaks below
     torch.cuda.reset_peak_memory_stats()
@@ -3747,7 +3498,7 @@ def _hold_sampler_graph(card):
             before = cfg_engine_update.launches
             got = call(chain, gs)
             made = cfg_engine_update.launches - before
-            want = call(chain._eager, gs)
+            want = call(chain, gs, eager=True)
             torch.cuda.synchronize()
             gap = float((got.float() - want.float()).abs().max())
             print(f"14(a) replay vs eager at gs {gs}: max abs gap {gap:.3e} (limit 0: the same "
@@ -3755,13 +3506,17 @@ def _hold_sampler_graph(card):
             if not torch.equal(got, want) or made != MAIN_T - 1:
                 raise RuntimeError(f"the replay at gs {gs} is not the eager chain, or it "
                                    f"counted {made} launches")
+            if tuple(got.shape) != (SAMPLES, MAIN_T + 1, 32, 32, 3) or \
+                    not torch.isfinite(got).all():
+                raise RuntimeError(f"the teacher chain at gs {gs} is not finite or has the wrong "
+                                   "shape")
         saved = {k: v.clone() for k, v in teacher.state_dict().items()}
         unchanged = call(chain, 3.0)
         with torch.no_grad():
             for p in teacher.parameters():
                 p.mul_(1.01)
         got = call(chain, 3.0)
-        want = call(chain._eager, 3.0)
+        want = call(chain, 3.0, eager=True)
         torch.cuda.synchronize()
         gap = float((got.float() - want.float()).abs().max())
         moved = float((got.float() - unchanged.float()).abs().max())
@@ -3790,10 +3545,11 @@ def _hold_sampler_graph(card):
     qcfg = Config(timesteps=10, sample_steps=10, sampler_quant="int8")
     qchain = make_sweep_trajectory_fn(teacher, 10, qcfg)
     qdraws = _sweep_inputs(qcfg, 8, 7, 10, None, "cuda")
-    qcall = lambda fn: fn(qdraws.noises, np.arange(7, 15), CFG_COND_PAIRS, 3.0,  # noqa: E731
-                          step_noise=qdraws.step_noise)
-    qcall(qchain)
-    got, want = qcall(qchain), qcall(qchain._eager)
+    qcall = lambda eager=False: qchain(  # noqa: E731
+        qdraws.noises, np.arange(7, 15), CFG_COND_PAIRS, 3.0, step_noise=qdraws.step_noise,
+        eager=eager)
+    qcall()
+    got, want = qcall(), qcall(eager=True)
     torch.cuda.synchronize()
     gap = float((got.float() - want.float()).abs().max())
     print(f"14(a) int8 lane (Config.sampler_quant='int8', batch 8, T=10, gs 3.0): "
@@ -3801,15 +3557,13 @@ def _hold_sampler_graph(card):
     if len(qchain.graphs.graphs) != 1 or not torch.equal(got, want):
         raise RuntimeError("the int8 lane's replay is not its eager chain")
     _hold_bench_makers(card)
-    return {"main path (sf 1.0, batch 256, T=50, gs 3.0, CFG)": (
-        chain, lambda: call(chain, 3.0), lambda: call(chain._eager, 3.0))}
 
 
 def _bench_maker_runs():
     """The four benches' chains as each bench builds them, at full width
     (a random sf-1.0 U-Net, batch 256, 32x32x3, T=50, bf16): ``{label:
     (maker, [(value, {"graph": call, "eager": call}), ...])}``, the graph
-    call through the maker and the eager call through its eager body."""
+    call through the maker and the eager call through it with ``eager=True``."""
     from distillation_trajectories_torch.models import make_unet
     from distillation_trajectories_torch.models.quantized import calibrate_activation_scales
     from distillation_trajectories_torch.scripts import bench_quant, bench_r2
@@ -3825,7 +3579,8 @@ def _bench_maker_runs():
     cfg, model, model_fn, _, noise = bench_r2._flagship(args, draws, SAMPLES)
 
     def one(run, gs):
-        return [(gs, {"graph": lambda: run(noise, 5, gs), "eager": lambda: run.eager(noise, 5, gs)})]
+        return [(gs, {"graph": lambda: run(noise, 5, gs),
+                      "eager": lambda: run(noise, 5, gs, eager=True)})]
 
     # bench_r2's kernel arm and bench_fast's teacher arm build the same
     # chain (the sf-1.0 forward, CFG): one maker serves both scales.
@@ -3834,7 +3589,7 @@ def _bench_maker_runs():
         kernel.maker, one(kernel, 7.5) + one(kernel, 3.0))}
     # bench_quant's mixed arm, its static scales from 5 states of a float
     # chain of 32 samples (the bench calibrates on 5 states of a float chain).
-    states = kernel.eager(noise[:32], 99, 3.0)
+    states = kernel(noise[:32], 99, 3.0, eager=True)
     idxs = [0, MAIN_T // 4, MAIN_T // 2, 3 * MAIN_T // 4, MAIN_T - 1]
     ones = torch.ones((len(idxs), 32, 1), device="cuda")
     scales = calibrate_activation_scales(
@@ -3848,13 +3603,13 @@ def _bench_maker_runs():
     student = chain_fn(cfg, draws, MAIN_T,
                        make_guided_eval_fn(make_unet(cfg, size_factor=1.0, seed=1), w))
 
-    def guided(wv, run):
+    def guided(wv, eager=False):
         w.fill_(wv)
-        return run(noise, 5)
+        return student(noise, 5, eager=eager)
 
     runs["bench_progressive guided student (w 2.0, 5.0)"] = (student.maker, [
-        (wv, {"graph": lambda wv=wv: guided(wv, student),
-              "eager": lambda wv=wv: guided(wv, student.eager)}) for wv in (2.0, 5.0)])
+        (wv, {"graph": lambda wv=wv: guided(wv),
+              "eager": lambda wv=wv: guided(wv, eager=True)}) for wv in (2.0, 5.0)])
     return runs
 
 
@@ -3892,97 +3647,13 @@ def _hold_bench_makers(card):
                                f"{plain_calls.count} times")
 
 
-def _graph_lane_chains(workdir):
-    """14(b)'s small-batch chains on phase 5's checkpoints: the CFG-sweep
-    CLI's teacher chain (batch 10, T=100, gs 3.0) and the dimensionality
-    CLI's unit, a batch-1 T=100 paired call (teacher and sf 0.5, no CFG)."""
-    from distillation_trajectories_torch import Config
-    from distillation_trajectories_torch.diffusion.sampling import (
-        CFG_COND_PAIRS,
-        draw_step_noise,
-        seeded_normal,
-    )
-    from distillation_trajectories_torch.scripts._common import load_student, load_teacher_from_arg
-    from distillation_trajectories_torch.trajectories import (
-        make_paired_trajectory_fn,
-        make_sweep_trajectory_fn,
-    )
-    from distillation_trajectories_torch.trajectories.engine import _sweep_inputs
-
-    cfg = Config(base_dir=workdir)  # bf16, cuda, teacher_steps 100
-    teacher = load_teacher_from_arg(cfg)
-    t = cfg.teacher_steps
-    sweep = make_sweep_trajectory_fn(teacher, t, cfg)
-    draws = _sweep_inputs(cfg, 10, 42, t, None, "cuda")
-    sweep_call = lambda fn: fn(draws.noises, np.arange(42, 52), CFG_COND_PAIRS,  # noqa: E731
-                               3.0, step_noise=draws.step_noise)
-    paired = make_paired_trajectory_fn(teacher, load_student(cfg, 0.5), t, cfg, use_cfg=False)
-    noise = seeded_normal([(0, 0)], (32, 32, 3), "cuda")
-    step_noise = draw_step_noise([0], t, (32, 32, 3), "cuda")
-    paired_call = lambda fn: fn(noise, [0], 1.0, step_noise=step_noise)  # noqa: E731
-    return {
-        f"CFG CLI chain (sf 1.0, batch 10, T={t}, gs 3.0, CFG)": (
-            sweep, lambda: sweep_call(sweep), lambda: sweep_call(sweep._eager)),
-        f"paired call (sf 1.0 + sf 0.5, batch 1, T={t}, no CFG)": (
-            paired, lambda: paired_call(paired), lambda: paired_call(paired._eager)),
-    }
-
-
-def _time_graph_lane(label, maker, graph_call, eager_call, card):
-    """14(b): one chain through both lanes in turns (eager, graph, graph,
-    eager): median seconds, device busy ms and idle share (profiler), the
-    capture's seconds and the shared pool's bytes."""
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_reserved()
-    graph_call()  # eager warm-up
-    _, capture_s = _recorded_s("graph.capture", graph_call)  # the capture, then replays
-    torch.cuda.synchronize()
-    graphs = maker.graphs if isinstance(maker.graphs, tuple) else (maker.graphs,)
-    captured = [g for calls in graphs for g in calls.graphs.values()]
-    if not captured:
-        raise RuntimeError(f"{label}: nothing was captured")
-    lanes = {"eager": eager_call, "graph": graph_call}
-    seconds = {lane: [] for lane in lanes}
-    for lane in GRAPH_TURNS:
-        for _ in range(GRAPH_CALLS_A_TURN):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            lanes[lane]()
-            torch.cuda.synchronize()
-            seconds[lane].append(time.perf_counter() - t0)
-    out = {}
-    for lane, run in lanes.items():
-        med = statistics.median(seconds[lane])
-        idle, busy_ms, kernels = _idle_share(run, GRAPH_PROFILED)
-        out[lane] = med
-        print(f"14(b) {label}, {lane}: median {med:.5f} s of {len(seconds[lane])} "
-              f"{[round(x, 5) for x in seconds[lane]]}; device busy {busy_ms:.3f} ms a chain, "
-              f"{kernels} kernels a chain, idle share {1 - busy_ms / 1e3 / med:.4f} of the "
-              f"unprofiled median ({idle:.4f} of the profiled window, {GRAPH_PROFILED} chains) "
-              f"[{card}]")
-    capture = f"capture {capture_s:.3f} s" if capture_s else "captured before these turns"
-    print(f"14(b) {label}: graph x{out['eager'] / out['graph']:.3f} the eager median; {capture} "
-          f"({len(captured)} graphs); sampler pool "
-          f"{_pool_bytes()} bytes; reserved {before} bytes before, peak "
-          f"{torch.cuda.max_memory_reserved()} after [{card}]")
-
-
-def phase_sampler_graphs(card, workdir):
+def phase_sampler_graphs(card):
     """Phase 14: the samplers' captured lane on the card; returns its
     launches of the kernel."""
     from distillation_trajectories_torch.ops.cfg_update import cfg_engine_update
 
     cfg_engine_update.launches = 0
-    t0 = time.perf_counter()
-    chains = _hold_sampler_graph(card)
-    print(f"phase sampler graphs (a) holds: {time.perf_counter() - t0:.1f} s [{card}]")
-    t0 = time.perf_counter()
-    chains.update(_graph_lane_chains(workdir))
-    for label, (maker, graph_call, eager_call) in chains.items():
-        _time_graph_lane(label, maker, graph_call, eager_call, card)
-    print(f"phase sampler graphs (b) timed turns: {time.perf_counter() - t0:.1f} s [{card}]")
+    _hold_sampler_graph(card)
     return cfg_engine_update.launches
 
 
@@ -4046,7 +3717,7 @@ def main():
         phase_epoch_lanes(card, workdir)
         print(f"phase epoch lanes: {time.perf_counter() - t0:.1f} s [{card}]")
         t0 = time.perf_counter()
-        graph_launches = phase_sampler_graphs(card, workdir)
+        graph_launches = phase_sampler_graphs(card)
         print(f"phase sampler graphs: {time.perf_counter() - t0:.1f} s [{card}]")
     total = (dit_launches + launches + cli_launches + clis_launches + edit_launches + lane_launches
              + multi_launches + last_launches + bench_launches + graph_launches)
@@ -4058,7 +3729,7 @@ def main():
           f"(sharded sweep and spatial chains, both ranks, and their references, phase 10) + "
           f"{last_launches} (sampler profiler's warm-up and traced chains, phase 11) + "
           f"{bench_launches} (the five benches, phase 12) + {graph_launches} (the captured "
-          f"lane's holds and timed turns, both lanes, phase 14) = {total}")
+          f"lane's holds, both lanes, phase 14) = {total}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
 
     print(card)

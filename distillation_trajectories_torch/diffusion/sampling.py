@@ -18,8 +18,9 @@ port's counterparts are :func:`make_batch_chain_fn` and
 :func:`make_loop_fn`, which the makers (trajectory engine, manager, grid,
 FID) return, and :func:`make_chain_fn`, the benches' single-seed chain:
 on the card each captures its chain into a CUDA graph on its second call
-for a key and replays it from then on
-(``utils/graphs.py``, which also lists what stays eager).  JAX's
+for a key and replays it from then on, and a call with ``eager=True`` runs
+the same body eagerly (``utils/graphs.py``, which also lists what stays
+eager).  JAX's
 ``use_pallas`` picks between its fused kernel and the unfused combine then
 ``engine_update``; the fused function computes the unfused tail (bit-equal
 on the CPU), so the port has the one tail under either value of
@@ -40,15 +41,11 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.adaln import gate_add_ln_modulate, ln_modulate
+from ..ops import COUNTED
 from ..ops.cfg_update import cfg_engine_update, cfg_engine_update_row
 from ..utils.graphs import CapturedCall, host_to_device
 from ..utils.profiling import span
 from .schedules import extract
-
-# The kernel wrappers a chain's forward and update launch: a captured
-# chain's replays count their launches as the eager chain does.
-COUNTED_KERNELS = (cfg_engine_update, ln_modulate, gate_add_ln_modulate)
 
 ModelFn = Callable[..., torch.Tensor]
 
@@ -195,32 +192,27 @@ def make_loop_fn(make_model_fn, shape, sample_steps: int, diffusion_params, *,
                  num_timesteps: Optional[int] = None, mode: str = "reference"):
     """The samplers' compiled loop (JAX's jitted ``p_sample_loop``, as the
     grid and FID makers use it, at guidance 1.0): ``fn(noise, step_noise,
-    params=None) -> img`` over ``make_model_fn(params)``'s forward,
-    ``params`` (tensors by name) standing in for the model's weights.
+    params=None, eager=False) -> img`` over ``make_model_fn(params)``'s
+    forward, ``params`` (tensors by name) standing in for the model's
+    weights; the same chain as :func:`p_sample_loop`.
 
-    Where ``captures(device)`` holds, each key (the ``params`` names, the
-    inputs' shapes and dtypes) runs eagerly on its first call, is captured
-    into a CUDA graph on its second and replayed from then on
-    (:class:`..utils.graphs.CapturedCall`): the start noise, the step
-    noise, the coefficient table (the guidance in its column 4) and
-    ``params`` are the graph's inputs, copied into it each call, so a
-    replay sees the weights it is given (and ``params=None``, the model's
-    own weights, changed in place).  ``fn._eager`` is the eager body."""
+    The call runs through :class:`..utils.graphs.CapturedCall`: where
+    ``captures(device)`` holds and ``eager`` is false, each key (the
+    ``params`` names, the inputs' shapes and dtypes) runs eagerly on its
+    first call, is captured into a CUDA graph on its second and replayed
+    from then on; the start noise, the step noise, the coefficient table
+    (the guidance in its column 4, sent to the device once) and ``params``
+    are the graph's inputs, copied into it each call, so a replay sees the
+    weights it is given (and ``params=None``, the model's own weights,
+    changed in place).  Otherwise the same body runs eagerly."""
     indices = subsampled_timestep_indices(
         sample_steps, sample_steps if num_timesteps is None else num_timesteps)
     host_table = _loop_table(diffusion_params, indices)
     tables: Dict[torch.device, torch.Tensor] = {}
-    graphs = CapturedCall()
+    graphs = CapturedCall(captures, counted=COUNTED)
 
-    def eager(noise, step_noise, params=None):
-        return p_sample_loop(make_model_fn(params), tuple(shape), sample_steps, diffusion_params,
-                             noise=noise, step_noise=step_noise, num_timesteps=num_timesteps,
-                             mode=mode)
-
-    def fn(noise, step_noise, params=None):
+    def fn(noise, step_noise, params=None, eager=False):
         device = noise.device
-        if not captures(device):
-            return eager(noise, step_noise, params)
         if tuple(noise.shape) != tuple(shape) or \
                 tuple(step_noise.shape) != (len(indices), *shape):
             raise ValueError(f"noise {tuple(noise.shape)} and step_noise "
@@ -235,9 +227,9 @@ def make_loop_fn(make_model_fn, shape, sample_steps: int, diffusion_params, *,
 
         values = [] if names is None else [params[k] for k in names]
         make_model_fn(params)  # its effect on the model (eval mode), on a replay too
-        return graphs(names, body, noise, step_noise.to(device), tables[device], *values)
+        return graphs(names, body, noise, step_noise.to(device), tables[device], *values,
+                      eager=eager)
 
-    fn._eager = eager
     fn.graphs = graphs
     return fn
 
@@ -447,8 +439,8 @@ def generate_trajectory_batch_scan(
 
 def _table_with_scale(tables, host_table, device, g):
     """A fresh copy of ``host_table`` on ``device`` (sent there once, into
-    ``tables``) with ``g`` in column 3: a graph input, written before each
-    replay."""
+    ``tables``) with ``g`` in column 3: one call's table, and on the
+    captured lane the graph's input, copied in before the replay."""
     if device not in tables:
         tables[device] = host_to_device(host_table, device)
     table = tables[device].clone()
@@ -460,32 +452,28 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
                         captures: Callable[[torch.device], bool]):
     """The makers' compiled chain (JAX's jitted
     :func:`generate_trajectory_batch_scan`): ``fn(noises, seeds,
-    cond_pairs, gs, step_noise=None, labels=None) -> [S, T+1, H, W, C]`` of
-    one model forward at one T and store dtype.
+    cond_pairs, gs, step_noise=None, labels=None, eager=False) -> [S, T+1,
+    H, W, C]`` of one model forward at one T and store dtype, the chain
+    :func:`generate_trajectory_batch_scan` computes.
 
-    Where ``captures(device)`` holds, each key (the cond pairs, so CFG on
-    or off, and the inputs' shapes and dtypes) runs eagerly on its first
-    call, is captured into a CUDA graph on its second and replayed from
-    then on (:class:`..utils.graphs.CapturedCall`): the noises, the step
-    noise, the scalar table and, for a class-conditional model, the
-    ``labels`` are the graph's inputs (without labels the graph has the
-    first three alone), and ``gs`` is
-    written into the table's column 3 before each replay, so one graph
-    serves every guidance scale.  The step noise is drawn outside the
-    graph (:func:`draw_step_noise` seeds a generator from the host per
-    ``(seed, t)``).  ``fn._eager`` is the eager body."""
+    The call runs through :class:`..utils.graphs.CapturedCall`: where
+    ``captures(device)`` holds and ``eager`` is false, each key (the cond
+    pairs, so CFG on or off, and the inputs' shapes and dtypes) runs
+    eagerly on its first call, is captured into a CUDA graph on its second
+    and replayed from then on; the noises, the step noise, the scalar
+    table and, for a class-conditional model, the ``labels`` are the
+    graph's inputs (without labels the graph has the first three alone),
+    and ``gs`` is written into a copy of the device table's column 3
+    before each call, so one graph serves every guidance scale.
+    Otherwise the same body runs eagerly on the same inputs.  The step
+    noise is drawn outside the graph (:func:`draw_step_noise` seeds a
+    generator from the host per ``(seed, t)``)."""
     host_table = _engine_table(timesteps, alphas)
     tables: Dict[torch.device, torch.Tensor] = {}
-    graphs = CapturedCall(counted=COUNTED_KERNELS)
+    graphs = CapturedCall(captures, counted=COUNTED)
 
-    def eager(noises, seeds, cond_pairs, gs, step_noise=None, labels=None):
-        return generate_trajectory_batch_scan(model_fn, noises, timesteps, alphas, seeds,
-                                              cond_pairs, gs, store_dtype, step_noise, labels)
-
-    def fn(noises, seeds, cond_pairs, gs, step_noise=None, labels=None):
+    def fn(noises, seeds, cond_pairs, gs, step_noise=None, labels=None, eager=False):
         device = noises.device
-        if not captures(device):
-            return eager(noises, seeds, cond_pairs, gs, step_noise, labels)
         if step_noise is None:
             step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
         step_noise = _step_noise_for(step_noise, timesteps, noises)
@@ -494,9 +482,8 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
         body = lambda x, n, tab, *lab: _batch_states(model_fn, x, tab, pairs, n, store_dtype,
                                                      *lab)
         inputs = (noises, step_noise, table) + (() if labels is None else (labels,))
-        return graphs(pairs.tobytes(), body, *inputs)
+        return graphs(pairs.tobytes(), body, *inputs, eager=eager)
 
-    fn._eager = eager
     fn.graphs = graphs
     return fn
 
@@ -505,43 +492,37 @@ def make_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
                   captures: Callable[[torch.device], bool]):
     """The benches' compiled chain (their ``jax.jit`` of
     :func:`generate_trajectory_scan` over one model): ``fn(noise, seed,
-    guidance_scale=None, use_cfg=None, step_noise=None) -> [T+1, B, H, W,
-    C]``, the arguments read as :func:`generate_trajectory_scan` reads
-    them.
+    guidance_scale=None, use_cfg=None, step_noise=None, eager=False) ->
+    [T+1, B, H, W, C]``, the arguments read as
+    :func:`generate_trajectory_scan` reads them, and its chain.
 
-    Where ``captures(device)`` holds, each key (CFG on or off, and the
-    inputs' shapes and dtypes) runs eagerly on its first call, is captured
-    into a CUDA graph on its second and replayed from then on
-    (:class:`..utils.graphs.CapturedCall`): the noise, the step noise and
-    the scalar table are the graph's inputs, and the guidance scale is
-    written into the table's column 3 before each replay, so one graph
-    serves every scale.  The step noise is drawn outside the graph from
-    ``(seed, t)``, as the eager chain draws it, unless ``step_noise`` is
-    given.  What the forward reads besides its inputs it reads where it
-    was captured: a model input that varies per call (the guided
-    student's ``w``, :func:`..training.progressive.make_guided_eval_fn`)
-    is a tensor changed in place.  ``fn._eager`` is the eager body."""
+    The call runs through :class:`..utils.graphs.CapturedCall`: where
+    ``captures(device)`` holds and ``eager`` is false, each key (CFG on or
+    off, and the inputs' shapes and dtypes) runs eagerly on its first
+    call, is captured into a CUDA graph on its second and replayed from
+    then on; the noise, the step noise and the scalar table are the
+    graph's inputs, and the guidance scale is written into a copy of the
+    device table's column 3 before each call, so one graph serves every
+    scale.  Otherwise the same body runs eagerly on the same inputs.  The
+    step noise is drawn outside the graph from ``(seed, t)``, as the eager
+    chain draws it, unless ``step_noise`` is given.  What the forward reads
+    besides its inputs it reads where it was captured: a model input that
+    varies per call (the guided student's ``w``,
+    :func:`..training.progressive.make_guided_eval_fn`) is a tensor changed
+    in place."""
     host_table = _engine_table(timesteps, alphas)
     tables: Dict[torch.device, torch.Tensor] = {}
-    graphs = CapturedCall(counted=COUNTED_KERNELS)
+    graphs = CapturedCall(captures, counted=COUNTED)
 
-    def eager(noise, seed, guidance_scale=None, use_cfg=None, step_noise=None):
-        return generate_trajectory_scan(model_fn, noise, timesteps, alphas, seed, guidance_scale,
-                                        use_cfg, store_dtype, step_noise)
-
-    def fn(noise, seed, guidance_scale=None, use_cfg=None, step_noise=None):
-        device = noise.device
-        if not captures(device):
-            return eager(noise, seed, guidance_scale, use_cfg, step_noise)
+    def fn(noise, seed, guidance_scale=None, use_cfg=None, step_noise=None, eager=False):
         use_cfg, g = _scan_guidance(guidance_scale, use_cfg)
         if step_noise is None:
-            step_noise = draw_step_noise([seed], timesteps, noise.shape, device)[:, 0]
+            step_noise = draw_step_noise([seed], timesteps, noise.shape, noise.device)[:, 0]
         step_noise = _step_noise_for(step_noise, timesteps, noise)
-        table = _table_with_scale(tables, host_table, device, g)
+        table = _table_with_scale(tables, host_table, noise.device, g)
         pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
         body = lambda x, n, tab: _scan_states(model_fn, x, tab, pairs, n, store_dtype)
-        return graphs(use_cfg, body, noise, step_noise, table)
+        return graphs(use_cfg, body, noise, step_noise, table, eager=eager)
 
-    fn._eager = eager
     fn.graphs = graphs
     return fn

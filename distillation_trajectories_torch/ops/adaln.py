@@ -31,12 +31,10 @@ new tensors, which autograd can record.
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.nn.functional as F
 
-from .cfg_update import _TRITON_CACHE_DIR, _on_cpu
+from ._loading import on_cpu, triton_half
 
 LN_EPS = 1e-6
 MAX_WIDTH = 2048
@@ -95,14 +93,8 @@ def _check(x, y, mods) -> None:
 
 
 def _launch(x, y, gate, shift, scale):
-    # Triton (imported here, never at module import: the CPU test suite
-    # imports this module where no triton exists) builds into the repo-local
-    # cache on first use.
-    os.environ["TRITON_CACHE_DIR"] = _TRITON_CACHE_DIR
-    from . import adaln_triton
-
     h = torch.empty(x.shape, dtype=_h_dtype(), device=x.device)
-    adaln_triton.launch(x, y, gate, shift, scale, h, LN_EPS)
+    triton_half("adaln_triton").launch(x, y, gate, shift, scale, h, LN_EPS)
     return h
 
 
@@ -111,7 +103,7 @@ def ln_modulate(x, shift, scale):
     ``[B, D]`` ``shift`` and ``scale`` (views of the adaLN output taken).
     CUDA tensors launch the kernel and count it in
     ``ln_modulate.launches``."""
-    if _on_cpu(x, shift, scale):
+    if on_cpu(x, shift, scale):
         return ln_modulate_reference(x, shift, scale)
     _check(x, None, dict(shift=shift, scale=scale))
     h = _launch(x, None, None, shift, scale)
@@ -127,7 +119,7 @@ def gate_add_ln_modulate(x, y, gate, shift, scale):
     tensors add in place and then take :func:`ln_modulate_reference`.
     ``gate`` and ``y`` share a dtype, in which their product is rounded, as
     PyTorch rounds it."""
-    if _on_cpu(x, y, gate, shift, scale):
+    if on_cpu(x, y, gate, shift, scale):
         x.add_(gate.unsqueeze(1) * y)
         return x, ln_modulate_reference(x, shift, scale)
     _check(x, y, dict(gate=gate, shift=shift, scale=scale))

@@ -24,19 +24,13 @@ then the update), so on the card the kernel serves both of JAX's tails.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
 from ..utils.graphs import host_to_device
+from ._loading import on_cpu, triton_half
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-_TRITON_CACHE_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "build",
-    "triton",
-)
 
 
 def cfg_engine_update_reference(x, uncond, cond, noise, c1, c2, sigma, g):
@@ -57,14 +51,8 @@ def cfg_engine_update_row_reference(x, uncond, cond, noise, row):
 
 
 def _launch(x, uncond, cond, noise, row):
-    # Triton (imported here, never at module import: the CPU test suite
-    # imports this module where no triton exists) builds into the repo-local
-    # cache on first use.
-    os.environ["TRITON_CACHE_DIR"] = _TRITON_CACHE_DIR
-    from . import cfg_update_triton
-
     out = torch.empty_like(x)
-    cfg_update_triton.launch(x, uncond, cond, noise, out, row)
+    triton_half("cfg_update_triton").launch(x, uncond, cond, noise, out, row)
     return out
 
 
@@ -89,10 +77,6 @@ def _check_operands(x, uncond, cond, noise) -> None:
         raise ValueError(f"{x.numel()} elements exceed the kernel's int32 offsets")
 
 
-def _on_cpu(*tensors) -> bool:
-    return all(a.device.type == "cpu" for a in tensors)
-
-
 def cfg_engine_update(x, uncond, cond, noise, c1, c2, sigma, g):
     """Fused CFG combine + engine update of ``[B, H, W, C]`` tensors.
 
@@ -101,7 +85,7 @@ def cfg_engine_update(x, uncond, cond, noise, c1, c2, sigma, g):
     scalars are Python or numpy floats; on the card they travel to it as
     one row, copied without a host sync.
     """
-    if _on_cpu(x, uncond, cond, noise):
+    if on_cpu(x, uncond, cond, noise):
         return cfg_engine_update_reference(x, uncond, cond, noise, c1, c2, sigma, g)
     _check_operands(x, uncond, cond, noise)
     row = host_to_device(np.array([c1, c2, sigma, g], dtype=np.float32), x.device)
@@ -115,7 +99,7 @@ def cfg_engine_update_row(x, uncond, cond, noise, row):
     float32 tensor ``(c1, c2, σ, g)`` on the operands' device (a row of a
     chain's table; the kernel reads it there).  Launches count in
     ``cfg_engine_update.launches``."""
-    if _on_cpu(x, uncond, cond, noise, row):
+    if on_cpu(x, uncond, cond, noise, row):
         return cfg_engine_update_row_reference(x, uncond, cond, noise, row)
     _check_operands(x, uncond, cond, noise)
     if row.device != x.device or row.dtype != torch.float32 or tuple(row.shape) != (4,) \

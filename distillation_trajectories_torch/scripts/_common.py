@@ -309,11 +309,11 @@ class BenchDraws:
 
 
 def chain_fn(config, draws, steps, fn):
-    """``run(noise, seed, guidance_scale=None, use_cfg=None) -> [steps+1,
-    ...]``: the engine chain of the model forward ``fn`` at ``steps``
-    through its maker (on the card captured on its second call for a key
-    and replayed), with the step noise of ``draws``; ``run.eager`` is the
-    maker's eager body and ``run.maker`` the maker."""
+    """``run(noise, seed, guidance_scale=None, use_cfg=None, eager=False) ->
+    [steps+1, ...]``: the engine chain of the model forward ``fn`` at
+    ``steps`` through its maker (on the card captured on its second call
+    for a key and replayed; with ``eager=True`` its body run eagerly), with
+    the step noise of ``draws``; ``run.maker`` is the maker."""
     from ..diffusion import get_diffusion_params
     from ..diffusion.sampling import make_chain_fn
     from ..utils.graphs import sampler_lane_captures
@@ -321,14 +321,11 @@ def chain_fn(config, draws, steps, fn):
     chain = make_chain_fn(fn, steps, get_diffusion_params(steps, config)["alphas"],
                           captures=sampler_lane_captures)
 
-    def call(maker):
-        def run(noise, seed, guidance_scale=None, use_cfg=None):
-            return maker(noise, seed, guidance_scale, use_cfg,
-                         step_noise=draws.step_noise(seed, steps, tuple(noise.shape)))
-        return run
+    def run(noise, seed, guidance_scale=None, use_cfg=None, eager=False):
+        return chain(noise, seed, guidance_scale, use_cfg,
+                     step_noise=draws.step_noise(seed, steps, tuple(noise.shape)), eager=eager)
 
-    run = call(chain)
-    run.eager, run.maker = call(chain._eager), chain
+    run.maker = chain
     return run
 
 

@@ -148,17 +148,17 @@ def bench_main_path(args, draws=None):
     chain = make_batch_chain_fn(model_fn, args.timesteps, alphas, captures=sampler_lane_captures)
     out = []
 
-    def call(fn, seed):
-        return fn(noise, None, CFG_COND_PAIRS, GUIDANCE,
-                  step_noise=draws.step_noise(seed, args.timesteps, shape)).transpose(0, 1)
+    def call(seed, eager=False):
+        return chain(noise, None, CFG_COND_PAIRS, GUIDANCE, eager=eager,
+                     step_noise=draws.step_noise(seed, args.timesteps, shape)).transpose(0, 1)
 
     def run(seed):
-        out[:] = [call(chain, seed)]
+        out[:] = [call(seed)]
 
     # Warm-up: the Triton build and cuDNN's choices, then the capture.
     timed_calls(run, [0, 0], dev)
     seconds = timed_calls(run, range(1, args.iters + 1), dev)
-    eager_seconds = timed_calls(lambda seed: call(chain._eager, seed),
+    eager_seconds = timed_calls(lambda seed: call(seed, eager=True),
                                 range(1, args.iters + 1), dev)
     return args.batch * args.iters / sum(seconds), seconds, out[0], eager_seconds
 

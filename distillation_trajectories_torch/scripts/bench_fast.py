@@ -111,8 +111,8 @@ def run(args, draws=None) -> dict:
         setup_s = time.perf_counter() - t0
         seeds = range(1, args.iters + 1)
         seconds = timed_calls(lambda seed: run(noise, seed, guidance_scale), seeds, dev)
-        eager_seconds = timed_calls(lambda seed: run.eager(noise, seed, guidance_scale), seeds,
-                                    dev)
+        eager_seconds = timed_calls(lambda seed: run(noise, seed, guidance_scale, eager=True),
+                                    seeds, dev)
         tps = args.batch * args.iters / sum(seconds)
         print(f"# {label}: {tps:.1f} traj/s (first two calls {setup_s:.1f}s; eager "
               f"{args.batch * args.iters / sum(eager_seconds):.1f} traj/s)", file=sys.stderr)

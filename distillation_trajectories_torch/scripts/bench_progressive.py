@@ -86,13 +86,13 @@ def measure_traj_per_s(run, config, draws, batch, iters=3, guidance_scale=None):
     shape = (batch, config.image_size, config.image_size, config.channels)
     calls = [(draws.noise(1000 + i, shape), 1234 + i) for i in range(iters + 2)]
 
-    def timed(fn, todo):
-        return [timed_calls(lambda seed: fn(noise, seed, guidance_scale), [seed],
+    def timed(todo, eager=False):
+        return [timed_calls(lambda seed: run(noise, seed, guidance_scale, eager=eager), [seed],
                             config.device)[0] for noise, seed in todo]
 
-    timed(run, calls[:2])  # the warm-ups
-    seconds = timed(run, calls[2:])
-    eager_seconds = timed(run.eager, calls[2:])
+    timed(calls[:2])  # the warm-ups
+    seconds = timed(calls[2:])
+    eager_seconds = timed(calls[2:], eager=True)
     dt = statistics.median(seconds)
     return batch / dt, dt, seconds, eager_seconds
 

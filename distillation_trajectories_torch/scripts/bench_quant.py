@@ -174,8 +174,8 @@ def run(args, draws=None, endpoints=None) -> dict:
         setup_s = time.perf_counter() - t0
         seeds = range(1, args.iters + 1)
         seconds = timed_calls(lambda seed: run(noise, seed, args.guidance), seeds, dev)
-        eager_seconds = timed_calls(lambda seed: run.eager(noise, seed, args.guidance), seeds,
-                                    dev)
+        eager_seconds = timed_calls(lambda seed: run(noise, seed, args.guidance, eager=True),
+                                    seeds, dev)
         tps = args.batch * args.iters / sum(seconds)
         print(f"# {label}: {tps:.1f} traj/s (first two calls {setup_s:.1f}s; eager "
               f"{args.batch * args.iters / sum(eager_seconds):.1f} traj/s)", file=sys.stderr)
@@ -194,7 +194,7 @@ def run(args, draws=None, endpoints=None) -> dict:
         # Calibration states: 5 points along a float chain (activations grow
         # toward the noisy end) x the (cond, cond_mask) rows the sampler
         # feeds the model, on the first cb samples.
-        f_chain = chain_fn(config, draws, t_steps, float_fn).eager(noise, 99, args.guidance)
+        f_chain = chain_fn(config, draws, t_steps, float_fn)(noise, 99, args.guidance, eager=True)
         pairs = CFG_COND_PAIRS if args.guidance > 1.0 else NOCFG_COND_PAIRS
         cb = min(32, args.batch)
         idxs = sorted({0, t_steps // 4, t_steps // 2, (3 * t_steps) // 4, t_steps - 1})

@@ -46,6 +46,7 @@ Prints one JSON line per experiment and writes them all to
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -104,9 +105,11 @@ def _time_arms(fns, seeds, device, iters):
 
 
 def _with_eager(arms):
-    """``arms`` (each a call with an ``eager`` body) and, under
-    ``eager_<name>``, their eager bodies."""
-    return {**arms, **{f"eager_{name}": fn.eager for name, fn in arms.items()}}
+    """``arms`` (each a call ``fn(seed, eager=False)``) and, under
+    ``eager_<name>``, the same calls with ``eager=True``: their bodies run
+    eagerly."""
+    return {**arms, **{f"eager_{name}": functools.partial(fn, eager=True)
+                       for name, fn in arms.items()}}
 
 
 def _eager_seconds(timed):
@@ -115,35 +118,30 @@ def _eager_seconds(timed):
 
 
 def _chain(cfg, model_fn, noise, draws, guidance):
-    """``run(seed)``: the chain of ``model_fn`` from ``noise`` at
-    ``cfg.timesteps`` through its maker (``_common.chain_fn``: on the card
-    captured on its second call and replayed), its step noise drawn inside
-    the call; ``run.eager`` is the eager body, ``run.maker`` the maker."""
+    """``run(seed, eager=False)``: the chain of ``model_fn`` from ``noise``
+    at ``cfg.timesteps`` through its maker (``_common.chain_fn``: on the
+    card captured on its second call and replayed, unless ``eager``), its
+    step noise drawn inside the call; ``run.maker`` is the maker."""
     chain = chain_fn(cfg, draws, cfg.timesteps, model_fn)
-    run = lambda seed: chain(noise, seed, guidance)  # noqa: E731
-    run.eager = lambda seed: chain.eager(noise, seed, guidance)
+    run = lambda seed, eager=False: chain(noise, seed, guidance, eager=eager)  # noqa: E731
     run.maker = chain.maker
     return run
 
 
 def _under_plain_tail(run):
-    """``run`` and its eager body with ``cfg_engine_update_row_reference``
-    in the kernel's place (the update tail in plain PyTorch, as JAX's arm
-    runs it in XLA): the capture records the plain tail, so the replays
-    run it."""
+    """``run`` with ``cfg_engine_update_row_reference`` in the kernel's
+    place (the update tail in plain PyTorch, as JAX's arm runs it in XLA),
+    eager or not: the capture records the plain tail, so the replays run
+    it."""
     from ..diffusion import sampling
     from ..ops.cfg_update import cfg_engine_update_row_reference
 
-    def patched(fn):
-        def call(seed):
-            with mock.patch.object(sampling, "cfg_engine_update_row",
-                                   cfg_engine_update_row_reference):
-                return fn(seed)
-        return call
+    def call(seed, eager=False):
+        with mock.patch.object(sampling, "cfg_engine_update_row",
+                               cfg_engine_update_row_reference):
+            return run(seed, eager=eager)
 
-    out = patched(run)
-    out.eager = patched(run.eager)
-    return out
+    return call
 
 
 def exp_pallas(args, draws):
@@ -239,7 +237,8 @@ def exp_ablate(args, draws):
     import torch
 
     from ..diffusion.sampling import _engine_table
-    from ..ops.cfg_update import cfg_engine_update, cfg_engine_update_row
+    from ..ops import COUNTED
+    from ..ops.cfg_update import cfg_engine_update_row
     from ..utils.graphs import CapturedCall, host_to_device, sampler_lane_captures
     from ..utils.profiling import conv_flops
 
@@ -254,19 +253,11 @@ def exp_ablate(args, draws):
 
     flops_step = 2 * conv_flops(model, noise, tvec, ones, ones)
 
-    def loop(body, inputs, counted=()):
-        """``run(seed)``: ``body(*inputs(seed))`` through a
-        :class:`CapturedCall` where the sampler lane captures; ``run.eager``
-        the body itself."""
-        graphs = CapturedCall(counted)
-
-        def run(seed):
-            if not sampler_lane_captures(dev):
-                return body(*inputs(seed))
-            return graphs(None, body, *inputs(seed))
-
-        run.eager = lambda seed: body(*inputs(seed))
-        return run
+    def loop(body, inputs):
+        """``run(seed, eager=False)``: ``body(*inputs(seed))`` through a
+        :class:`CapturedCall`, captured where the sampler lane captures."""
+        graphs = CapturedCall(sampler_lane_captures, counted=COUNTED)
+        return lambda seed, eager=False: graphs(None, body, *inputs(seed), eager=eager)
 
     def two_fwd(fn):
         """Two CFG forwards a step, no update tail, draw or storage."""
@@ -302,7 +293,7 @@ def exp_ablate(args, draws):
         "full": _chain(cfg, model_fn, noise, draws, 3.0),  # the real sampler chain
         "two_fwd": two_fwd(model_fn),
         "nearest": two_fwd(nearest_fn),  # with a nearest-repeat upsample
-        "tail": loop(tail, tail_inputs, counted=(cfg_engine_update,)),
+        "tail": loop(tail, tail_inputs),
     }), seeds, dev, args.iters)
     t_full, t_two, t_two_nou, t_tail = (timed[k][0] for k in ("full", "two_fwd", "nearest", "tail"))
     total_flops = flops_step * n_steps

@@ -167,68 +167,61 @@ def generate_trajectory(
 
 def make_batch_trajectory_fn(model, timesteps: int, config=None, use_cfg: bool = True,
                              device=None):
-    """``fn(noises [S,H,W,C], seeds [S], gs, step_noise=None) -> trajs
-    [S, T+1, H, W, C]`` for one model at a runtime guidance scale.
+    """``fn(noises [S,H,W,C], seeds [S], gs, step_noise=None, eager=False)
+    -> trajs [S, T+1, H, W, C]`` for one model at a runtime guidance scale.
 
     Samples ride the U-Net's batch axis.  ``use_cfg`` selects the two CFG
     forwards (cond 0 and cond 1, both with mask 1) combined at ``gs``, or
     one cond-0 mask-0 forward.  The default step noise draws sample ``i``
     at step ``t`` from the generator of ``(seeds[i], t)``.  The chain is
     :func:`make_sweep_trajectory_fn`'s: captured on the card, one graph
-    for every ``gs``; ``fn._eager`` runs its eager body."""
+    for every ``gs``, unless ``eager`` runs its body eagerly."""
     device = _entry_device(config, device)
     _check_model_device(model, device)
     sweep = make_sweep_trajectory_fn(model, timesteps, config)
     pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
 
-    def through(chain):
-        def fn(noises, seeds, gs, step_noise=None):
-            noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
-            if step_noise is None:
-                step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
-            return chain(noises, seeds, pairs, float(gs) if use_cfg else 1.0,
-                         step_noise=step_noise)
-        return fn
+    def fn(noises, seeds, gs, step_noise=None, eager=False):
+        noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
+        if step_noise is None:
+            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+        return sweep(noises, seeds, pairs, float(gs) if use_cfg else 1.0,
+                     step_noise=step_noise, eager=eager)
 
-    fn = through(sweep)
-    fn._eager = through(sweep._eager)
     fn.graphs = sweep.graphs
     return fn
 
 
 def make_paired_trajectory_fn(teacher_model, student_model, timesteps: int, config=None,
                               use_cfg: bool = True, device=None):
-    """``fn(noises [S,H,W,C], seeds [S], gs, step_noise=None) ->
-    (teacher_trajs, student_trajs)``, each ``[S, T+1, H, W, C]``.
+    """``fn(noises [S,H,W,C], seeds [S], gs, step_noise=None, eager=False)
+    -> (teacher_trajs, student_trajs)``, each ``[S, T+1, H, W, C]``.
 
     Both chains start from the same noises and take the same per-step
     noise (drawn once, by default paired in ``(seed, t)``), as the
     reference reseeds both chains alike.  Each model's chain is captured on
-    the card (:func:`make_batch_trajectory_fn`); ``fn._eager`` runs both
+    the card (:func:`make_batch_trajectory_fn`) unless ``eager`` runs both
     eagerly."""
     teacher = make_batch_trajectory_fn(teacher_model, timesteps, config, use_cfg, device)
     student = make_batch_trajectory_fn(student_model, timesteps, config, use_cfg, device)
     device = _entry_device(config, device)
 
-    def through(t_chain, s_chain):
-        def fn(noises, seeds, gs, step_noise=None):
-            noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
-            if step_noise is None:
-                step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
-            return (t_chain(noises, seeds, gs, step_noise=step_noise),
-                    s_chain(noises, seeds, gs, step_noise=step_noise))
-        return fn
+    def fn(noises, seeds, gs, step_noise=None, eager=False):
+        noises = torch.as_tensor(noises, dtype=torch.float32).to(device)
+        if step_noise is None:
+            step_noise = draw_step_noise(seeds, timesteps, noises.shape[1:], device)
+        return (teacher(noises, seeds, gs, step_noise=step_noise, eager=eager),
+                student(noises, seeds, gs, step_noise=step_noise, eager=eager))
 
-    fn = through(teacher, student)
-    fn._eager = through(teacher._eager, student._eager)
     fn.graphs = (teacher.graphs, student.graphs)
     return fn
 
 
 def make_sweep_trajectory_fn(model, timesteps: int, config=None):
     """``fn(noises [S,H,W,C], seeds [S], cond_pairs [2,2], gs, step_noise=None,
-    labels=None) -> trajs [S, T+1, H, W, C]`` for one model; CFG or not is
-    the runtime ``cond_pairs`` input, ``labels`` a DiT's ``[S]`` classes.
+    labels=None, eager=False) -> trajs [S, T+1, H, W, C]`` for one model;
+    CFG or not is the runtime ``cond_pairs`` input, ``labels`` a DiT's
+    ``[S]`` classes.
 
     The counterpart of JAX's jitted sweep function: on the card (unless the
     forward is spatially partitioned or the model sharded over a mesh,
@@ -238,8 +231,8 @@ def make_sweep_trajectory_fn(model, timesteps: int, config=None):
     (:func:`..diffusion.sampling.make_batch_chain_fn`), ``gs`` written
     into the graph's scalar table, so one graph serves every guidance
     scale.  A replay reads the model's weights where they are, so it sees
-    them changed in place.  Each call returns fresh storage.
-    ``fn._eager`` is the eager body.
+    them changed in place.  Each call returns fresh storage.  A call with
+    ``eager=True`` runs the same body eagerly.
 
     A maker made here lives as long as its caller holds it.  The makers of
     :func:`sweep_compare_trajectories_multi` are resident instead: kept
@@ -400,8 +393,8 @@ def sweep_compare_trajectories_multi(
     step noise and trajectories, 0.296 GiB for 256 samples of 32x32x3 at
     T=50 in float32, and the shared sampler pool stays reserved for
     them.  A chain the call runs once (in the CFG CLI's scales, each
-    model's CFG-off chain) runs the maker's eager body unless an earlier
-    call captured it: a graph kept alive for one run a call would hold its
+    model's CFG-off chain) runs its maker's body eagerly (``eager=True``)
+    unless an earlier call captured it: a graph kept alive for one run a call would hold its
     static inputs and output for nothing.
 
     A call is one ``sweep.call`` span (``jobs``, ``pairs``); inside it one
@@ -511,9 +504,9 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
             entry.captured.add(key[1])
         # A U-Net's chain is called as it always was; a DiT's takes its labels.
         labels = {} if draws.labels is None else {"labels": draws.labels}
-        trajs = (entry.fn._eager if key in once else entry.fn)(
+        trajs = entry.fn(
             draws.noises, seeds, CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS, gs_host,
-            step_noise=draws.step_noise, **labels)
+            step_noise=draws.step_noise, eager=key in once, **labels)
         if sf is None:
             teacher_trajs[tkey] = trajs
             continue

@@ -16,8 +16,9 @@ The captured sampler lane is the rule on the card: the engine's makers,
 the manager, the grid and FID samplers, and the benches' chains
 (``diffusion/sampling.py::make_chain_fn`` in ``bench_r2``, ``bench_quant``,
 ``bench_progressive`` and ``bench_fast``; ``make_batch_chain_fn`` in
-``bench``).  These stay eager, each for its reason
-(:func:`sampler_lane_captures` decides):
+``bench``).  These stay eager, each for its reason (of the first two
+:func:`sampler_lane_captures` decides, which :class:`CapturedCall` alone
+asks):
 
 * the CPU, which has no graphs;
 * the spatial layout's forward (``Config.spatial_shape``), whose halo
@@ -27,11 +28,11 @@ the manager, the grid and FID samplers, and the benches' chains
   convergence on the host between sweeps;
 * one-off calls not made through a maker (``generate_trajectory``,
   ``generate_trajectory_scan``, ``p_sample_loop``,
-  ``editing/core.py::denoise_with_trajectory``, a bench's calibration
-  chain): a capture that is never replayed costs an eager chain plus the
-  graph's instantiation.  A chain that a sweep call runs only once is such
-  a call: the engine sends it to its maker's eager body unless an earlier
-  call captured it.
+  ``editing/core.py::denoise_with_trajectory``), and a maker's call with
+  ``eager=True`` (a bench's calibration chain and its timed eager body): a
+  capture that is never replayed costs an eager chain plus the graph's
+  instantiation.  A chain that a sweep call runs only once is such a call:
+  the engine passes ``eager=True`` unless an earlier call captured it.
 
 Of JAX's other jitted programs (``tests/test_torch_compiled_lanes.py``
 lists every ``jax.jit`` site with its lane), these run eagerly: those run
@@ -162,38 +163,49 @@ class _Graph:
 
 
 class CapturedCall:
-    """``fn(*inputs) -> tensor`` as a CUDA graph, one per key.
+    """``body(*inputs) -> tensor`` as a CUDA graph, one per key, where the
+    sampler lane captures.
 
-    The first call for a key (the caller's key and the inputs' shapes,
-    dtypes and devices) runs ``fn`` eagerly on a side stream, its warm-up;
-    the second captures ``fn`` on static copies of the inputs, in
-    :func:`sampler_pool`, and replays it; every later call copies its
-    inputs into the static copies and replays.  Whatever ``fn`` reads
-    besides its inputs (a model's weights) it reads where it was captured,
-    so such state must change in place.  Each result is a fresh copy of the
-    static output: no two calls share storage.  ``counted`` are kernel
-    wrappers with a ``launches`` count: the launches recorded while
-    capturing are taken back and added again at each replay, so the counts
-    stay the device's.  A capture or replay that fails raises.
+    ``captures(device)`` (:func:`sampler_lane_captures`, or a maker's
+    closure of it over its model and config) is asked at each call, on the
+    first input's device.  Where it is false, or the call passes
+    ``eager=True``, the call runs ``body(*inputs)`` directly on the current
+    stream: no span, no warm-up kept, no graph.  Otherwise the first call
+    for a key (the caller's key and the inputs' shapes, dtypes and devices)
+    runs ``body`` eagerly on a side stream, its warm-up; the second captures
+    ``body`` on static copies of the inputs, in :func:`sampler_pool`, and
+    replays it; every later call copies its inputs into the static copies
+    and replays.  Whatever ``body`` reads besides its inputs (a model's
+    weights) it reads where it was captured, so such state must change in
+    place.  Each result is a fresh copy of the static output: no two calls
+    share storage.  ``counted`` are kernel wrappers with a ``launches``
+    count (``ops.COUNTED``): the launches recorded while capturing are taken
+    back and added again at each replay, so the counts stay the device's.
+    A capture or replay that fails raises.
 
-    Each call is one span (:func:`..utils.profiling.span`, attribute
-    ``key``, the caller's key): ``graph.warmup``, ``graph.capture`` (the
-    capture alone; its call's replay follows) or ``graph.replay``."""
+    Each captured-lane call is one span (:func:`..utils.profiling.span`,
+    attribute ``key``, the caller's key): ``graph.warmup``,
+    ``graph.capture`` (the capture alone; its call's replay follows) or
+    ``graph.replay``."""
 
-    def __init__(self, counted=()):
+    def __init__(self, captures: Callable[[torch.device], bool], counted=()):
+        self.captures = captures
         self.counted = tuple(counted)
         self.graphs: Dict[Hashable, _Graph] = {}
         self._warm = set()
 
-    def __call__(self, key: Hashable, fn: Callable, *inputs: torch.Tensor) -> torch.Tensor:
+    def __call__(self, key: Hashable, body: Callable, *inputs: torch.Tensor,
+                 eager: bool = False) -> torch.Tensor:
+        if eager or not self.captures(inputs[0].device):
+            return body(*inputs)
         key = (key, tuple((tuple(a.shape), a.dtype, a.device) for a in inputs))
         entry = self.graphs.get(key)
         if entry is None and key not in self._warm:
             self._warm.add(key)
             with span("graph.warmup", key=key[0]):
-                return on_side_stream(lambda: fn(*inputs), inputs[0].device)
+                return on_side_stream(lambda: body(*inputs), inputs[0].device)
         if entry is None:
             with span("graph.capture", key=key[0]):
-                entry = self.graphs[key] = _Graph(fn, inputs, self.counted)
+                entry = self.graphs[key] = _Graph(body, inputs, self.counted)
         with span("graph.replay", key=key[0]):
             return entry(inputs)

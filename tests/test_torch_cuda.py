@@ -736,7 +736,7 @@ def test_captured_chain_replays_the_eager_chain(cuda):
                 before = cfg_update.cfg_engine_update.launches
                 got = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise)
                 made = cfg_update.cfg_engine_update.launches - before
-                want = sweep._eager(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise)
+                want = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise, eager=True)
                 torch.cuda.synchronize()
                 assert made == 9 and torch.equal(got, want), gs
             assert not plain
@@ -744,14 +744,14 @@ def test_captured_chain_replays_the_eager_chain(cuda):
         # A replay's launches of each counted wrapper: the CFG update's 9, and
         # none of the DiT's adaLN kernels in a U-Net chain.
         assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9, 0, 0]
-        assert torch.equal(first, sweep._eager(noises, seeds, CFG_COND_PAIRS, 3.0,
-                                               step_noise=step_noise))
+        assert torch.equal(first, sweep(noises, seeds, CFG_COND_PAIRS, 3.0,
+                                        step_noise=step_noise, eager=True))
         assert first.untyped_storage().data_ptr() != got.untyped_storage().data_ptr()
         with torch.no_grad():
             for p in model.parameters():
                 p.mul_(1.01)
         got = sweep(noises, seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise)
-        want = sweep._eager(noises, seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise)
+        want = sweep(noises, seeds, CFG_COND_PAIRS, 3.0, step_noise=step_noise, eager=True)
         assert torch.equal(got, want) and not torch.equal(got, first)
         assert len(sweep.graphs.graphs) == 1
     finally:
@@ -772,7 +772,7 @@ def test_captured_grid_sees_the_weights_it_is_given(cuda):
         for params in (None, ema):
             for _ in range(3):  # eager, capture, replay
                 got = grid(noise, step_noise, params)
-            want = grid.loop._eager(noise, step_noise, params)
+            want = grid.loop(noise, step_noise, params, eager=True)
             torch.cuda.synchronize()
             assert torch.equal(got, want)
         assert len(grid.loop.graphs.graphs) == 2
@@ -780,7 +780,7 @@ def test_captured_grid_sees_the_weights_it_is_given(cuda):
                    for g in grid.loop.graphs.graphs.values())
         ema = {k: v * 1.02 for k, v in ema.items()}
         got = grid(noise, step_noise, ema)
-        assert torch.equal(got, grid.loop._eager(noise, step_noise, ema))
+        assert torch.equal(got, grid.loop(noise, step_noise, ema, eager=True))
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
@@ -812,9 +812,9 @@ def test_bench_chain_maker_replays_its_eager_body(cuda):
                                               captures=sampler_lane_captures), (2.0, 4.5)),
         }
 
-        def call(name, fn, g):
+        def call(name, fn, g, eager=False):
             w.fill_(g)
-            return fn(noise, 0, g if name == "cfg" else None, step_noise=step_noise)
+            return fn(noise, 0, g if name == "cfg" else None, step_noise=step_noise, eager=eager)
 
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(cfg_update, "cfg_engine_update_reference",
@@ -826,7 +826,7 @@ def test_bench_chain_maker_replays_its_eager_body(cuda):
                     before = cfg_update.cfg_engine_update.launches
                     got = call(name, chain, g)
                     made = cfg_update.cfg_engine_update.launches - before
-                    want = call(name, chain._eager, g)
+                    want = call(name, chain, g, eager=True)
                     torch.cuda.synchronize()
                     assert made == 9 and torch.equal(got, want), (name, g)
                 (graph,) = chain.graphs.graphs.values()
@@ -1064,8 +1064,8 @@ def test_dit_chain_replay_equals_its_eager_body(cuda):
             start = launches()
             got = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise, labels=labels)
             replayed = launches()
-            want = sweep._eager(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise,
-                                labels=labels)
+            want = sweep(noises, seeds, CFG_COND_PAIRS, gs, step_noise=step_noise,
+                         labels=labels, eager=True)
             torch.cuda.synchronize()
             assert torch.equal(got, want), (labels, gs)
             outs.append(got)

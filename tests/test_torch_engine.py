@@ -223,16 +223,14 @@ def _spied_sweep(monkeypatch):
     def spy(model, timesteps, config):
         fn, first = made(model, timesteps, config), next(model.parameters())
 
-        def through(path, chain):
-            def run(noises, seeds, cond_pairs, gs, step_noise=None):
-                paths.append((first, path, bool(np.asarray(cond_pairs)[1, 0])))
-                return chain(noises, seeds, cond_pairs, gs, step_noise=step_noise)
-            return run
+        def run(noises, seeds, cond_pairs, gs, step_noise=None, eager=False):
+            paths.append((first, "eager" if eager else "maker",
+                          bool(np.asarray(cond_pairs)[1, 0])))
+            return fn(noises, seeds, cond_pairs, gs, step_noise=step_noise, eager=eager)
 
-        out = through("maker", fn)
-        out._eager, out.graphs = through("eager", fn._eager), fn.graphs
+        run.graphs = fn.graphs
         built.append(first)
-        return out
+        return run
 
     monkeypatch.setattr(engine, "make_sweep_trajectory_fn", spy)
 

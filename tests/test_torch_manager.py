@@ -20,7 +20,14 @@ from distillation_trajectories_tpu.trajectories import (
 from distillation_trajectories_tpu.trajectories import (
     make_paired_trajectory_fn as jax_make_paired_trajectory_fn,
 )
-from distillation_trajectories_torch.diffusion.sampling import seeded_normal
+from distillation_trajectories_torch.diffusion import get_diffusion_params
+from distillation_trajectories_torch.diffusion.sampling import (
+    CFG_COND_PAIRS,
+    NOCFG_COND_PAIRS,
+    generate_trajectory_batch_scan,
+    seeded_normal,
+)
+from distillation_trajectories_torch.training.state import make_eval_fn_from_config
 from distillation_trajectories_torch.trajectories import (
     TrajectoryManager,
     generate_trajectories_with_disk_storage,
@@ -29,6 +36,7 @@ from distillation_trajectories_torch.trajectories import (
 )
 from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     configs,
+    jax_once,
     port_model,
     tmp_path,
 )
@@ -68,28 +76,42 @@ def _jax_step_noise(seeds):
     ])
 
 
+@pytest.mark.parametrize("eager", [False, True], ids=["call", "eager"])
 @pytest.mark.parametrize("gs", [1.0, 3.0])
-def test_paired_and_batch_fns_match_jax(models, gs):
+def test_paired_and_batch_fns_match_jax(models, gs, eager):
+    """Both entries of each function (the plain call and ``eager=True``)
+    against JAX's, and bit for bit against ``generate_trajectory_batch_scan``
+    of the same forward."""
     jcfg, tcfg = configs(timesteps=T, sample_steps=T)
     (jt, tv, pt), (js, sv, ps) = models["teacher"], models["student"]
     seeds = np.array([3, 11])
     noises = _jax_noises(seeds)
     step_noise = torch.from_numpy(_jax_step_noise(seeds))
+    alphas = get_diffusion_params(T, tcfg)["alphas"]
 
-    want_t, want_s = jax_make_paired_trajectory_fn(jt, tv, js, sv, T, jcfg, use_cfg=True)(
-        noises, seeds, np.float32(gs))
+    def scan(model, pairs):
+        return generate_trajectory_batch_scan(
+            make_eval_fn_from_config(model, tcfg), torch.from_numpy(noises), T, alphas, seeds,
+            pairs, gs if pairs is CFG_COND_PAIRS else 1.0, step_noise=step_noise)
+
+    want_t, want_s = jax_once(("manager.paired", gs), lambda: np.stack(
+        jax_make_paired_trajectory_fn(jt, tv, js, sv, T, jcfg, use_cfg=True)(
+            noises, seeds, np.float32(gs))))
     got_t, got_s = make_paired_trajectory_fn(pt, ps, T, tcfg, use_cfg=True, device="cpu")(
-        noises, seeds, gs, step_noise=step_noise)
+        noises, seeds, gs, step_noise=step_noise, eager=eager)
     assert got_t.shape == (2, T + 1, *SHAPE) and got_s.shape == got_t.shape
-    np.testing.assert_allclose(got_t.numpy(), np.asarray(want_t), **TRAJ_TOL)
-    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), **TRAJ_TOL)
+    np.testing.assert_allclose(got_t.numpy(), want_t, **TRAJ_TOL)
+    np.testing.assert_allclose(got_s.numpy(), want_s, **TRAJ_TOL)
+    assert torch.equal(got_t, scan(pt, CFG_COND_PAIRS))
+    assert torch.equal(got_s, scan(ps, CFG_COND_PAIRS))
 
     # The single-model function, no-CFG lane (one cond-0 mask-0 forward).
-    want = jax_make_batch_trajectory_fn(jt, tv, T, jcfg, use_cfg=False)(
-        noises, seeds, np.float32(gs))
+    want = jax_once(("manager.batch", gs), lambda: jax_make_batch_trajectory_fn(
+        jt, tv, T, jcfg, use_cfg=False)(noises, seeds, np.float32(gs)))
     got = make_batch_trajectory_fn(pt, T, tcfg, use_cfg=False, device="cpu")(
-        noises, seeds, gs, step_noise=step_noise)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+        noises, seeds, gs, step_noise=step_noise, eager=eager)
+    np.testing.assert_allclose(got.numpy(), want, **TRAJ_TOL)
+    assert torch.equal(got, scan(pt, NOCFG_COND_PAIRS))
 
 
 def test_default_step_noise_is_paired_per_seed(models):

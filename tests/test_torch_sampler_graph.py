@@ -5,9 +5,13 @@ student, T=6, JAX's draws injected; rtol 2e-5 / atol 1e-5, the tree's
 sampler tolerance, ``tests/test_ops.py:60``) under either value of
 ``Config.pallas_cfg_update``; the benches' single-seed maker
 (``sampling.make_chain_fn``) against the JAX benches' jitted
-``generate_trajectory_scan``.  On the CPU the makers run their eager body
-(there are no graphs); ``tests/test_torch_cuda.py`` holds the captured
-lane to it on the card."""
+``generate_trajectory_scan``.  Each maker is called through both of its
+entries, the plain call and ``eager=True``, and each entry is also held
+bit for bit to the port's public function of the same chain
+(``generate_trajectory_batch_scan``, ``generate_trajectory_scan``,
+``p_sample_loop``), which the makers no longer route through.  On the CPU
+both entries run the makers' eager body (there are no graphs);
+``tests/test_torch_cuda.py`` holds the captured lane to it on the card."""
 
 import jax
 import numpy as np
@@ -46,6 +50,7 @@ from distillation_trajectories_torch.ops.cfg_update import (
 )
 from distillation_trajectories_torch.training import make_eval_model_fn
 from distillation_trajectories_torch.training.progressive import make_guided_eval_fn
+from distillation_trajectories_torch.training.state import make_eval_fn_from_config
 from distillation_trajectories_torch.training.teacher import make_grid_fn
 from distillation_trajectories_torch.trajectories import (
     TrajectoryManager,
@@ -56,6 +61,7 @@ from distillation_trajectories_torch.trajectories import (
 from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     configs,
     jax_noises,
+    jax_once,
     jax_step_noise,
     jax_variables,
     sample_draws,
@@ -68,6 +74,8 @@ T = 6
 SHAPE = (16, 16, 1)
 TRAJ_TOL = dict(rtol=2e-5, atol=1e-5)
 FLAGS = pytest.mark.parametrize("flag", [False, True], ids=["unfused", "fused"])
+# A maker's two entries: its plain call and ``eager=True``.
+ENTRIES = pytest.mark.parametrize("eager", [False, True], ids=["call", "eager"])
 
 
 def _bits(a):
@@ -141,65 +149,95 @@ def _draws(seeds):
 
 
 @FLAGS
-def test_sweep_and_batch_makers_match_jax(models, flag):
+@ENTRIES
+def test_sweep_and_batch_makers_match_jax(models, flag, eager):
     """``make_sweep_trajectory_fn`` (CFG at 3.0 and at 5.0 through one
     maker, then no-CFG) and ``make_batch_trajectory_fn`` against JAX's
-    jitted makers."""
+    jitted makers, and each equal to ``generate_trajectory_batch_scan``
+    bit for bit."""
     jcfg, tcfg, jm = _pair(models, flag)
     seeds = np.array([3, 11])
     noises, step_noise = _draws(seeds)
+    alphas = get_diffusion_params(T, tcfg)["alphas"]
+    teacher, student = models["teacher"][1], models["student"][1]
     jax_sweep = jax_make_sweep_trajectory_fn(*jm["teacher"], T, jcfg)
-    sweep = make_sweep_trajectory_fn(models["teacher"][1], T, tcfg)
+    sweep = make_sweep_trajectory_fn(teacher, T, tcfg)
     for pairs, gs in ((sampling.CFG_COND_PAIRS, 3.0), (sampling.CFG_COND_PAIRS, 5.0),
                       (sampling.NOCFG_COND_PAIRS, 1.0)):
-        want = jax_sweep(noises, seeds, pairs, np.float32(gs))
-        got = sweep(torch.from_numpy(noises), seeds, pairs, gs, step_noise=step_noise)
+        want = jax_once(("sampler_graph.sweep", flag, gs),
+                         lambda: jax_sweep(noises, seeds, pairs, np.float32(gs)))
+        got = sweep(torch.from_numpy(noises), seeds, pairs, gs, step_noise=step_noise,
+                    eager=eager)
         assert got.shape == (2, T + 1, *SHAPE)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+        np.testing.assert_allclose(got.numpy(), want, **TRAJ_TOL)
+        assert torch.equal(got, sampling.generate_trajectory_batch_scan(
+            make_eval_fn_from_config(teacher, tcfg), torch.from_numpy(noises), T, alphas,
+            seeds, pairs, gs, step_noise=step_noise))
 
-    want = jax_make_batch_trajectory_fn(*jm["student"], T, jcfg, use_cfg=True)(
-        noises, seeds, np.float32(7.5))
-    got = make_batch_trajectory_fn(models["student"][1], T, tcfg, use_cfg=True)(
-        noises, seeds, 7.5, step_noise=step_noise)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+    want = jax_once(("sampler_graph.batch", flag), lambda: jax_make_batch_trajectory_fn(
+        *jm["student"], T, jcfg, use_cfg=True)(noises, seeds, np.float32(7.5)))
+    got = make_batch_trajectory_fn(student, T, tcfg, use_cfg=True)(
+        noises, seeds, 7.5, step_noise=step_noise, eager=eager)
+    np.testing.assert_allclose(got.numpy(), want, **TRAJ_TOL)
+    assert torch.equal(got, sampling.generate_trajectory_batch_scan(
+        make_eval_fn_from_config(student, tcfg), torch.from_numpy(noises), T, alphas, seeds,
+        sampling.CFG_COND_PAIRS, 7.5, step_noise=step_noise))
 
 
 @FLAGS
-def test_paired_maker_and_manager_match_jax(models, flag, tmp_path):
-    """``make_paired_trajectory_fn`` (two calls of one maker) and the
+@ENTRIES
+def test_paired_maker_and_manager_match_jax(models, flag, eager, tmp_path):
+    """``make_paired_trajectory_fn`` (two calls of one maker; each chain
+    also equal to ``generate_trajectory_batch_scan`` bit for bit) and the
     manager's paired chains (no CFG, its one paired function serving two
     seeds) against JAX's jitted ones."""
     jcfg, tcfg, jm = _pair(models, flag)
+    alphas = get_diffusion_params(T, tcfg)["alphas"]
     fn = jax_make_paired_trajectory_fn(*jm["teacher"], *jm["student"], T, jcfg, use_cfg=True)
     port = make_paired_trajectory_fn(models["teacher"][1], models["student"][1], T, tcfg,
                                      use_cfg=True)
     for seeds, gs in (([3, 11], 3.0), ([5, 6], 2.0)):
         noises, step_noise = _draws(seeds)
-        want = fn(noises, np.array(seeds), np.float32(gs))
-        got = port(noises, seeds, gs, step_noise=step_noise)
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(g.numpy(), np.asarray(w), **TRAJ_TOL)
+        got = port(noises, seeds, gs, step_noise=step_noise, eager=eager)
+        want = jax_once(("sampler_graph.paired", flag, gs),
+                         lambda: np.stack(fn(noises, np.array(seeds), np.float32(gs))))
+        for i, name in enumerate(("teacher", "student")):
+            np.testing.assert_allclose(got[i].numpy(), want[i], **TRAJ_TOL)
+            assert torch.equal(got[i], sampling.generate_trajectory_batch_scan(
+                make_eval_fn_from_config(models[name][1], tcfg), torch.from_numpy(noises), T,
+                alphas, seeds, sampling.CFG_COND_PAIRS, gs, step_noise=step_noise))
 
     jcfg.teacher_steps = tcfg.teacher_steps = T
     jcfg.base_dir, tcfg.base_dir = str(tmp_path / "jax"), str(tmp_path / "port")
     (jt, tv), (js, sv) = jm["teacher"], jm["student"]
-    jax_manager = JaxManager(jt, js, jcfg, size_factor=0.1, teacher_variables=tv,
-                             student_variables=sv)
+
+    jax_manager = []
+
+    def jax_chains(seed):
+        if not jax_manager:
+            jax_manager.append(JaxManager(jt, js, jcfg, size_factor=0.1, teacher_variables=tv,
+                                          student_variables=sv))
+        return np.stack(jax_manager[0].generate_trajectory(seed))
+
     manager = TrajectoryManager(models["teacher"][1], models["student"][1], tcfg,
                                 size_factor=0.1, device="cpu")
     for seed in (2, 9):
         noise, step_noise = _draws([seed])
         got = manager.generate_trajectory(seed, noise=torch.from_numpy(noise[0]),
                                           step_noise=step_noise[:, 0])
-        for g, w in zip(got, jax_manager.generate_trajectory(seed)):
+        want = jax_once(("sampler_graph.manager", flag, seed), lambda: jax_chains(seed))
+        for g, w in zip(got, want):
             np.testing.assert_allclose(g, w, **TRAJ_TOL)
 
 
 @FLAGS
-def test_loop_makers_match_jax(models, flag):
+@ENTRIES
+def test_loop_makers_match_jax(models, flag, eager):
     """The FID sampler and the sample grid (``p_sample_loop`` under JAX's
     ``jax.jit``, weights as arguments) against JAX's: the maker's own
-    model, then another model's weights through the same maker."""
+    model, then another model's weights through the same maker.  The
+    grid's loop (``sampling.make_loop_fn``) is called through the entry
+    under test and held to ``p_sample_loop`` bit for bit."""
     jcfg, tcfg, jm = _pair(models, flag)
     teacher, student = models["teacher"][1], models["student"][1]
     other = make_unet(tcfg, size_factor=1.0, seed=7, device="cpu")
@@ -208,25 +246,31 @@ def test_loop_makers_match_jax(models, flag):
     jax_sample = jax_make_sample_fn(jm["teacher"][0], jcfg, n)
     sample = make_sample_fn(teacher, tcfg, n)
     tcfg.num_samples_to_generate = jcfg.num_samples_to_generate = n
-    grid = make_grid_fn(student, tcfg, get_diffusion_params(T, tcfg))
+    dp = get_diffusion_params(T, tcfg)
+    grid = make_grid_fn(student, tcfg, dp)
     jax_grid = jax_make_grid_fn(jm["student"][0], jcfg, jax_params(T, jcfg))
     student_b = make_unet(tcfg, size_factor=0.1, seed=8, device="cpu")
     for key, params, model in ((0, None, teacher), (1, other, other)):
         k = jax.random.PRNGKey(key)
-        want = jax_sample(jax_variables(model), k)
+        want = jax_once(("sampler_graph.sample", flag, key),
+                        lambda: jax_sample(jax_variables(model), k))
         by_name = None if params is None else {**dict(params.named_parameters()),
                                                **dict(params.named_buffers())}
         got = sample(sample_draws(k, (n, *SHAPE), n_steps), by_name)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+        np.testing.assert_allclose(got.numpy(), want, **TRAJ_TOL)
     for key, model in ((2, student), (3, student_b)):
         k = jax.random.PRNGKey(key)
         # The grid's params are parameters only: the buffers stay the
         # maker's model's, on both sides.
-        want = jax_grid(jax_variables(model)["params"], jax_variables(student)["batch_stats"], k)
+        want = jax_once(("sampler_graph.grid", flag, key), lambda: jax_grid(
+            jax_variables(model)["params"], jax_variables(student)["batch_stats"], k))
         params = None if model is student else dict(model.named_parameters())
         noise, step_noise = sample_draws(k, (n, *SHAPE), n_steps)
-        got = grid(noise, step_noise, params)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TRAJ_TOL)
+        got = grid.loop(noise, step_noise, params, eager=eager)
+        np.testing.assert_allclose(got.numpy(), want, **TRAJ_TOL)
+        assert torch.equal(got, sampling.p_sample_loop(
+            make_eval_model_fn(student, params), grid.shape, T, dp, noise=noise,
+            step_noise=step_noise, num_timesteps=tcfg.timesteps, mode=tcfg.sample_mode))
 
 
 # The benches' jitted chains (scripts/bench_quant.py:127, bench_r2.py:75,
@@ -238,12 +282,15 @@ CHAIN_CASES = {"cfg": (3.0,), "no_cfg": (None,), "traced_cfg": (1.0, 5.0), "guid
 
 
 @FLAGS
+@ENTRIES
 @pytest.mark.parametrize("case", list(CHAIN_CASES))
-def test_chain_maker_matches_jax(models, flag, case):
+def test_chain_maker_matches_jax(models, flag, eager, case):
     """``make_chain_fn`` against JAX's jitted ``generate_trajectory_scan``
     (the benches' ``jax.jit(lambda vars, noise, seed: ...)``), one maker
     for every value of the case: the guided student's ``w`` is a tensor set
-    in place before each call, the traced scale a ``use_cfg=True`` call."""
+    in place before each call, the traced scale a ``use_cfg=True`` call.
+    Each call also equals the port's ``generate_trajectory_scan`` bit for
+    bit."""
     jcfg, tcfg, jm = _pair(models, flag)
     alphas = get_diffusion_params(T, tcfg)["alphas"]
     jalphas = jax_params(T, jcfg)["alphas"]
@@ -275,9 +322,12 @@ def test_chain_maker_matches_jax(models, flag, case):
         kw = {"guidance_scale": None} if case == "guided" else {"guidance_scale": g}
         if case == "traced_cfg":
             kw["use_cfg"] = True
-        got = chain(torch.from_numpy(noise), seed, step_noise=step_noise, **kw)
+        got = chain(torch.from_numpy(noise), seed, step_noise=step_noise, eager=eager, **kw)
         assert got.shape == (T + 1, 1, *SHAPE)
-        np.testing.assert_allclose(got.numpy(), np.asarray(jax_chain(g)), **TRAJ_TOL)
+        want = jax_once(("sampler_graph.chain", flag, case, g), lambda: jax_chain(g))
+        np.testing.assert_allclose(got.numpy(), want, **TRAJ_TOL)
+        assert torch.equal(got, sampling.generate_trajectory_scan(
+            model_fn, torch.from_numpy(noise), T, alphas, seed, step_noise=step_noise, **kw))
 
 
 def test_successive_calls_share_no_storage(models):

@@ -5,8 +5,18 @@ every port test module imports, which removes what a test wrote once it
 ends."""
 
 import contextlib
+import os
 import shutil
 from unittest import mock
+
+# oneDNN's AMX kernels (the CPU's bf16 convolutions and int8 products) have
+# returned tiles of wrong values, NaN among them, while their threads were
+# preempted on a loaded host; its AVX-512 kernels, on the same host at the
+# same time, have not.  The suite's CPU parity tests run six workers at once,
+# so they keep oneDNN to AVX-512.  oneDNN reads this at its first primitive
+# (no test module runs one at import before this one is imported), and the
+# CLIs the tests start as subprocesses inherit it.
+os.environ.setdefault("ONEDNN_MAX_CPU_ISA", "AVX512_CORE_BF16")
 
 import jax
 import numpy as np
@@ -109,6 +119,20 @@ def jax_step_noise(seeds, timesteps, shape):
             jax.random.fold_in(jax.random.PRNGKey(int(s)), t), shape)) for s in seeds])
         for t in range(timesteps - 1, 0, -1)
     ])
+
+
+# JAX's outputs by case (see :func:`jax_once`).
+_JAX_OUT = {}
+
+
+def jax_once(key, thunk):
+    """``np.asarray(thunk())``, computed once a process for ``key`` (a tuple
+    whose first item names the test module's case): the JAX output that
+    several parametrised cases of a port test compare with, such as a
+    maker's two entries."""
+    if key not in _JAX_OUT:
+        _JAX_OUT[key] = np.asarray(thunk())
+    return _JAX_OUT[key]
 
 
 def jax_chain_draws(seeds, timesteps, shape):
