@@ -207,9 +207,8 @@ on first use.  Phases, each printing its own lines:
    place), each replay equal to the eager body bit for bit with 49
    launches counted and the plain version never called.  The eager body
    is the maker's call with ``eager=True``.  The benchmark's cells time
-   these chains in both lanes (``cifar10-32.sweep``, ``.cfg-cli-b10``,
-   ``.pairs-b1``: each model's CFG chain replayed, its CFG-off chain
-   eager).
+   these chains (``cifar10-32.sweep``, ``.cfg-cli-b10``, ``.pairs-b1``:
+   each model's CFG and CFG-off chains replayed, on one static set).
 
 The CFG-update record counts the launches of phase 2's DiT chain and of
 phases 4, 6(b), 7(b), 8(b), 9(d), 10 (the ranks' included), 11, 12 and

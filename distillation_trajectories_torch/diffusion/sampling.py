@@ -17,10 +17,11 @@ a chain.  JAX compiles each chain into one program under ``jax.jit``; the
 port's counterparts are :func:`make_batch_chain_fn` and
 :func:`make_loop_fn`, which the makers (trajectory engine, manager, grid,
 FID) return, and :func:`make_chain_fn`, the benches' single-seed chain:
-on the card each captures its chain into a CUDA graph on its second call
-for a key and replays it from then on, and a call with ``eager=True`` runs
-the same body eagerly (``utils/graphs.py``, which also lists what stays
-eager).  JAX's
+on the card each captures its chains into CUDA graphs after one eager
+warm-up of their input signature, the CFG and CFG-off graphs of one maker
+sharing their static inputs and output, and replays them from then on; a
+call with ``eager=True`` runs the same body eagerly (``utils/graphs.py``,
+which also lists what stays eager).  JAX's
 ``use_pallas`` picks between its fused kernel and the unfused combine then
 ``engine_update``; the fused function computes the unfused tail (bit-equal
 on the CPU), so the port has the one tail under either value of
@@ -199,8 +200,9 @@ def make_loop_fn(make_model_fn, shape, sample_steps: int, diffusion_params, *,
     The call runs through :class:`..utils.graphs.CapturedCall`: where
     ``captures(device)`` holds and ``eager`` is false, each key (the
     ``params`` names, the inputs' shapes and dtypes) runs eagerly on its
-    first call, is captured into a CUDA graph on its second and replayed
-    from then on; the start noise, the step noise, the coefficient table
+    first call, is captured into a CUDA graph on its second (its final
+    image copied into the graph's static output) and replayed from then
+    on; the start noise, the step noise, the coefficient table
     (the guidance in its column 4, sent to the device once) and ``params``
     are the graph's inputs, copied into it each call, so a replay sees the
     weights it is given (and ``params=None``, the model's own weights,
@@ -221,9 +223,10 @@ def make_loop_fn(make_model_fn, shape, sample_steps: int, diffusion_params, *,
             tables[device] = host_to_device(host_table, device)
         names = None if params is None else tuple(params)
 
-        def body(x, n, tab, *values):
+        def body(x, n, tab, *values, out=None):
             model_fn = make_model_fn(None if names is None else dict(zip(names, values)))
-            return _loop_chain(model_fn, x, tab, n, indices, mode, False)
+            img = _loop_chain(model_fn, x, tab, n, indices, mode, False)
+            return img if out is None else out.copy_(img)
 
         values = [] if names is None else [params[k] for k in names]
         make_model_fn(params)  # its effect on the model (eval mode), on a replay too
@@ -342,13 +345,16 @@ def _engine_chain(model_fn, x, table, cond_pairs, step_noise, states, labels=Non
     states[timesteps] = x
 
 
-def _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype, labels=None):
-    """``[S, T+1, H, W, C]`` states of the batched chain from ``noises``."""
-    out = torch.empty(
-        (noises.shape[0], table.shape[0] + 2, *noises.shape[1:]),
-        dtype=store_dtype or noises.dtype,
-        device=noises.device,
-    )
+def _batch_states(model_fn, noises, table, cond_pairs, step_noise, store_dtype, labels=None,
+                  out=None):
+    """``[S, T+1, H, W, C]`` states of the batched chain from ``noises``,
+    written into ``out`` where given (a captured chain's static output)."""
+    if out is None:
+        out = torch.empty(
+            (noises.shape[0], table.shape[0] + 2, *noises.shape[1:]),
+            dtype=store_dtype or noises.dtype,
+            device=noises.device,
+        )
     _engine_chain(model_fn, noises, table, cond_pairs, step_noise, out.transpose(0, 1), labels)
     return out
 
@@ -372,10 +378,12 @@ def _scan_guidance(guidance_scale, use_cfg):
     return bool(use_cfg), 1.0 if guidance_scale is None or not use_cfg else float(guidance_scale)
 
 
-def _scan_states(model_fn, noise, table, cond_pairs, step_noise, store_dtype):
-    """``[T+1, B, H, W, C]`` states of the chain from ``noise``."""
-    states = torch.empty((table.shape[0] + 2, *noise.shape), dtype=store_dtype or noise.dtype,
-                         device=noise.device)
+def _scan_states(model_fn, noise, table, cond_pairs, step_noise, store_dtype, out=None):
+    """``[T+1, B, H, W, C]`` states of the chain from ``noise``, written
+    into ``out`` where given (a captured chain's static output)."""
+    states = out if out is not None else torch.empty(
+        (table.shape[0] + 2, *noise.shape), dtype=store_dtype or noise.dtype,
+        device=noise.device)
     _engine_chain(model_fn, noise, table, cond_pairs, step_noise, states)
     return states
 
@@ -457,14 +465,19 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
     :func:`generate_trajectory_batch_scan` computes.
 
     The call runs through :class:`..utils.graphs.CapturedCall`: where
-    ``captures(device)`` holds and ``eager`` is false, each key (the cond
-    pairs, so CFG on or off, and the inputs' shapes and dtypes) runs
-    eagerly on its first call, is captured into a CUDA graph on its second
-    and replayed from then on; the noises, the step noise, the scalar
-    table and, for a class-conditional model, the ``labels`` are the
-    graph's inputs (without labels the graph has the first three alone),
-    and ``gs`` is written into a copy of the device table's column 3
-    before each call, so one graph serves every guidance scale.
+    ``captures(device)`` holds and ``eager`` is false, the first call of an
+    input signature (the inputs' shapes and dtypes) runs eagerly, its
+    warm-up; each key (the cond pairs, so CFG on or off, and the signature)
+    is captured into a CUDA graph on its next call and replayed from then
+    on, so a CFG-off key whose signature a CFG call warmed up is captured on
+    its first call.  The CFG and CFG-off graphs of one signature share
+    their static inputs and output (the states are written into it,
+    ``_batch_states(out=)``); each call returns a copy.  The noises, the
+    step noise, the scalar table and, for a class-conditional model, the
+    ``labels`` are the graph's inputs (without labels the graph has the
+    first three alone), and ``gs`` is written into a copy of the device
+    table's column 3 before each call, so one graph serves every guidance
+    scale.
     Otherwise the same body runs eagerly on the same inputs.  The step
     noise is drawn outside the graph (:func:`draw_step_noise` seeds a
     generator from the host per ``(seed, t)``)."""
@@ -479,8 +492,8 @@ def make_batch_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
         step_noise = _step_noise_for(step_noise, timesteps, noises)
         table = _table_with_scale(tables, host_table, device, float(gs))
         pairs = np.asarray(cond_pairs, dtype=np.float32)
-        body = lambda x, n, tab, *lab: _batch_states(model_fn, x, tab, pairs, n, store_dtype,
-                                                     *lab)
+        body = lambda x, n, tab, *lab, out=None: _batch_states(model_fn, x, tab, pairs, n,
+                                                               store_dtype, *lab, out=out)
         inputs = (noises, step_noise, table) + (() if labels is None else (labels,))
         return graphs(pairs.tobytes(), body, *inputs, eager=eager)
 
@@ -497,13 +510,14 @@ def make_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
     :func:`generate_trajectory_scan` reads them, and its chain.
 
     The call runs through :class:`..utils.graphs.CapturedCall`: where
-    ``captures(device)`` holds and ``eager`` is false, each key (CFG on or
-    off, and the inputs' shapes and dtypes) runs eagerly on its first
-    call, is captured into a CUDA graph on its second and replayed from
-    then on; the noise, the step noise and the scalar table are the
-    graph's inputs, and the guidance scale is written into a copy of the
-    device table's column 3 before each call, so one graph serves every
-    scale.  Otherwise the same body runs eagerly on the same inputs.  The
+    ``captures(device)`` holds and ``eager`` is false, the first call of an
+    input signature (the inputs' shapes and dtypes) runs eagerly, its
+    warm-up; each key (CFG on or off, and the signature) is captured into a
+    CUDA graph on its next call and replayed from then on, the two keys of
+    a signature sharing their static inputs and output; the noise, the
+    step noise and the scalar table are the graph's inputs, and the
+    guidance scale is written into a copy of the device table's column 3
+    before each call, so one graph serves every scale.  Otherwise the same body runs eagerly on the same inputs.  The
     step noise is drawn outside the graph from ``(seed, t)``, as the eager
     chain draws it, unless ``step_noise`` is given.  What the forward reads
     besides its inputs it reads where it was captured: a model input that
@@ -521,7 +535,8 @@ def make_chain_fn(model_fn, timesteps: int, alphas, store_dtype=None, *,
         step_noise = _step_noise_for(step_noise, timesteps, noise)
         table = _table_with_scale(tables, host_table, noise.device, g)
         pairs = CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS
-        body = lambda x, n, tab: _scan_states(model_fn, x, tab, pairs, n, store_dtype)
+        body = lambda x, n, tab, out=None: _scan_states(model_fn, x, tab, pairs, n, store_dtype,
+                                                        out=out)
         return graphs(use_cfg, body, noise, step_noise, table, eager=eager)
 
     fn.graphs = graphs

@@ -311,9 +311,10 @@ class BenchDraws:
 def chain_fn(config, draws, steps, fn):
     """``run(noise, seed, guidance_scale=None, use_cfg=None, eager=False) ->
     [steps+1, ...]``: the engine chain of the model forward ``fn`` at
-    ``steps`` through its maker (on the card captured on its second call
-    for a key and replayed; with ``eager=True`` its body run eagerly), with
-    the step noise of ``draws``; ``run.maker`` is the maker."""
+    ``steps`` through its maker (on the card captured after one eager
+    warm-up of its input signature and replayed; with ``eager=True`` its
+    body run eagerly), with the step noise of ``draws``; ``run.maker`` is
+    the maker."""
     from ..diffusion import get_diffusion_params
     from ..diffusion.sampling import make_chain_fn
     from ..utils.graphs import sampler_lane_captures

@@ -255,18 +255,19 @@ def exp_ablate(args, draws):
 
     def loop(body, inputs):
         """``run(seed, eager=False)``: ``body(*inputs(seed))`` through a
-        :class:`CapturedCall`, captured where the sampler lane captures."""
+        :class:`CapturedCall`, captured where the sampler lane captures
+        (``body`` takes the static output as ``out=``)."""
         graphs = CapturedCall(sampler_lane_captures, counted=COUNTED)
         return lambda seed, eager=False: graphs(None, body, *inputs(seed), eager=eager)
 
     def two_fwd(fn):
         """Two CFG forwards a step, no update tail, draw or storage."""
-        def body(x):
+        def body(x, out=None):
             for _ in range(n_steps):
                 pu = fn(x, tvec, zeros, ones)
                 pc = fn(x, tvec, ones, ones)
                 x = x + 1e-6 * (pu + 2.0 * pc)  # consume both, keep the carry stable
-            return x
+            return x if out is None else out.copy_(x)
         return loop(body, lambda seed: (noise,))
 
     nearest = _nearest_layout()
@@ -275,13 +276,13 @@ def exp_ablate(args, draws):
         with torch.no_grad():
             return model(x, t, cond, cond_mask, layout=nearest)
 
-    def tail(x, step_noise, table):
+    def tail(x, step_noise, table, out=None):
         """The update tail alone, as the chain runs it: the kernel on the
         table's row a step."""
         for j in range(args.timesteps - 1):
             eps = x * 1e-3
             x = cfg_engine_update_row(x, eps, eps, step_noise[j], table[j])
-        return x
+        return x if out is None else out.copy_(x)
 
     def tail_inputs(seed):
         """The step's draw and the scalar table, made a chain as the

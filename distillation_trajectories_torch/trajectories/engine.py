@@ -7,11 +7,12 @@ per (T, scale, draws) and shared by every student, and scores each pair
 batch with the metric suite on the device.  The makers
 (:func:`make_sweep_trajectory_fn`, :func:`make_batch_trajectory_fn`,
 :func:`make_paired_trajectory_fn`) are the counterparts of JAX's jitted
-ones: on the card each captures its chain into a CUDA graph on its second
-call for a key and replays it.  The sweep keeps its makers across calls
-(:func:`sweep_compare_trajectories_multi`), so a repeated sweep replays the
-graphs an earlier call captured.  The JAX package's TPU host machinery (AOT
-compile pool, ``CompiledWithFallback``, the watchdog) has no counterpart.
+ones: on the card each captures its chains into CUDA graphs and replays
+them, a model's CFG and CFG-off graphs sharing one static set.  The sweep
+keeps its makers across calls (:func:`sweep_compare_trajectories_multi`),
+so a repeated sweep replays the graphs an earlier call captured.  The JAX
+package's TPU host machinery (AOT compile pool, ``CompiledWithFallback``,
+the watchdog) has no counterpart.
 
 The random draws of a sweep — starting noises, per-step noise, the
 Wasserstein subsample keys and, for a class-conditional teacher (the DiT of
@@ -29,7 +30,6 @@ unsharded result.  ``Config.spatial_shape`` sends
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 import itertools
 import time
@@ -225,10 +225,12 @@ def make_sweep_trajectory_fn(model, timesteps: int, config=None):
 
     The counterpart of JAX's jitted sweep function: on the card (unless the
     forward is spatially partitioned or the model sharded over a mesh,
-    ``utils/graphs.py::sampler_lane_captures``) each key — CFG on or off,
-    the noises' shape and dtype — runs eagerly on its first call, is
-    captured into a CUDA graph on its second and replayed from then on
-    (:func:`..diffusion.sampling.make_batch_chain_fn`), ``gs`` written
+    ``utils/graphs.py::sampler_lane_captures``) the first call of a draw
+    shape runs eagerly, its warm-up, and each key — CFG on or off, the
+    noises' shape and dtype — is captured into a CUDA graph on its next
+    call and replayed from then on, the CFG and CFG-off graphs sharing
+    their static inputs and output
+    (:func:`..diffusion.sampling.make_batch_chain_fn`); ``gs`` is written
     into the graph's scalar table, so one graph serves every guidance
     scale.  A replay reads the model's weights where they are, so it sees
     them changed in place.  Each call returns fresh storage.  A call with
@@ -255,13 +257,13 @@ _MAKER_FIELDS = ("noise_schedule", "beta_start", "beta_end", "compute_dtype", "s
 
 @dataclasses.dataclass
 class _Resident:
-    """A sweep maker kept across calls: what it assumed of its model when
-    built (:func:`_weights_stamp`), the maker, and the chains (CFG on or off,
-    the noises' shape and dtype) some call ran twice or more, so captured."""
+    """A sweep maker: what it assumed of its model when built
+    (:func:`_weights_stamp`), the maker, and whether the store keeps it
+    across calls."""
 
     stamp: tuple
     fn: object
-    captured: set
+    kept: bool
 
 
 # The sweep's resident makers: for each model (a weak key), the makers its
@@ -298,7 +300,8 @@ def _resident_makers(wanted, config, device):
     it is built, so it is built every call and kept by none: a CUDA-graph
     replay, as the trainers' captured lanes run a step, changes weights in
     place without raising their ``_version``, and no stamp would see its
-    fold go stale.  The other makers read the weights in place."""
+    fold go stale.  The other makers read the weights in place, and the
+    store keeps them (``kept``)."""
     resident = getattr(config, "sampler_quant", "none") != "int8"
     makers, kept, built = {}, {}, 0
     for mkey, (model, timesteps) in wanted.items():
@@ -307,7 +310,7 @@ def _resident_makers(wanted, config, device):
         if entry is None or entry.stamp != _weights_stamp(model):
             fn = make_sweep_trajectory_fn(weakref.proxy(model), timesteps, config)
             # Stamped after the build, which puts the model in eval mode.
-            entry = _Resident(_weights_stamp(model), fn, set())
+            entry = _Resident(_weights_stamp(model), fn, resident)
             built += 1
         makers[mkey] = entry
         entries = kept.setdefault(model, {})
@@ -377,31 +380,35 @@ def sweep_compare_trajectories_multi(
     the unsharded order.  A job it does not divide runs unsharded, as in
     JAX.
 
-    The chain makers are resident: kept across calls, one per model and
-    T, so a later call with the same models, T, configuration and draw
-    shapes replays the graphs an earlier call captured, with no warm-up and
-    no capture.  A maker is built anew when its model has changed since:
-    a parameter or buffer with other storage or an in-place change
+    Every chain runs through its model's maker (bar the int8 makers'
+    CFG-off chains, below), each model's CFG chains
+    (their scales in the jobs' order) before its CFG-off chain: on the
+    card the first CFG chain warms the maker up, the second is captured,
+    and the CFG-off chain is captured on its first run, on the static set
+    the CFG graph holds.  Each returned dict lists the job's scales in its
+    own order.  The chain makers are resident: kept across calls, one per
+    model and T, so a later call with the same models, T, configuration
+    and draw shapes replays the graphs an earlier call captured, with no
+    warm-up and no capture.  A maker is built anew when its model has
+    changed since: a parameter or buffer with other storage or an in-place change
     (``Tensor._version``: a write through ``.data`` is not counted), or a
     module put in training mode; or when a ``Config`` field the maker
     reads, or a TF32 switch, differs.  Under ``sampler_quant="int8"`` every
-    call builds its makers, which fold the weights, and keeps none.  The
+    call builds its makers, which fold the weights, and keeps none; their
+    CFG-off chains run eagerly (``eager=True``), since a graph that the
+    call's end drops would be captured for the one run.  The
     store holds each model weakly and keeps, per model, the makers of its
     latest call: dropping the models releases their graphs.  Until then
     their graphs stay allocated between calls, through whatever the caller
-    runs next (a training epoch, say): each graph holds its static noises,
-    step noise and trajectories, 0.296 GiB for 256 samples of 32x32x3 at
-    T=50 in float32, and the shared sampler pool stays reserved for
-    them.  A chain the call runs once (in the CFG CLI's scales, each
-    model's CFG-off chain) runs its maker's body eagerly (``eager=True``)
-    unless an earlier call captured it: a graph kept alive for one run a call would hold its
-    static inputs and output for nothing.
+    runs next (a training epoch, say): each maker's static set holds its
+    static noises, step noise and trajectories, 0.296 GiB for 256 samples
+    of 32x32x3 at T=50 in float32, and the shared sampler pool stays
+    reserved for them.
 
     A call is one ``sweep.call`` span (``jobs``, ``pairs``); inside it one
-    ``sweep.makers`` span (``built``, ``reused`` and ``eager_once``: makers
-    built and found resident, chains sent to the eager body as run once),
-    and each student chain's scoring a ``sweep.metrics`` span (``sf``,
-    ``gs``).
+    ``sweep.makers`` span (``built`` and ``reused``: makers built and found
+    resident), and each student chain's scoring a ``sweep.metrics`` span
+    (``sf``, ``gs``).
     """
     jobs = [dict(job) for job in jobs]
     for job in jobs:
@@ -466,12 +473,13 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
 
     # The call's chains in the order they run: at each scale of a job the
     # teacher's (sf None; once per T, scale and draws, its trajectories
-    # shared across jobs), then each student's.  A chain's key is its
-    # maker's (the model and T) and its graph's (CFG on or off, the draws'
-    # shape and dtype); the call counts each key's runs before it runs them.
+    # shared across jobs), then each student's; the CFG chains first, as
+    # CapturedCall asks of a key called once (a model's CFG-off chain), so
+    # that it is captured on its one call, on the static set the CFG graph
+    # made.  A chain's maker is its model's at its T.
     rows = [job_rows(job) for job in jobs]
-    plan, keys, wanted, teachers = [], [], {}, set()
-    for ji, (job, (dkey, draws, *_)) in enumerate(zip(jobs, rows)):
+    plan, wanted, teachers = [], {}, set()
+    for ji, (job, (dkey, *_)) in enumerate(zip(jobs, rows)):
         timesteps = job["timesteps"]
         for gs in job["guidance_scales"]:
             use_cfg = gs is not None and gs > 1.0
@@ -481,32 +489,26 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
                 teachers.add(tkey)
                 chains.insert(0, (None, teacher_model))
             for sf, model in chains:
-                plan.append((ji, sf, gs, tkey))
-                keys.append(((id(model), timesteps),
-                             (use_cfg, tuple(draws.noises.shape), draws.noises.dtype)))
-                wanted[keys[-1][0]] = (model, timesteps)
-    runs = collections.Counter(keys)
+                plan.append((ji, sf, gs, tkey, (id(model), timesteps)))
+                wanted[plan[-1][-1]] = (model, timesteps)
+    plan.sort(key=lambda chain: not chain[3][1])  # stable: CFG on, then off
 
     with span("sweep.makers") as record:
         makers, built = _resident_makers(wanted, config, device)
-        once = {(mk, chk) for (mk, chk), k in runs.items()
-                if k == 1 and chk not in makers[mk].captured}
         if record is not None:
-            record.attrs.update(built=built, reused=len(makers) - built, eager_once=len(once))
+            record.attrs.update(built=built, reused=len(makers) - built)
 
     teacher_trajs: Dict[tuple, torch.Tensor] = {}
     pending = []  # (job index, size factor, gs, {metric: [S] tensor}, sharded)
-    for (ji, sf, gs, tkey), key in zip(plan, keys):
+    for ji, sf, gs, tkey, mkey in plan:
         _, draws, seeds, s, sharded = rows[ji]
         _, use_cfg, gs_host, _ = tkey
-        entry = makers[key[0]]
-        if runs[key] > 1:
-            entry.captured.add(key[1])
         # A U-Net's chain is called as it always was; a DiT's takes its labels.
         labels = {} if draws.labels is None else {"labels": draws.labels}
+        entry = makers[mkey]
         trajs = entry.fn(
             draws.noises, seeds, CFG_COND_PAIRS if use_cfg else NOCFG_COND_PAIRS, gs_host,
-            step_noise=draws.step_noise, eager=key in once, **labels)
+            step_noise=draws.step_noise, eager=not (use_cfg or entry.kept), **labels)
         if sf is None:
             teacher_trajs[tkey] = trajs
             continue
@@ -529,7 +531,8 @@ def _sweep_multi(teacher_model, jobs, n, config, device, verbose):
     sizes = [v.numel() for v, _ in vecs]
     host = iter(np.split(torch.cat([v for v, _ in vecs]).cpu().numpy(), np.cumsum(sizes)[:-1])
                 if vecs else ())
-    outputs: List[dict] = [{sf: {} for sf in job["students"]} for job in jobs]
+    outputs: List[dict] = [{sf: dict.fromkeys(job["guidance_scales"]) for sf in job["students"]}
+                           for job in jobs]
     for ji, sf, gs, scalars, _ in pending:
         outputs[ji][sf][gs] = {k: float(np.mean(next(host))) for k in scalars}
     results = [

@@ -16,9 +16,11 @@ The captured sampler lane is the rule on the card: the engine's makers,
 the manager, the grid and FID samplers, and the benches' chains
 (``diffusion/sampling.py::make_chain_fn`` in ``bench_r2``, ``bench_quant``,
 ``bench_progressive`` and ``bench_fast``; ``make_batch_chain_fn`` in
-``bench``).  These stay eager, each for its reason (of the first two
-:func:`sampler_lane_captures` decides, which :class:`CapturedCall` alone
-asks):
+``bench``), every chain of a sweep call included bar one: an int8 sweep
+maker, which no call keeps, runs its CFG-off chain eagerly.  These stay
+eager, each
+for its reason (of the first two :func:`sampler_lane_captures` decides,
+which :class:`CapturedCall` alone asks):
 
 * the CPU, which has no graphs;
 * the spatial layout's forward (``Config.spatial_shape``), whose halo
@@ -29,10 +31,9 @@ asks):
 * one-off calls not made through a maker (``generate_trajectory``,
   ``generate_trajectory_scan``, ``p_sample_loop``,
   ``editing/core.py::denoise_with_trajectory``), and a maker's call with
-  ``eager=True`` (a bench's calibration chain and its timed eager body): a
-  capture that is never replayed costs an eager chain plus the graph's
-  instantiation.  A chain that a sweep call runs only once is such a call:
-  the engine passes ``eager=True`` unless an earlier call captured it.
+  ``eager=True`` (a bench's calibration chain and its timed eager body, the
+  int8 sweep maker's CFG-off chain): a capture that is never replayed
+  costs an eager chain plus the graph's instantiation.
 
 Of JAX's other jitted programs (``tests/test_torch_compiled_lanes.py``
 lists every ``jax.jit`` site with its lane), these run eagerly: those run
@@ -128,18 +129,31 @@ def sampler_lane_captures(device, model=None, config=None) -> bool:
     return model is None or getattr(model, "mesh", None) is None
 
 
-class _Graph:
-    """One captured call: static copies of its inputs, the graph, its
-    static output, and the launches of each counted wrapper a replay
-    makes."""
+class _Static:
+    """The static inputs and output that a :class:`CapturedCall`'s graphs of
+    one input signature share: copies of the inputs, which each replay
+    overwrites first, and the output every such graph writes, allocated
+    outside the pool."""
 
-    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor], counted):
+    def __init__(self, inputs: Sequence[torch.Tensor], shape, dtype, device):
         with torch.no_grad():
             self.inputs = [a.detach().clone() for a in inputs]
+        self.output = torch.empty(shape, dtype=dtype, device=device)
+
+
+class _Graph:
+    """One captured call: the graph, on a static set's inputs and output,
+    and the launches of each counted wrapper a replay makes."""
+
+    def __init__(self, fn: Callable, static: _Static, counted):
+        self.inputs, self.output = static.inputs, static.output
         self.counted = counted
         before = [c.launches for c in counted]
         try:
-            self.graph, self.output = capture(lambda: fn(*self.inputs), pool=sampler_pool())
+            self.graph, out = capture(lambda: fn(*self.inputs, out=self.output),
+                                      pool=sampler_pool())
+            if out is not self.output:
+                raise ValueError("a captured body must return the out= tensor it is given")
         except BaseException:
             if _SAMPLER_POOL["graphs"] == 0:  # no graph holds the pool
                 _SAMPLER_POOL["handle"] = None
@@ -163,25 +177,34 @@ class _Graph:
 
 
 class CapturedCall:
-    """``body(*inputs) -> tensor`` as a CUDA graph, one per key, where the
-    sampler lane captures.
+    """``body(*inputs, out=None) -> tensor`` as a CUDA graph, one per key,
+    where the sampler lane captures.
 
     ``captures(device)`` (:func:`sampler_lane_captures`, or a maker's
     closure of it over its model and config) is asked at each call, on the
     first input's device.  Where it is false, or the call passes
     ``eager=True``, the call runs ``body(*inputs)`` directly on the current
     stream: no span, no warm-up kept, no graph.  Otherwise the first call
-    for a key (the caller's key and the inputs' shapes, dtypes and devices)
-    runs ``body`` eagerly on a side stream, its warm-up; the second captures
-    ``body`` on static copies of the inputs, in :func:`sampler_pool`, and
-    replays it; every later call copies its inputs into the static copies
-    and replays.  Whatever ``body`` reads besides its inputs (a model's
-    weights) it reads where it was captured, so such state must change in
-    place.  Each result is a fresh copy of the static output: no two calls
-    share storage.  ``counted`` are kernel wrappers with a ``launches``
-    count (``ops.COUNTED``): the launches recorded while capturing are taken
-    back and added again at each replay, so the counts stay the device's.
-    A capture or replay that fails raises.
+    of an input signature (the inputs' shapes, dtypes and devices) runs
+    ``body`` eagerly on a side stream, its warm-up: a maker's keys (CFG on
+    or off) differ in what their chain computes, not in its kernels.  A
+    key of a warm signature is captured on its next call and replayed, and
+    every later call of it replays.  So a caller that calls a key only once
+    (a sweep's CFG-off chain) calls a key of its signature that repeats
+    first: the warm-up then falls on that key, and the once-called key is
+    captured on its call instead of being left to capture on a later one.
+    The keys of one signature share one
+    static set: the inputs' copies, which a replay overwrites first, and
+    the output, allocated outside the pool at the signature's first
+    capture, which ``body`` writes and returns when given it as ``out=``
+    (its shape and dtype follow from the signature).  The graphs replay
+    one after another on one stream and each call returns a fresh copy of
+    the output, so no two calls share storage.  Whatever ``body`` reads
+    besides its inputs (a model's weights) it reads where it was captured,
+    so such state must change in place.  ``counted`` are kernel wrappers
+    with a ``launches`` count (``ops.COUNTED``): the launches recorded
+    while capturing are taken back and added again at each replay, so the
+    counts stay the device's.  A capture or replay that fails raises.
 
     Each captured-lane call is one span (:func:`..utils.profiling.span`,
     attribute ``key``, the caller's key): ``graph.warmup``,
@@ -192,20 +215,26 @@ class CapturedCall:
         self.captures = captures
         self.counted = tuple(counted)
         self.graphs: Dict[Hashable, _Graph] = {}
-        self._warm = set()
+        self._outputs: Dict[tuple, tuple] = {}  # signature -> the warm-up's output shape
+        self._statics: Dict[tuple, _Static] = {}
 
     def __call__(self, key: Hashable, body: Callable, *inputs: torch.Tensor,
                  eager: bool = False) -> torch.Tensor:
         if eager or not self.captures(inputs[0].device):
             return body(*inputs)
-        key = (key, tuple((tuple(a.shape), a.dtype, a.device) for a in inputs))
+        sig = tuple((tuple(a.shape), a.dtype, a.device) for a in inputs)
+        key = (key, sig)
         entry = self.graphs.get(key)
-        if entry is None and key not in self._warm:
-            self._warm.add(key)
+        if entry is None and sig not in self._outputs:
             with span("graph.warmup", key=key[0]):
-                return on_side_stream(lambda: body(*inputs), inputs[0].device)
+                out = on_side_stream(lambda: body(*inputs), inputs[0].device)
+            self._outputs[sig] = (out.shape, out.dtype, out.device)
+            return out
         if entry is None:
+            static = self._statics.get(sig)
             with span("graph.capture", key=key[0]):
-                entry = self.graphs[key] = _Graph(body, inputs, self.counted)
+                if static is None:
+                    static = self._statics[sig] = _Static(inputs, *self._outputs[sig])
+                entry = self.graphs[key] = _Graph(body, static, self.counted)
         with span("graph.replay", key=key[0]):
             return entry(inputs)

@@ -26,6 +26,7 @@ from distillation_trajectories_torch.training import make_eval_model_fn
 from distillation_trajectories_torch.utils.profiling import conv_flops
 from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     JaxBenchDraws,
+    cpu_graphs,
     jax_variables,
     tmp_path,
 )
@@ -91,6 +92,28 @@ def test_ablate_counts_the_convolutions_of_two_forwards(tmp_path):
     assert res["eager_full_scan_seconds"] > 0
     assert json.load(open(tmp_path / "r2.json"))["ablate"]["per_step_flops"] == \
         res["per_step_flops"]
+
+
+def test_experiments_run_their_arms_on_the_captured_lane(tmp_path, cpu_graphs, monkeypatch):
+    """The experiments the card runs (``--exp pallas,ablate,paradigms``)
+    with the sampler lane capturing, on the stand-in graphs: every captured
+    arm, the ablation's own loops among them, is warmed up, captured with
+    its static output given as ``out=`` and replayed."""
+    from distillation_trajectories_torch.utils import graphs
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    monkeypatch.setattr(graphs, "sampler_lane_captures", lambda *a, **k: True)
+    with recording() as rec:
+        out = bench_r2.main(["--exp", "pallas,ablate,paradigms", "--timesteps", "6",
+                             "--windows", "4", "--tols", "0", "--out",
+                             str(tmp_path / "r2.json")] + TINY)
+    assert out["pallas"]["max_abs_deviation"] == 0.0
+    assert out["ablate"]["update_tail_scan_seconds"] > 0
+    assert out["paradigms"]["rows"][0]["max_abs_dev_vs_exact"] <= 1e-5
+    names = [s.name for s in rec.spans]
+    # pallas: jnp, pallas; ablate: full, two_fwd, nearest, tail; paradigms: sequential
+    assert names.count("graph.warmup") == names.count("graph.capture") == 7
+    assert names.count("graph.replay") >= 2 * 7
 
 
 def test_nearest_layout_repeats():

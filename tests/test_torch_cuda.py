@@ -758,6 +758,46 @@ def test_captured_chain_replays_the_eager_chain(cuda):
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def test_cfg_and_cfg_off_graphs_share_their_static_set(cuda):
+    """The sweep maker's CFG key (T=10, float32, TF32 off) warms the draws'
+    signature up and is captured on its second call; its CFG-off key is
+    then captured on its first call, its graph on the same static inputs
+    and output (``data_ptr``), one static set; each replay, in either
+    order, equals its eager body bit for bit, and the CFG-off replay
+    leaves the CFG result the caller holds as it was."""
+    from distillation_trajectories_torch.diffusion.sampling import (
+        CFG_COND_PAIRS,
+        NOCFG_COND_PAIRS,
+    )
+
+    saved = _no_tf32()
+    try:
+        _, sweep, _ = _graph_lane_makers(cuda)
+        noises, step_noise = _chain_inputs(cuda, 4)
+        call = lambda pairs, gs, eager=False: sweep(  # noqa: E731
+            noises, list(range(4)), pairs, gs, step_noise=step_noise, eager=eager)
+        call(CFG_COND_PAIRS, 3.0)
+        on = call(CFG_COND_PAIRS, 5.0)
+        off = call(NOCFG_COND_PAIRS, 1.0)
+        assert len(sweep.graphs.graphs) == 2 and len(sweep.graphs._statics) == 1
+        cfg_graph, off_graph = sweep.graphs.graphs.values()
+        assert cfg_graph.output.data_ptr() == off_graph.output.data_ptr()
+        assert [a.data_ptr() for a in cfg_graph.inputs] == \
+            [a.data_ptr() for a in off_graph.inputs]
+        kept = on.clone()
+        for pairs, gs in ((NOCFG_COND_PAIRS, 1.0), (CFG_COND_PAIRS, 5.0), (NOCFG_COND_PAIRS, 1.0),
+                          (CFG_COND_PAIRS, 2.0)):
+            got = call(pairs, gs)
+            want = call(pairs, gs, eager=True)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), gs
+        assert torch.equal(off, call(NOCFG_COND_PAIRS, 1.0, eager=True))
+        assert torch.equal(on, kept) and not torch.equal(on, off)
+        assert len(sweep.graphs.graphs) == 2
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_captured_grid_sees_the_weights_it_is_given(cuda):
     """The sample grid's captured loop (``p_sample_loop``, T=10, float32,
     TF32 off): its replays equal the eager body on the model's own weights
@@ -865,8 +905,9 @@ def test_maker_calls_record_warmup_then_capture_and_replay_then_replay(cuda):
 def test_sweep_calls_replay_resident_makers(cuda):
     """Three sweep calls with the same three models (16x16x1, T=10, float32,
     TF32 off, scales 1, 2, 3 and 5) under the span recorder: the first
-    warms up and captures each model's CFG chain once, the next two only
-    replay it at every CFG scale; the third call's metric means equal those
+    warms each model up on its first CFG scale, captures its CFG chain on
+    the second and its CFG-off chain on its one run, so the next two only
+    replay, every chain of them; the third call's metric means equal those
     of a call on freshly built models with the same draws (NaN where
     ``trajectory_mse`` is, on both sides), and the third call reserves no
     more than the second (which reserves a little more than the first,
@@ -906,8 +947,8 @@ def test_sweep_calls_replay_resident_makers(cuda):
             counts.append(n)
             peaks.append(torch.cuda.max_memory_reserved())
         cfg_scales = len(scales) - 1
-        assert counts == [(3, 3, 3 * (cfg_scales - 1)), (0, 0, 3 * cfg_scales),
-                          (0, 0, 3 * cfg_scales)]
+        assert counts == [(3, 6, 3 * (cfg_scales - 1) + 3), (0, 0, 3 * len(scales)),
+                          (0, 0, 3 * len(scales))]
         assert peaks[2] == peaks[1]  # the steady calls reserve nothing more
         np.testing.assert_equal(outs[2], call(*models())[0])  # NaN equals NaN
     finally:

@@ -254,9 +254,9 @@ def test_second_sweep_call_replays_resident_makers(monkeypatch):
     teacher, students = _resident_models(cfg)
     sweep, built, _ = _spied_sweep(monkeypatch)
     first, makers = sweep(teacher, students, cfg)
-    assert len(built) == 3 and makers == {"built": 3, "reused": 0, "eager_once": 3}
+    assert len(built) == 3 and makers == {"built": 3, "reused": 0}
     second, makers = sweep(teacher, students, cfg)
-    assert len(built) == 3 and makers == {"built": 0, "reused": 3, "eager_once": 3}
+    assert len(built) == 3 and makers == {"built": 0, "reused": 3}
     assert second == first
     assert sweep(teacher, students, cfg, base_seed=6)[0] != first
 
@@ -318,9 +318,38 @@ def test_int8_sweep_refolds_weights_changed_in_place(monkeypatch):
         for p in teacher.parameters():
             p.mul_(1.05)
     after, makers = sweep(teacher, students, cfg)
-    assert makers == {"built": 3, "reused": 0, "eager_once": 3} and after != before
+    assert makers == {"built": 3, "reused": 0} and after != before
     fresh = {sf: copy.deepcopy(m) for sf, m in students.items()}
     assert after == sweep(copy.deepcopy(teacher), fresh, cfg)[0]
+
+
+def test_int8_sweep_runs_its_cfg_off_chains_eagerly(monkeypatch):
+    """The int8 makers, built every call and kept by none, run each model's
+    CFG chains through the maker and its CFG-off chain eagerly, in every
+    call; the results equal those of a call whose chains all run through
+    the maker."""
+    from distillation_trajectories_torch.trajectories import engine
+
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4, "sampler_quant": "int8"})
+    teacher, students = _resident_models(cfg)
+    sweep, _, paths = _spied_sweep(monkeypatch)
+    for _ in range(2):
+        paths.clear()
+        got = sweep(teacher, students, cfg)[0]
+        assert sorted((path, cfg_on) for _, path, cfg_on in paths) == (
+            [("eager", False)] * 3 + [("maker", True)] * 6)
+    made = engine._resident_makers
+
+    def kept(*a, **k):
+        makers, built = made(*a, **k)
+        for entry in makers.values():
+            entry.kept = True
+        return makers, built
+
+    monkeypatch.setattr(engine, "_resident_makers", kept)
+    paths.clear()
+    assert sweep(teacher, students, cfg)[0] == got
+    assert {path for _, path, _ in paths} == {"maker"}
 
 
 @pytest.mark.parametrize("quant, built", [("none", 0), ("int8", 3)])
@@ -363,32 +392,56 @@ def test_collected_model_leaves_no_resident_maker(monkeypatch):
     assert not any(r() in engine._RESIDENT for r in refs)
 
 
-def test_chain_run_once_a_call_takes_the_eager_body(monkeypatch):
-    """Two jobs on the same draws share the teacher's chains: each model's
-    CFG-off chain runs once a call and goes to the maker's eager body, its
-    CFG chain runs twice or more and goes through the maker.  A chain an
-    earlier call ran twice (captured on the card) goes through the maker
-    even where this call runs it once."""
+def test_every_sweep_chain_goes_through_its_maker(monkeypatch):
+    """Two jobs on the same draws share the teacher's chains: every chain,
+    the CFG-off chain that runs once a call included, goes through its
+    model's maker (captured on the card), never the eager body, in a first
+    call, in a call of CFG-off chains alone that runs the teacher's twice,
+    and in a call that runs each chain once."""
     cfg = Config(device="cpu", **{**KW, "timesteps": 4})
     teacher, students = _resident_models(cfg)
     sweep, _, paths = _spied_sweep(monkeypatch)
     jobs = [{"students": {sf: m}, "guidance_scales": (1.0, 3.0, 5.0), "num_samples": 2,
              "base_seed": 5, "timesteps": 4} for sf, m in students.items()]
     _, makers = sweep(teacher, None, cfg, jobs=jobs)
-    assert makers == {"built": 3, "reused": 0, "eager_once": 3}
+    assert makers == {"built": 3, "reused": 0}
     assert sorted({(path, cfg_on) for _, path, cfg_on in paths}) == [
-        ("eager", False), ("maker", True)]
+        ("maker", False), ("maker", True)]
     assert len(paths) == 3 * 3  # three scales of three models: the teacher's serve both jobs
     paths.clear()
     twice = [dict(job, guidance_scales=(1.0,), base_seed=seed)
              for job, seed in zip(jobs, (7, 8))]
     _, makers = sweep(teacher, None, cfg, jobs=twice)  # CFG off: the teacher's runs twice
-    assert makers == {"built": 0, "reused": 3, "eager_once": 2}
+    assert makers == {"built": 0, "reused": 3}
     teacher_first = next(teacher.parameters())
     assert sorted((p is teacher_first, path) for p, path, _ in paths) == [
-        (False, "eager"), (False, "eager"), (True, "maker"), (True, "maker")]
+        (False, "maker"), (False, "maker"), (True, "maker"), (True, "maker")]
     paths.clear()
     _, makers = sweep(teacher, None, cfg, jobs=[dict(jobs[0], guidance_scales=(1.0,))])
-    assert makers == {"built": 0, "reused": 2, "eager_once": 1}
+    assert makers == {"built": 0, "reused": 2}
     assert sorted((p is teacher_first, path) for p, path, _ in paths) == [
-        (False, "eager"), (True, "maker")]
+        (False, "maker"), (True, "maker")]
+
+
+@pytest.mark.parametrize("scales", [(1.0, 3.0, 5.0), (3.0, 1.0, 5.0)], ids=["off_first", "mid"])
+def test_sweep_runs_each_models_cfg_chains_before_its_cfg_off_chain(monkeypatch, scales):
+    """Whatever the job's scale order, each model's CFG chains run before
+    its CFG-off chain, the teacher's before the students' at each scale;
+    the results equal those of the job in the order (1.0, 3.0, 5.0), and
+    each returned dict lists the scales in the job's own order."""
+    cfg = Config(device="cpu", **{**KW, "timesteps": 4})
+    teacher, students = _resident_models(cfg)
+    sweep, _, paths = _spied_sweep(monkeypatch)
+    (got,), _ = sweep(teacher, students, cfg, guidance_scales=scales)
+    order = [(p, cfg_on) for p, _, cfg_on in paths]
+    firsts = [next(m.parameters()) for m in (teacher, *students.values())]
+    assert len(order) == 3 * 3 and all(any(p is f for f in firsts) for p, _ in order)
+    for f in firsts:
+        mine = [cfg_on for p, cfg_on in order if p is f]
+        assert mine == [True, True, False]
+    assert [p is firsts[0] for p, _ in order] == [True, False, False] * 3
+    for sf in students:
+        for key in ("teacher_metrics", "student_metrics"):
+            assert list(got[sf][key]) == list(scales)
+    paths.clear()
+    assert got == sweep(teacher, students, cfg, guidance_scales=(1.0, 3.0, 5.0))[0][0]

@@ -11,7 +11,10 @@ bit for bit to the port's public function of the same chain
 (``generate_trajectory_batch_scan``, ``generate_trajectory_scan``,
 ``p_sample_loop``), which the makers no longer route through.  On the CPU
 both entries run the makers' eager body (there are no graphs);
-``tests/test_torch_cuda.py`` holds the captured lane to it on the card."""
+``tests/test_torch_cuda.py`` holds the captured lane to it on the card.
+The captured lane's bookkeeping (warm-ups, captures, the static sets the
+keys of one signature share) runs here on a stand-in graph whose replay
+runs the captured body again."""
 
 import jax
 import numpy as np
@@ -60,6 +63,7 @@ from distillation_trajectories_torch.trajectories import (
 )
 from torch_parity import (  # tmp_path: each test's outputs removed when it ends
     configs,
+    cpu_graphs,
     jax_noises,
     jax_once,
     jax_step_noise,
@@ -355,3 +359,75 @@ def test_successive_calls_share_no_storage(models):
         second = call([3, 4])
         assert first.untyped_storage().data_ptr() != second.untyped_storage().data_ptr(), name
         assert torch.equal(first, kept) and not torch.equal(first, second), name
+
+
+def _chain_makers(models):
+    """``{name: call(cfg_on, gs, batch, eager)}`` of the two engine-chain
+    makers of the student, each capturing (on the stand-in graphs)."""
+    model_fn = make_eval_model_fn(models["student"][1])
+    alphas = get_diffusion_params(T)["alphas"]
+    noises, step_noise = _draws(np.array([3, 11]))
+    noises = torch.from_numpy(noises)
+    batch = sampling.make_batch_chain_fn(model_fn, T, alphas, captures=lambda device: True)
+    chain = sampling.make_chain_fn(model_fn, T, alphas, captures=lambda device: True)
+    return {
+        "batch": (batch, lambda cfg_on, gs, b, eager=False: batch(
+            noises[:b], [3, 11][:b], sampling.CFG_COND_PAIRS if cfg_on else
+            sampling.NOCFG_COND_PAIRS, gs, step_noise=step_noise[:, :b], eager=eager)),
+        "chain": (chain, lambda cfg_on, gs, b, eager=False: chain(
+            noises[:b], 3, gs, use_cfg=cfg_on, step_noise=step_noise[:, :b], eager=eager)),
+    }
+
+
+@pytest.mark.parametrize("name", ["batch", "chain"])
+def test_cfg_and_cfg_off_keys_share_one_static_set(models, cpu_graphs, name):
+    """A maker's CFG key warms its input signature up and is captured on
+    its second call; the CFG-off key of that signature is then captured on
+    its first call, on the same static inputs and output (one static
+    set); every replay equals the eager body, returns storage
+    of its own, and leaves an earlier result as it was.  Another batch
+    size is another signature: its own warm-up and static set."""
+    from distillation_trajectories_torch.utils.profiling import recording
+
+    fn, call = _chain_makers(models)[name]
+    with recording() as rec:
+        call(True, 3.0, 2)
+        call(True, 5.0, 2)
+        off = call(False, 1.0, 2)
+        on = call(True, 3.0, 2)
+        kept = on.clone()
+        again = call(False, 1.0, 2)
+    steps = [s.name for s in sorted(rec.spans, key=lambda s: s.start_ns)
+             if s.name.startswith("graph.")]
+    assert steps == ["graph.warmup", "graph.capture", "graph.replay", "graph.capture",
+                     "graph.replay", "graph.replay", "graph.replay"]
+    assert torch.equal(on, kept) and torch.equal(on, call(True, 3.0, 2, eager=True))
+    assert torch.equal(off, again) and torch.equal(off, call(False, 1.0, 2, eager=True))
+    cfg_graph, off_graph = fn.graphs.graphs.values()
+    assert len(fn.graphs._statics) == 1 and cfg_graph.output is off_graph.output
+    assert [a.data_ptr() for a in cfg_graph.inputs] == [a.data_ptr() for a in off_graph.inputs]
+    ptrs = {t.untyped_storage().data_ptr() for t in (on, off, again, cfg_graph.output)}
+    assert len(ptrs) == 4
+    with recording() as rec:
+        call(False, 1.0, 1)
+        call(True, 3.0, 1)
+    assert [s.name for s in sorted(rec.spans, key=lambda s: s.start_ns)] == [
+        "graph.warmup", "graph.capture", "graph.replay"]
+    assert len(fn.graphs._statics) == 2 and len(fn.graphs.graphs) == 3
+
+
+def test_loop_maker_captures_into_its_static_output(models, cpu_graphs):
+    """The grid's loop maker on the stand-in graphs: warm-up, capture, then
+    replays, each equal to the eager body, its final image copied into
+    the one static set's output and returned as a copy of it."""
+    model = models["student"][1]
+    dp = get_diffusion_params(T)
+    loop = sampling.make_loop_fn(lambda params: make_eval_model_fn(model, params), (2, *SHAPE),
+                                 T, dp, captures=lambda device: True)
+    noise, step_noise = sample_draws(jax.random.PRNGKey(4), (2, *SHAPE), T)
+    outs = [loop(noise, step_noise) for _ in range(3)]
+    want = loop(noise, step_noise, eager=True)
+    assert all(torch.equal(o, want) for o in outs)
+    (graph,) = loop.graphs.graphs.values()
+    assert len(loop.graphs._statics) == 1 and torch.equal(graph.output, want)
+    assert outs[2].untyped_storage().data_ptr() != graph.output.untyped_storage().data_ptr()

@@ -134,8 +134,9 @@ def test_sweep_call_records_draws_and_metrics_inside_it(tmp_path):
     # 16x16x1 is 256 pixels, the Wasserstein subsample's size: no uniforms
     # draw; the starting noise (2 keys) and the step noise (3 steps x 2).
     assert [s.attrs["n"] for s in by_name["draws"]] == [2, 6]
+    # The CFG chains run first, then the CFG-off ones.
     assert [(s.attrs["sf"], s.attrs["gs"]) for s in by_name["sweep.metrics"]] == [
-        (0.1, 1.0), (0.1, 3.0)]
+        (0.1, 3.0), (0.1, 1.0)]
     assert all(_inside(s, call) for s in by_name["draws"] + by_name["sweep.metrics"])
     assert {s.call for s in spans} == {call.id}
     assert not any(s.name.startswith("graph.") for s in spans)  # the CPU captures nothing
@@ -144,8 +145,7 @@ def test_sweep_call_records_draws_and_metrics_inside_it(tmp_path):
 def test_sweep_call_records_its_makers_inside_it(tmp_path):
     """One ``sweep.makers`` span inside each ``sweep.call``: the first call
     builds the teacher's and the student's makers, the second finds both
-    resident; each model's two chains (CFG off and on) run once a call, so
-    go to the eager body."""
+    resident."""
     cfg = Config(base_dir=str(tmp_path), **KW)
     teacher = make_unet(cfg, size_factor=0.2, seed=0, device="cpu")
     job = {"students": {0.1: make_unet(cfg, size_factor=0.1, seed=1, device="cpu")},
@@ -158,8 +158,7 @@ def test_sweep_call_records_its_makers_inside_it(tmp_path):
         assert _inside(makers, call)
         assert makers.end_ns <= min(s.start_ns for s in by_name["sweep.metrics"])
         attrs.append(makers.attrs)
-    assert attrs == [{"built": 2, "reused": 0, "eager_once": 4},
-                     {"built": 0, "reused": 2, "eager_once": 4}]
+    assert attrs == [{"built": 2, "reused": 0}, {"built": 0, "reused": 2}]
 
 
 def test_sweep_records_the_uniforms_draw_past_the_subsample_size(tmp_path):

@@ -1,8 +1,8 @@
 """Shared pieces of the PyTorch-port parity tests: small configs, JAX
 variables carried into port models, a draw source that replays the JAX
-trainers' PRNG key stream into the port's trainers, and the ``tmp_path``
+trainers' PRNG key stream into the port's trainers, the ``tmp_path``
 every port test module imports, which removes what a test wrote once it
-ends."""
+ends, and ``cpu_graphs``, a stand-in for the card's graph capture."""
 
 import contextlib
 import os
@@ -49,6 +49,26 @@ def tmp_path(tmp_path):
     run last."""
     yield tmp_path
     shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+class _Replayed:
+    """A CUDA graph's stand-in on the CPU: a replay runs the captured body
+    again, on the static set it was captured on."""
+
+    def __init__(self, fn):
+        self.replay = fn
+
+
+@pytest.fixture
+def cpu_graphs(monkeypatch):
+    """``utils/graphs.py``'s capture on the CPU: the warm-up runs on the
+    current stream, a capture runs the body once, its replays again."""
+    from distillation_trajectories_torch.utils import graphs
+
+    monkeypatch.setattr(graphs, "on_side_stream", lambda fn, device: fn())
+    monkeypatch.setattr(graphs, "capture",
+                        lambda fn, pool=None, generators=(): (_Replayed(fn), fn()))
+    monkeypatch.setattr(graphs, "sampler_pool", lambda: None)
 
 
 def configs(tmp_path=None, **kw):
