@@ -25,7 +25,15 @@ on first use.  Phases, each printing its own lines:
    sweep's chain maker, called three times (eager, captured, replayed),
    with each forward's adaLN launches checked (one ``ln_modulate`` and
    two ``gate_add_ln_modulate`` a block) and every eager forward's
-   ``dit.forward`` span reading "fused";
+   ``dit.forward`` span reading "fused"; then the adaLN backward kernels
+   (the gated pass with ``∂x'`` and the ungated one) against autograd of
+   the plain compositions at widths 1152, 768 and 384, each with its device
+   time and byte bound; then DiT teacher training, DiT-S/2 and DiT-XL/2 at
+   batch 32 (bf16, DiT's objective, Adam and the EMA), each on the epoch
+   lane (2 eager steps, the capture, replays) and in the per-batch loop,
+   with the four adaLN wrappers' launches checked (57 a DiT-XL/2 step each
+   way), and ``train_teacher`` on DiT-XL/2 (``python3 chip_smoke.py --only
+   dit-train`` runs this part alone);
 3. the sampler with the kernel tail (the kernel launched once a step, the
    plain version never called) against the plain tail on the card
    (float32, TF32 off, sf 0.1, T=10), and a small sweep on the card
@@ -398,6 +406,162 @@ def phase_adaln(card):
                 records.append(dict(name=name, max_abs_err=max_abs, ms=kernel_ms,
                                     bound_ms=bound_ms, bound_by="bytes", library_ms=plain_ms))
     return records
+
+
+def phase_adaln_backward(card):
+    """The adaLN backward kernels at the DiT cell's shapes, each alone: the
+    gated pass with ``∂x'`` (55 of a DiT-XL/2 step's 57 launches) and the
+    ungated one, device time against the byte bound
+    (``h100_bench/yardstick/adaln_bytes.py``'s count), autograd of the plain
+    composition as ``library_ms``, and the gradients' largest relative L2
+    gap to it; returns the DiT-XL/2 width's records."""
+    from distillation_trajectories_torch.ops.adaln import (
+        gate_add_ln_modulate_backward,
+        gate_add_ln_modulate_reference,
+        ln_modulate_backward,
+        ln_modulate_reference,
+    )
+    from h100_bench.yardstick.adaln_bytes import adaln_backward_bytes
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    records = []
+    b, n = ADALN_SAMPLES, ADALN_TOKENS
+    for width in (1152, 768, 384):
+        sets = []
+        for _ in range(3):  # 3 x 281 MB at width 1152: each call misses the 50 MB L2
+            x, y, gate, shift, scale = _adaln_operands(width, gen)
+            xs = x + gate.unsqueeze(1) * y  # x', as the forward writes it
+            dh = torch.randn((b, n, width), device="cuda", generator=gen).bfloat16()
+            dxs = torch.randn((b, n, width), device="cuda", generator=gen)
+            sets.append((x, xs, y, gate, shift, scale, dh, dxs))
+        ring = itertools.cycle(sets)
+
+        def plain_gated(x, xs, y, gate, shift, scale, dh, dxs):
+            leaves = [a.detach().requires_grad_() for a in (x, y, gate, shift, scale)]
+            xo, h = gate_add_ln_modulate_reference(*leaves)
+            return torch.autograd.grad([h.bfloat16(), xo], leaves, [dh, dxs])
+
+        def plain_ln(x, xs, y, gate, shift, scale, dh, dxs):
+            leaves = [a.detach().requires_grad_() for a in (x, shift, scale)]
+            return torch.autograd.grad(ln_modulate_reference(*leaves).bfloat16(), leaves, dh)
+
+        kernels = (
+            ("gate_add_ln_modulate_backward",
+             lambda x, *rest: gate_add_ln_modulate_backward(*rest), plain_gated,
+             adaln_backward_bytes(b, n, width, True, True)),
+            ("ln_modulate_backward",
+             lambda x, xs, y, g, sh, sc, dh, dxs: ln_modulate_backward(x, sh, sc, dh), plain_ln,
+             adaln_backward_bytes(b, n, width, False, False)),
+        )
+        for name, kernel, plain, bytes_moved in kernels:
+            got = [a for a in kernel(*sets[0]) if a is not None]
+            want = plain(*sets[0])
+            torch.cuda.synchronize()
+            gaps = [float((g.float() - w.float()).norm() / w.float().norm())
+                    for g, w in zip(got, want)]
+            if max(gaps) > 2e-3:
+                raise RuntimeError(f"{name} D={width}: gradients {gaps} from autograd's")
+            kernel_ms = device_time_ms(lambda: kernel(*next(ring)), 100)
+            plain_ms = device_time_ms(lambda: plain(*next(ring)), 20)
+            bound_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+            print(f"{name} D={width} [{b * n}, {width}]: kernel_ms={kernel_ms:.5f} "
+                  f"library_ms={plain_ms:.5f} (autograd of the plain composition) "
+                  f"bound_ms={bound_ms:.5f} (bytes {bytes_moved} at 3.35 TB/s) "
+                  f"share_of_bound={bound_ms / kernel_ms:.3f} gradient gaps "
+                  f"{['%.2e' % g for g in gaps]} [{card}]")
+            if width == 1152:
+                records.append(dict(name=name, max_rel_l2_err=max(gaps), ms=kernel_ms,
+                                    bound_ms=bound_ms, bound_by="bytes", library_ms=plain_ms))
+        del sets
+        torch.cuda.empty_cache()
+    return records
+
+
+DIT_TRAIN_BATCHES = 8
+
+
+def phase_dit_train(card):
+    """DiT teacher training on the card: DiT-S/2 and DiT-XL/2 at the cell's
+    batch 32 of 32x32x4 latents (bf16 autocast, DiT's objective, Adam and
+    the EMA at 0.9999), each through ``train_teacher``'s epoch lane for
+    ``DIT_TRAIN_BATCHES`` steps (2 eager, the capture, the replays) and the
+    per-batch loop for as many, with each lane's seconds a step, its
+    launches of the four adaLN wrappers (57 a DiT-XL/2 step each way, the
+    capture's taken back), finite losses and peak memory; then
+    ``train_teacher`` itself on DiT-XL/2 (one epoch of that many batches of
+    the stand-in latents, a 4-sample grid, a checkpoint of model, EMA and
+    Adam written to a temporary directory).  Returns the adaLN launches
+    made ``(forward, forward gated, backward, backward gated)``."""
+    from distillation_trajectories_torch.config import Config
+    from distillation_trajectories_torch.data.datasets import DataLoader
+    from distillation_trajectories_torch.diffusion.vlb import dit_schedule
+    from distillation_trajectories_torch.models import make_model
+    from distillation_trajectories_torch.ops import adaln
+    from distillation_trajectories_torch.training import loop, state as st
+    from distillation_trajectories_torch.training.teacher import train_teacher
+
+    counted = (adaln.ln_modulate, adaln.gate_add_ln_modulate, adaln.ln_modulate_backward,
+               adaln.gate_add_ln_modulate_backward)
+    total = [0, 0, 0, 0]
+    b, steps = ADALN_SAMPLES, DIT_TRAIN_BATCHES
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    latents = torch.randn((b * steps, 32, 32, 4), device="cuda", generator=gen).cpu().numpy()
+    labels = torch.randint(0, 1000, (b * steps,), device="cuda", generator=gen).cpu().numpy()
+    tables = dit_schedule(1000, 1e-4, 0.02)
+    for variant in ("DiT-S/2", "DiT-XL/2"):
+        cfg = Config(device="cuda", image_size=32, channels=4, timesteps=1000, lr=1e-4,
+                     batch_size=b, compute_dtype="bfloat16", architecture="dit")
+        for lane in ("epoch lane", "per-batch loop"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = make_model(cfg, variant, seed=0)
+            depth = len(model.blocks)
+            state = st.create_train_state(model, cfg, st.TorchDraws(1, "cuda"), use_ema=True)
+            loader = DataLoader(latents, labels.astype(np.int32), b, seed=3)
+            scan = lane == "epoch lane"
+            fn = (st.make_dit_teacher_epoch_fn if scan else st.make_dit_teacher_train_step)(
+                tables, 1000, ema_rate=0.9999)
+            data = loop.upload_dataset(loader, "cuda", labels=True) if scan else None
+            before = [c.launches for c in counted]
+            t0 = time.perf_counter()
+            state, losses, n = loop.run_train_epoch(
+                state, train_step=None if scan else fn, loader=loader, config=cfg,
+                device="cuda", progress_desc="", log_label="", log_every=0, use_scan=scan,
+                epoch_fn=fn, dataset_dev=data, reduce_loss=False, labels=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            made = [c.launches - x for c, x in zip(counted, before)]
+            total = [t + m for t, m in zip(total, made)]
+            want = [n, 2 * depth * n, n, 2 * depth * n]
+            print(f"{variant} {lane}: {n} steps of {b} in {wall:.3f} s ({wall / n * 1e3:.1f} ms "
+                  f"a step, capture and builds included), losses {np.round(losses, 4).tolist()}, "
+                  f"adaLN launches fwd/fwd gated/bwd/bwd gated {made} (expected {want}), peak "
+                  f"{torch.cuda.max_memory_reserved() / 2**30:.3f} GiB [{card}]")
+            if made != want or not np.isfinite(losses).all():
+                raise RuntimeError(f"{variant} {lane}: launches {made}, losses {losses}")
+            if scan and fn.captured[0].graph is None:
+                raise RuntimeError(f"{variant}: the epoch lane captured no graph")
+            del model, state, fn, data
+    with tempfile.TemporaryDirectory() as workdir:
+        cfg = Config(device="cuda", base_dir=workdir, architecture="dit",
+                     dataset="imagenet256_latents", image_size=32, channels=4, timesteps=1000,
+                     batch_size=b, epochs=1, limit_batches_per_epoch=steps, use_ema=True,
+                     num_samples_to_generate=4, sample_steps=10, compute_dtype="bfloat16")
+        before = [c.launches for c in counted]
+        t0 = time.perf_counter()
+        state = train_teacher(cfg, seed=0)
+        torch.cuda.synchronize()
+        made = [c.launches - x for c, x in zip(counted, before)]
+        total = [t + m for t, m in zip(total, made)]
+        path = os.path.join(cfg.teacher_models_dir, "model_epoch_1.pt")
+        print(f"train_teacher DiT-XL/2: {state.step} steps, {time.perf_counter() - t0:.1f} s "
+              f"(grid and a {os.path.getsize(path) / 2**30:.2f} GiB checkpoint included), "
+              f"adaLN launches {made} [{card}]")
+        if state.step != steps or made[2:] != [steps, 56 * steps]:
+            raise RuntimeError(f"train_teacher DiT-XL/2: {state.step} steps, launches {made}")
+        del state
+    torch.cuda.empty_cache()
+    return total
 
 
 DIT_T = 10
@@ -3672,13 +3836,25 @@ def main():
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
+    if sys.argv[1:] == ["--only", "dit-train"]:
+        backward_records = phase_adaln_backward(card)
+        print(f"adaLN launches fwd/fwd gated/bwd/bwd gated: {phase_dit_train(card)}")
+        print(json.dumps({"kernels": backward_records}))
+        print(f"chip_smoke --only dit-train: {time.perf_counter() - t_start:.1f} s [{card}]")
+        return 0
 
     t0 = time.perf_counter()
     record = phase_kernel(card)
     adaln_records = phase_adaln(card)
     dit_launches, *adaln_launches = phase_dit(card)
-    for r, n in zip(adaln_records, adaln_launches):
-        r["launches"] = n
+    backward_records = phase_adaln_backward(card)
+    train_launches = phase_dit_train(card)
+    launches_by_name = dict(zip(
+        ("ln_modulate", "gate_add_ln_modulate", "ln_modulate_backward",
+         "gate_add_ln_modulate_backward"),
+        [a + t for a, t in zip(adaln_launches, train_launches)] + train_launches[2:]))
+    for r in adaln_records + backward_records:
+        r["launches"] = launches_by_name[r["name"]]
     print(f"phase kernel: {time.perf_counter() - t0:.1f} s (Triton builds included)")
     t0 = time.perf_counter()
     phase_sampler(card)
@@ -3745,7 +3921,12 @@ def main():
         "source": "distillation_trajectories_torch/ops/adaln_triton.py",
         "replaces": None,
         **r,
-    } for r in adaln_records]}))
+    } for r in adaln_records] + [{
+        "route": "triton",
+        "source": "distillation_trajectories_torch/ops/adaln_triton.py",
+        "replaces": None,
+        **r,
+    } for r in backward_records]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

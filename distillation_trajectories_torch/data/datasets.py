@@ -5,7 +5,9 @@ numpy readers of the raw MNIST idx files and CIFAR-10 python batches under
 JAX package's search order), a bilinear resize to ``config.image_size``,
 scaling to [−1, 1], NHWC float32 batches.  When the dataset files are absent a
 deterministic procedural stand-in is used (logged), bit-identical to the
-JAX package's.  The loader's shuffle stream is the JAX loader's:
+JAX package's.  A DiT trains on VAE latents with their ImageNet classes
+(``dataset="imagenet256_latents"``: :func:`load_latents`, the port's own;
+seeded stand-in latents where the file is absent).  The loader's shuffle stream is the JAX loader's:
 ``shuffle_indices(n, seed * 1_000_003 + epoch)``.
 """
 
@@ -149,9 +151,45 @@ def load_cifar10(data_dir: str, train: bool) -> Optional[Tuple[np.ndarray, np.nd
     return np.concatenate(images), np.concatenate(labels)
 
 
+LATENTS = "imagenet256_latents"
+LATENT_CLASSES = 1000
+
+
+def _synthetic_latents(n: int, size: int, channels: int, seed: int
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """Seeded stand-in latents: N(0, 1) float32 NHWC, roughly the scaled VAE
+    latents' law, and labels uniform over the 1000 classes."""
+    rng = np.random.default_rng(seed)
+    latents = rng.standard_normal((n, size, size, channels), dtype=np.float32)
+    return latents, rng.integers(0, LATENT_CLASSES, size=n).astype(np.int32)
+
+
+def load_latents(config, train: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """VAE latents (float32 NHWC ``[N, image_size, image_size, channels]``,
+    already scaled by the VAE's factor, as DiT's ``extract_features.py``
+    writes them) and their class labels, from
+    ``imagenet256_latents/{train,val}.npz`` (arrays ``latents`` and
+    ``labels``) under ``config.data_dir`` or an extra root; a seeded
+    stand-in (10,000 or 2,000 samples) where the file is absent."""
+    path = _find("train.npz" if train else "val.npz", roots=_roots(config.data_dir, LATENTS))
+    if path is None:
+        print(f"[data] {LATENTS} not found; using seeded stand-in latents")
+        return _synthetic_latents(10000 if train else 2000, config.image_size,
+                                  config.channels, seed=0 if train else 1)
+    with np.load(path) as f:
+        latents, labels = f["latents"].astype(np.float32), f["labels"].astype(np.int32)
+    want = (config.image_size, config.image_size, config.channels)
+    if latents.shape[1:] != want:
+        raise ValueError(f"{path} holds latents {latents.shape[1:]}, the config asks {want}")
+    return latents, labels
+
+
 def load_dataset(config, train: bool = True) -> Tuple[np.ndarray, np.ndarray]:
-    """Images in [−1, 1] float32 NHWC at ``config.image_size``, and labels."""
+    """Images in [−1, 1] float32 NHWC at ``config.image_size``, and labels
+    (latents as stored, for :data:`LATENTS`)."""
     name = config.dataset.lower()
+    if name == LATENTS:
+        return load_latents(config, train)
     if name == "mnist":
         raw = load_mnist(config.data_dir, train)
     elif name == "cifar10":

@@ -12,10 +12,15 @@ classes plus the null class); ``depth`` adaLN-Zero blocks, each
 from ``Linear(SiLU(c))``, LayerNorm without affine at eps 1e-6, multi-head
 attention with a biased qkv and an output projection, and a GELU(tanh) MLP
 of ratio 4; the final adaLN layer and the unpatchify.  ``learn_sigma``
-doubles the output channels; the engine reads the first ``C`` (the
-predicted noise) and leaves the variance half unused, since its update has
-its own sigma.  State-dict names are the published model's, bar
-``pos_embed``, a buffer here (a frozen parameter there).
+doubles the output channels: the samplers read the first ``C`` (the
+predicted noise) and leave the variance half unused, since their update
+has its own sigma; the teacher's train step reads both
+(``forward(..., variance=True)``), as DiT's objective trains the variance.
+Training drops each sample's class to the null class with probability
+``class_dropout_prob`` (0.1; DiT's ``LabelEmbedder.token_drop``), from
+uniforms the step draws (:meth:`DiT.drop_classes`).  State-dict names are
+the published model's, bar ``pos_embed``, a buffer here (a frozen
+parameter there).
 
 The port's own choices: inputs and outputs NHWC, as the U-Net's; bf16
 autocast over float32 weights (the port's compute lane); attention through
@@ -29,9 +34,11 @@ whose ``cond * cond_mask > 0`` takes its label, every other the null
 class.  So the CFG pair (0, 1) / (1, 1) is null against label, and the
 no-CFG row (0, 0) the null class.
 
-The sweep (``trajectories/engine.py::sweep_compare_trajectories_multi``)
-is the one path that runs a DiT; the paths built for the U-Net refuse one
-(:func:`require_unet`).
+Two paths run a DiT: the sweep
+(``trajectories/engine.py::sweep_compare_trajectories_multi``) and the
+teacher's trainer (``training/teacher.py::train_teacher``, its step
+``training/state.py::make_dit_teacher_train_step`` on the epoch lane).
+The other paths built for the U-Net refuse one (:func:`require_unet`).
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ DIT_VARIANTS: Dict[str, Dict[str, int]] = {
 }
 NUM_CLASSES = 1000
 FREQ_DIM = 256
+CLASS_DROPOUT_PROB = 0.1  # DiT models.py: DiT(class_dropout_prob=0.1)
 
 
 def _fused_backends():
@@ -182,28 +190,30 @@ class FinalLayer(nn.Module):
 class DiT(nn.Module):
     """``forward(x [B,H,W,C], t [B], cond [B,1], cond_mask [B,1], labels
     [B])`` returns the predicted noise, float32 ``[B,H,W,C]``, contiguous:
-    the first ``C`` of the ``2C`` output channels under ``learn_sigma``.
-    ``labels`` (int, in ``[0, num_classes)``) are read where
+    the first ``C`` of the ``2C`` output channels under ``learn_sigma``;
+    with ``variance=True`` all ``2C`` (the noise, then the variance
+    interpolation ``v``), as the trainer reads them.  ``labels`` (int, in
+    ``[0, num_classes]``, the last the null class) are read where
     ``cond * cond_mask > 0``; the other samples, and all of them without
     ``labels`` or ``cond``, take the null class.
 
     On CUDA tensors the block's LayerNorm, modulate, gate and residual
-    passes run in the fused kernels of :mod:`..ops.adaln`, which have no
-    backward: a forward on the card runs under ``torch.no_grad()`` (every
-    sampler path does), and one that autograd would record raises.  On CPU
-    tensors they run in their plain versions (:meth:`trunk`).
+    passes run in the fused kernels of :mod:`..ops.adaln`; where autograd
+    records the forward (a train step), their backward is a kernel too.
+    On CPU tensors they run in their plain versions (:meth:`trunk`).
 
     Each eager forward is one ``dit.forward`` span (variant, batch,
-    tokens, heads, head_dim, backends, and ``adaln``: "fused" or "plain");
-    a CUDA-graph replay runs no Python, so records none."""
+    tokens, heads, head_dim, backends, ``adaln``: "fused" or "plain", and
+    ``grad``: whether autograd records it); a CUDA-graph replay runs no
+    Python, so records none."""
 
     architecture = "dit"
 
     def __init__(self, input_size: int = 32, patch_size: int = 2, in_channels: int = 4,
                  hidden_size: int = 1152, depth: int = 28, num_heads: int = 16,
                  mlp_ratio: float = 4.0, num_classes: int = NUM_CLASSES,
-                 learn_sigma: bool = True, dtype: torch.dtype = torch.float32,
-                 variant: Optional[str] = None):
+                 learn_sigma: bool = True, class_dropout_prob: float = CLASS_DROPOUT_PROB,
+                 dtype: torch.dtype = torch.float32, variant: Optional[str] = None):
         super().__init__()
         if input_size % patch_size or hidden_size % num_heads or hidden_size % 4:
             raise ValueError(f"DiT sizes do not fit: input {input_size}, patch {patch_size}, "
@@ -214,6 +224,7 @@ class DiT(nn.Module):
         self.patch_size = patch_size
         self.num_heads = num_heads
         self.num_classes = num_classes
+        self.class_dropout_prob = class_dropout_prob
         self.dtype = dtype
         self.grid = input_size // patch_size
         self.x_embedder = PatchEmbed(patch_size, in_channels, hidden_size)
@@ -236,6 +247,13 @@ class DiT(nn.Module):
             take = take * cond_mask.reshape(b).float()
         return torch.where(take > 0, labels.reshape(b).to(torch.int64), null)
 
+    def drop_classes(self, labels: torch.Tensor, uniforms: torch.Tensor) -> torch.Tensor:
+        """DiT's ``token_drop`` in training: ``labels`` with each sample whose
+        uniform ``u`` (``[B]``, in [0, 1)) is below ``class_dropout_prob``
+        set to the null class."""
+        null = torch.full_like(labels, self.num_classes)
+        return torch.where(uniforms < self.class_dropout_prob, null, labels)
+
     def unpatchify(self, x: torch.Tensor) -> torch.Tensor:
         """``[B, N, p*p*C']`` -> NHWC ``[B, H, W, C']``."""
         b, g, p, c = x.shape[0], self.grid, self.patch_size, self.out_channels
@@ -249,7 +267,7 @@ class DiT(nn.Module):
         ``c`` alone), so that each seam, attention to MLP and one block's
         end to the next normalisation, is one gated add joined to the next
         LayerNorm and modulate (:mod:`..ops.adaln`, which updates ``x`` in
-        place)."""
+        place where autograd does not record it)."""
         mods = [block.adaLN_modulation(c).chunk(6, dim=1) for block in self.blocks]
         final = self.final_layer.adaLN_modulation(c).chunk(2, dim=1)
         h = ln_modulate(x, *mods[0][:2])
@@ -263,19 +281,22 @@ class DiT(nn.Module):
             x, h = gate_add_ln_modulate(x, h, gate2, shift, scale)
         return self.final_layer.linear(h)
 
-    def forward(self, x, t, cond=None, cond_mask=None, labels=None):
+    def forward(self, x, t, cond=None, cond_mask=None, labels=None, variance: bool = False):
         b = x.shape[0]
         if t.ndim > 1:
             t = t.reshape(b, -1)[:, 0]
         y = self.classes(cond, cond_mask, labels, b, x.device)
         with span("dit.forward", variant=self.variant, batch=b, tokens=self.grid ** 2,
                   heads=self.num_heads, head_dim=self.blocks[0].attn.head_dim,
-                  backends=FUSED_SDPA, adaln="fused" if x.is_cuda else "plain"), \
+                  backends=FUSED_SDPA, adaln="fused" if x.is_cuda else "plain",
+                  grad=torch.is_grad_enabled()), \
                 torch.autocast(device_type=x.device.type, dtype=self.dtype,
                                enabled=self.dtype != torch.float32, cache_enabled=False):
             h = self.x_embedder(x.permute(0, 3, 1, 2)) + self.pos_embed
             c = self.t_embedder(t) + self.y_embedder(y)
             out = self.unpatchify(self.trunk(h.contiguous(), c))
+        if variance:
+            return out.float().contiguous()
         return out[..., : self.in_channels].float().contiguous()
 
 

@@ -144,9 +144,12 @@ def shard_params(model: torch.nn.Module, mesh) -> torch.nn.Module:
 def shard_train_state(state, mesh):
     """Shard a :class:`..training.state.TrainState`: its model's sharded
     leaves, the matching slices of its Adam moments and EMA, and a new
-    optimizer over the local parameters.  ``state.mesh`` becomes ``mesh``."""
+    optimizer over the local parameters.  ``state.mesh`` becomes ``mesh``.
+    A DiT's state raises (``ValueError``), as :func:`shard_params` does."""
+    from ..models.dit import require_unet
     from .collectives import shard_train_state as _shard
 
+    require_unet(state.model, "the mesh lane")
     return _shard(state, mesh)
 
 

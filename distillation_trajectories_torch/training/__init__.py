@@ -5,6 +5,8 @@ from .state import (
     TorchDraws,
     TrainState,
     create_train_state,
+    make_dit_teacher_epoch_fn,
+    make_dit_teacher_train_step,
     make_distill_train_step,
     make_eval_fn_from_config,
     make_eval_model_fn,
@@ -22,6 +24,7 @@ from .checkpoints import (
     load_checkpoint_sharded,
     save_checkpoint,
     save_checkpoint_sharded,
+    save_dit_checkpoint,
     sharded_checkpoint_path,
     variables_from_checkpoint,
 )

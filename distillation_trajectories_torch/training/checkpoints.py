@@ -238,13 +238,41 @@ def save_checkpoint(directory: str, epoch: int, model: torch.nn.Module,
     return path
 
 
+def save_dit_checkpoint(directory: str, epoch: int, model: torch.nn.Module,
+                        optimizer: Optional[torch.optim.Optimizer] = None,
+                        ema: Optional[Dict[str, torch.Tensor]] = None) -> str:
+    """Write ``{directory}/model_epoch_{epoch}.pt``, a DiT's checkpoint as
+    facebookresearch/DiT's ``train.py`` writes one (``torch.save`` of
+    ``{"model", "ema", "opt"}``, here with ``"epoch"``), every tensor on
+    the host.  The JAX package has no DiT, so no msgpack tree of its layout
+    exists for one; :func:`available_epochs` finds the file."""
+    host = lambda tree: {k: (v.detach().cpu() if torch.is_tensor(v) else host(v)
+                             if isinstance(v, dict) else v) for k, v in tree.items()}
+    payload = {"epoch": epoch, "model": host(model.state_dict())}
+    if ema is not None:
+        payload["ema"] = host(ema)
+    if optimizer is not None:
+        opt = optimizer.state_dict()
+        payload["opt"] = {"state": {k: host(v) for k, v in opt["state"].items()},
+                          "param_groups": opt["param_groups"]}
+    path = os.path.join(directory, f"model_epoch_{epoch}.pt")
+    if is_main_process():
+        os.makedirs(directory, exist_ok=True)
+        torch.save(payload, path + ".tmp")
+        os.replace(path + ".tmp", path)
+    return path
+
+
 def save_epoch(writer, config, directory: str, epoch: int, model: torch.nn.Module,
                optimizer: Optional[torch.optim.Optimizer] = None,
                ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
-    """A trainer's checkpoint of ``epoch``: the sharded lane when
+    """A trainer's checkpoint of ``epoch``: a DiT's
+    :func:`save_dit_checkpoint`; the sharded lane when
     ``config.checkpoint_sharded`` (every rank writes its shards, now),
     else ``writer``'s async msgpack save."""
-    if config.checkpoint_sharded:
+    if getattr(model, "architecture", "unet") == "dit":
+        save_dit_checkpoint(directory, epoch, model, optimizer=optimizer, ema=ema)
+    elif config.checkpoint_sharded:
         save_checkpoint_sharded(directory, epoch, model, optimizer=optimizer, ema=ema)
     else:
         writer.save(directory, epoch, model, optimizer=optimizer, ema=ema)

@@ -39,13 +39,18 @@ def progress_iter(loader, desc, config):
     )
 
 
-def upload_dataset(loader, device) -> torch.Tensor:
+def upload_dataset(loader, device, labels: bool = False):
     """The loader's whole image set ``[N, H, W, C]`` float32 on ``device``,
-    for the epoch lane (uploaded once, waited for)."""
+    for the epoch lane (uploaded once, waited for); with ``labels`` (for a
+    class-conditional step) the pair ``(images, labels)``, the labels int64
+    ``[N]``."""
     images = torch.from_numpy(loader.images).to(device)
+    out = images
+    if labels:
+        out = (images, torch.from_numpy(np.asarray(loader.labels, dtype=np.int64)).to(device))
     if images.device.type == "cuda":
         torch.cuda.synchronize(images.device)
-    return images
+    return out
 
 
 def run_train_epoch(
@@ -63,12 +68,14 @@ def run_train_epoch(
     epoch_fn=None,
     dataset_dev=None,
     reduce_loss: bool = True,
+    labels: bool = False,
 ):
     """Run one epoch; returns ``(state, avg_loss, n_batches)``.
 
     Per-batch lane: ``train_step(state, images) -> (state, loss)`` on each
-    batch of ``loader``, with a running-loss print (or tqdm postfix) every
-    ``log_every`` batches.  Epoch lane (``use_scan``): one
+    batch of ``loader`` (with ``labels``, for a class-conditional step,
+    ``train_step(state, (images, labels))``), with a running-loss print (or
+    tqdm postfix) every ``log_every`` batches.  Epoch lane (``use_scan``): one
     ``epoch_fn(state, dataset_dev, idx) -> (state, losses)`` over the
     epoch's indices from ``loader.epoch_indices``.  ``reduce_loss=False``
     returns the fetched per-step losses (``[n_batches]``, or the student
@@ -89,7 +96,7 @@ def run_train_epoch(
     progress = progress_iter(loader, progress_desc, config)
     batches = iter(progress)
     try:
-        for batch_idx, (images, _) in enumerate(batches):
+        for batch_idx, (images, classes) in enumerate(batches):
             if (
                 config.limit_batches_per_epoch is not None
                 and batch_idx >= config.limit_batches_per_epoch
@@ -99,6 +106,8 @@ def run_train_epoch(
             if state.mesh is not None:
                 images = shard_batch(images, state.mesh)
             images = images.to(device)
+            if labels:
+                images = (images, torch.from_numpy(np.asarray(classes, dtype=np.int64)).to(device))
             state, loss = train_step(state, images)
             losses.append(loss)
             if log_every and (batch_idx + 1) % log_every == 0:

@@ -22,6 +22,12 @@ for every batch (the counterpart of JAX's one ``lax.scan`` dispatch); on
 the CPU the same body runs eagerly.  Same-architecture students train as one step over a member
 axis: each member's step on its row of the stacked weights, one backward
 and one Adam step for the group.
+
+A DiT teacher (``models/dit.py``) trains with DiT's own objective
+(:func:`make_dit_teacher_train_step`: class dropout, the ε-MSE and the
+variational bound of its learned variance, ``diffusion/vlb.py``) on
+latents and their class labels, which the epoch lane gathers together by
+each batch's index row; the U-Net's steps and lanes are as they were.
 """
 
 from __future__ import annotations
@@ -35,7 +41,9 @@ import torch
 
 from ..diffusion.process import q_sample
 from ..diffusion.schedules import schedule_on
+from ..diffusion.vlb import hybrid_terms
 from ..models.dit import require_unet
+from ..ops import COUNTED
 from ..parallel.collectives import all_reduce_, mean_gradients
 from ..parallel.mesh import DATA_AXIS, axis_group, axis_size, shard_batch
 from ..utils.graphs import capture, on_side_stream
@@ -51,16 +59,19 @@ class StepDraws:
     noises: Tuple[torch.Tensor, ...]  # two for the teacher step, one for distillation
     generator: Optional[torch.Generator] = None  # dropout masks; None: global generator
     w: Optional[torch.Tensor] = None  # [B, 1] guidance scales of guided progressive steps
+    drop: Optional[torch.Tensor] = None  # [B] uniforms of a DiT step's class dropout
 
 
 class TorchDraws:
     """The port's default draw source for one trainer run.
 
-    ``init_unet`` initialises a model from ``seed`` (see
-    :func:`..models.make_unet`); the step and sample draws come, in call
-    order, from one ``torch.Generator`` on ``device`` seeded from ``seed``,
-    which also draws the dropout masks.  A source that replays another
-    stream implements the same methods.
+    ``init_unet`` initialises a U-Net of a size factor from ``seed`` (see
+    :func:`..models.make_unet`), ``init_model`` the teacher
+    ``Config.architecture`` names (:func:`..models.make_model`: the U-Net
+    at size factor 1.0 or DiT-XL/2); the step
+    and sample draws come, in call order, from one ``torch.Generator`` on
+    ``device`` seeded from ``seed``, which also draws the dropout masks.  A
+    source that replays another stream implements the same methods.
     """
 
     def __init__(self, seed: int, device):
@@ -73,6 +84,11 @@ class TorchDraws:
 
         return make_unet(config, size_factor=size_factor, device=self.device, seed=self.seed)
 
+    def init_model(self, config) -> torch.nn.Module:
+        from ..models import make_model
+
+        return make_model(config, device=self.device, seed=self.seed)
+
     def _normal(self, shape, dtype=torch.float32) -> torch.Tensor:
         return torch.randn(shape, generator=self.generator, device=self.device, dtype=dtype)
 
@@ -84,6 +100,15 @@ class TorchDraws:
         t = self._t(images.shape[0], timesteps)
         noises = (self._normal(images.shape, images.dtype), self._normal(images.shape, images.dtype))
         return StepDraws(t, noises, self.generator)
+
+    def dit_teacher_step(self, latents: torch.Tensor, timesteps: int) -> StepDraws:
+        """A DiT teacher step's draws, in this order: ``t ~ U{0..T-1}``
+        ``[B]``, the noise ``ε`` (the latents' shape) and the class
+        dropout's uniforms ``[B]``."""
+        t = self._t(latents.shape[0], timesteps)
+        noise = self._normal(latents.shape, latents.dtype)
+        u = torch.rand((latents.shape[0],), generator=self.generator, device=self.device)
+        return StepDraws(t, (noise,), self.generator, drop=u)
 
     def distill_step(self, images: torch.Tensor, timesteps: int) -> StepDraws:
         t = self._t(images.shape[0], timesteps)
@@ -135,7 +160,8 @@ def make_optimizer(model, config) -> torch.optim.Adam:
 
 
 def create_train_state(model: torch.nn.Module, config, draws, use_ema: bool = False) -> TrainState:
-    require_unet(model, "the trainers")
+    """A model's :class:`TrainState`: Adam (:func:`make_optimizer`) and, with
+    ``use_ema``, its EMA starting at the weights.  A U-Net or a DiT."""
     ema = None
     if use_ema:
         ema = {k: p.detach().clone() for k, p in model.named_parameters()}
@@ -219,7 +245,7 @@ def _step_draws(state: TrainState, draws: Optional[StepDraws], images: torch.Ten
         draws = make(images.new_empty((images.shape[0] * d, *images.shape[1:]), device="meta"))
     rows = lambda v: None if v is None else shard_batch(v, state.mesh)
     return StepDraws(rows(draws.t), tuple(rows(n) for n in draws.noises), draws.generator,
-                     rows(draws.w))
+                     rows(draws.w), rows(draws.drop))
 
 
 def _global_loss(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
@@ -287,6 +313,46 @@ def _teacher_body(diffusion_params, timesteps: int, ema_rate: Optional[float]) -
         x2, n2 = q_sample(images, draws.t, dp, noise=draws.noises[1])
         loss_uncond = _mse(model(x2, draws.t, zeros, zeros, generator=draws.generator), n2)
         loss = (loss_cond + loss_uncond) / 2.0
+        _update(state, loss, ema_rate)
+        return _global_loss(state, loss)
+
+    return body
+
+
+def make_dit_teacher_train_step(tables, timesteps: int, ema_rate: Optional[float] = None):
+    """DiT teacher step (facebookresearch/DiT ``train.py``): each sample's
+    class dropped to the null class with the model's
+    ``class_dropout_prob``, ``t`` and ``ε`` drawn, the latents noised to
+    ``t``, one train forward giving both output halves, loss = the batch
+    mean of ``mse + vb`` (:func:`..diffusion.vlb.hybrid_terms` on
+    ``tables``, :func:`..diffusion.vlb.dit_schedule`'s), then Adam and the
+    EMA.  The draws come from ``state.draws.dit_teacher_step`` (``t``,
+    ``ε``, the dropout's uniforms, in that order).  Returns ``step(state,
+    (latents, labels), draws=None) -> (state, loss)``
+    (``loop.run_train_epoch(..., labels=True)`` hands it the pair)."""
+    return _counted(_dit_teacher_body(tables, timesteps, ema_rate))
+
+
+def _dit_teacher_body(tables, timesteps: int, ema_rate: Optional[float]) -> Callable:
+    """The DiT teacher step's body ``(state, (latents, labels), draws) ->
+    loss``, shared by the per-batch step and the epoch lane.  The loss
+    (after the forward, which has its own span) is one ``dit.loss`` span
+    (``terms``, ``batch``) in an eager step."""
+    schedules: Dict[torch.device, Dict] = {}
+
+    def body(state: TrainState, batch, draws: Optional[StepDraws]):
+        latents, labels = batch
+        draws = _step_draws(state, draws, latents,
+                            lambda like: state.draws.dit_teacher_step(like, timesteps))
+        tab = _schedule(schedules, tables, latents.device)
+        model = state.model.train()
+        ones = latents.new_ones((latents.shape[0], 1))
+        x_t, noise = q_sample(latents, draws.t, tab, noise=draws.noises[0])
+        out = model(x_t, draws.t, ones, ones, labels=model.drop_classes(labels, draws.drop),
+                    variance=True)
+        with span("dit.loss", terms="mse+vb", batch=latents.shape[0]):
+            mse, vb = hybrid_terms(out, latents, x_t, draws.t, noise, tab)
+            loss = (mse + vb).mean()
         _update(state, loss, ema_rate)
         return _global_loss(state, loss)
 
@@ -367,25 +433,43 @@ def _draw_generators(state) -> List[torch.Generator]:
     return gens
 
 
+def _gather(dataset, rows: torch.Tensor):
+    """The batch of ``rows`` of a device dataset: the images, or, for a
+    dataset ``(images, labels)``, both gathered by the same row."""
+    if isinstance(dataset, torch.Tensor):
+        return dataset.index_select(0, rows)
+    return tuple(d.index_select(0, rows) for d in dataset)
+
+
+def _dataset_device(dataset) -> torch.device:
+    return (dataset if isinstance(dataset, torch.Tensor) else dataset[0]).device
+
+
 class _CapturedStep:
     """One state's step over one device dataset at one ``[n_batches, B]``
     index shape, captured into a CUDA graph after its warm-up steps.
 
     The graph reads its batch's index row from ``idx`` at the device
-    counter ``i``, gathers the images from the dataset, runs the step body
-    and writes the loss into row ``i`` of ``losses``, then advances
-    ``i``: one ``replay()`` per batch and nothing else from the host.
-    Spans (:func:`..utils.profiling.span`): ``epoch.warmup`` an eager step
-    (attribute ``batch``), ``epoch.capture``, and one ``epoch.replay`` over
-    an epoch's replays (``batches``), not one a replay."""
+    counter ``i``, gathers the batch from the dataset (the images, or the
+    images and their labels by the same row), runs the step body and
+    writes the loss into row ``i`` of ``losses``, then advances ``i``: one
+    ``replay()`` per batch and nothing else from the host.  The launches
+    of the counted kernel wrappers (``ops.COUNTED``) that the capture
+    recorded are taken back and added again at each replay, so the counts
+    stay the device's.  Spans (:func:`..utils.profiling.span`):
+    ``epoch.warmup`` an eager step (attribute ``batch``),
+    ``epoch.capture``, and one ``epoch.replay`` over an epoch's replays
+    (``batches``), not one a replay."""
 
-    def __init__(self, state, dataset: torch.Tensor, idx: torch.Tensor):
+    def __init__(self, state, dataset, idx: torch.Tensor):
         self.state, self.dataset = state, dataset
+        self.device = _dataset_device(dataset)
         self.idx = idx.clone()
-        self.i = torch.zeros((), dtype=torch.int64, device=dataset.device)
+        self.i = torch.zeros((), dtype=torch.int64, device=self.device)
         self.losses = None  # [n_batches, *loss shape], from the first step
         self.warm = 0  # eager steps taken
         self.graph = None
+        self.launches = ()  # (wrapper, launches a replay) of the captured graph
 
     def matches(self, state, dataset, idx) -> bool:
         return self.state is state and self.dataset is dataset and self.idx.shape == idx.shape
@@ -395,25 +479,33 @@ class _CapturedStep:
         want before a capture)."""
 
         def step():
-            loss = body(self.state, self.dataset.index_select(0, self.idx[i]))
+            loss = body(self.state, _gather(self.dataset, self.idx[i]))
             if self.losses is None:
                 self.losses = loss.new_zeros((self.idx.shape[0], *loss.shape))
             self.losses[i].copy_(loss)
 
         with span("epoch.warmup", batch=i):
-            on_side_stream(step, self.dataset.device)
+            on_side_stream(step, self.device)
         self.state.step += 1
         self.warm += 1
 
     def capture(self, body) -> None:
         def step():
             at = self.i.view(1)
-            loss = body(self.state, self.dataset.index_select(0, self.idx.index_select(0, at)[0]))
+            loss = body(self.state, _gather(self.dataset, self.idx.index_select(0, at)[0]))
             self.losses.index_copy_(0, at, loss.unsqueeze(0))
             self.i.add_(1)
 
-        with span("epoch.capture"):
-            self.graph, _ = capture(step, generators=_draw_generators(self.state))
+        before = [c.launches for c in COUNTED]
+        try:
+            with span("epoch.capture"):
+                self.graph, _ = capture(step, generators=_draw_generators(self.state))
+        finally:
+            # The capture recorded these launches; the replays make them.
+            self.launches = tuple((c, c.launches - b) for c, b in zip(COUNTED, before)
+                                  if c.launches != b)
+            for c, b in zip(COUNTED, before):
+                c.launches = b
 
     def run(self, body, idx: torch.Tensor) -> torch.Tensor:
         """One epoch over ``idx``: warm-up steps while any are due, the
@@ -431,26 +523,31 @@ class _CapturedStep:
             for _ in range(i, n):
                 self.graph.replay()
                 self.state.step += 1
+        for c, made in self.launches:
+            c.launches += made * (n - i)
         return self.losses.clone()
 
 
 def _epoch_fn(body: Callable) -> Callable:
     """``epoch(state, dataset, idx) -> (state, losses)``: ``body(state,
-    images, draws=None) -> loss`` for each row of ``idx`` (``[n_batches,
+    batch, draws=None) -> loss`` for each row of ``idx`` (``[n_batches,
     B]``, as ``DataLoader.epoch_indices`` gives it) on the rows of
-    ``dataset`` (``[N, H, W, C]`` float32 on the device) it names, with
-    ``losses`` ``[n_batches, *loss shape]`` on the device.  On CUDA the
-    step is captured once (:class:`_CapturedStep`) and replayed; a capture
-    or replay that fails raises."""
+    ``dataset`` it names, with ``losses`` ``[n_batches, *loss shape]`` on
+    the device.  ``dataset`` is ``[N, H, W, C]`` float32 on the device, or,
+    for a class-conditional step, ``(images, labels)`` on the device
+    (``loop.upload_dataset(..., labels=True)``), each batch both gathered by
+    its row.  On CUDA the step is captured once (:class:`_CapturedStep`)
+    and replayed; a capture or replay that fails raises."""
     captured: List[_CapturedStep] = []
-    step = lambda state, images: body(state, images, None)
+    step = lambda state, batch: body(state, batch, None)
 
-    def epoch(state, dataset: torch.Tensor, idx):
-        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(dataset.device)
-        if dataset.device.type != "cuda":
+    def epoch(state, dataset, idx):
+        device = _dataset_device(dataset)
+        idx = torch.as_tensor(np.asarray(idx), dtype=torch.int64).to(device)
+        if device.type != "cuda":
             losses = []
             for row in idx:
-                losses.append(step(state, dataset.index_select(0, row)))
+                losses.append(step(state, _gather(dataset, row)))
                 state.step += 1
             return state, torch.stack(losses)
         if not (captured and captured[0].matches(state, dataset, idx)):
@@ -468,6 +565,15 @@ def make_teacher_epoch_fn(diffusion_params, timesteps: int, ema_rate: Optional[f
     with its draws from ``state.draws`` in the per-batch loop's order, so
     one seed gives the loop's batches, draws, losses and weights."""
     return _epoch_fn(_teacher_body(diffusion_params, timesteps, ema_rate))
+
+
+def make_dit_teacher_epoch_fn(tables, timesteps: int, ema_rate: Optional[float] = None):
+    """The DiT teacher's epoch lane: ``epoch(state, (latents, labels), idx)
+    -> (state, losses)`` (the dataset from ``loop.upload_dataset(...,
+    labels=True)``) runs the step of :func:`make_dit_teacher_train_step` on
+    each batch, latents and labels gathered by the same row of ``idx``, with
+    its draws from ``state.draws`` in the per-batch loop's order."""
+    return _epoch_fn(_dit_teacher_body(tables, timesteps, ema_rate))
 
 
 def make_distill_epoch_fn(teacher_model: torch.nn.Module, teacher_diffusion_params,

@@ -13,6 +13,16 @@ the last, and each save also writes a sample grid
 ``Config.mesh_shape`` the state is sharded over the ``(data, model)`` mesh
 (``parallel.shard_train_state``); every rank samples the grid, rank 0
 alone writes files, and the others wait for it at the end.
+
+With ``Config.architecture="dit"`` the teacher is DiT-XL/2, built by
+``models.make_model`` (through the draw source's ``init_model``), trained on VAE latents and their classes
+(``Config.dataset="imagenet256_latents"``) with DiT's objective
+(``state.make_dit_teacher_epoch_fn``: class dropout, ε-MSE plus the
+variational bound), the labels riding the epoch lane beside the latents;
+its checkpoints are DiT's own ``torch.save`` payload
+(``checkpoints.save_dit_checkpoint``), and its grid's classes come from
+the seed, each sample's as the sweep draws them.  The mesh lane runs the
+U-Net only.
 """
 
 from __future__ import annotations
@@ -23,7 +33,9 @@ import time
 from ..config import resolve_device
 from ..data import get_data_loader
 from ..diffusion import get_diffusion_params, subsampled_timestep_indices
-from ..diffusion.sampling import make_loop_fn
+from ..diffusion.sampling import make_loop_fn, sample_labels
+from ..diffusion.vlb import dit_schedule
+from ..models.dit import require_unet
 from ..parallel.distributed import barrier, is_main_process
 from ..parallel.mesh import mesh_from_config, shard_train_state
 from ..utils.profiling import MetricsLogger
@@ -35,18 +47,21 @@ from .state import (
     TorchDraws,
     create_train_state,
     epoch_scan_enabled,
+    make_dit_teacher_epoch_fn,
+    make_dit_teacher_train_step,
     make_eval_model_fn,
     make_teacher_epoch_fn,
     make_teacher_train_step,
 )
 
 
-def make_grid_fn(model, config, diffusion_params, sample_steps=None):
+def make_grid_fn(model, config, diffusion_params, sample_steps=None, labels=None):
     """``grid_fn(noise, step_noise, params=None) -> samples``: the
     ``config.num_samples_to_generate``-image sample grid of ``model`` (or
     of ``params``, e.g. EMA weights) by ``p_sample_loop`` in
-    ``config.sample_mode``.  ``grid_fn.shape`` and ``grid_fn.n_steps`` give
-    the draws it takes.  The counterpart of JAX's jitted grid, which takes
+    ``config.sample_mode``, a class-conditional model's samples of the
+    classes ``labels`` (``[n]`` on the device).  ``grid_fn.shape`` and
+    ``grid_fn.n_steps`` give the draws it takes.  The counterpart of JAX's jitted grid, which takes
     the variables as arguments: on the card (a model not sharded over a
     mesh) its loop is captured on the second call and replayed, with the
     weights given (or the model's own, which training changes in place)
@@ -54,8 +69,15 @@ def make_grid_fn(model, config, diffusion_params, sample_steps=None):
     sample_steps = config.sample_steps if sample_steps is None else sample_steps
     shape = (config.num_samples_to_generate, config.image_size, config.image_size,
              config.channels)
+
+    def model_fn(params):
+        forward = make_eval_model_fn(model, params)
+        if labels is None:
+            return forward
+        return lambda x, t, cond=None, cond_mask=None: forward(x, t, cond, cond_mask, labels)
+
     loop = make_loop_fn(
-        lambda params: make_eval_model_fn(model, params), shape, sample_steps,
+        model_fn, shape, sample_steps,
         diffusion_params, num_timesteps=config.timesteps, mode=config.sample_mode,
         captures=lambda device: sampler_lane_captures(device, model))
 
@@ -75,6 +97,8 @@ def save_grid(grid_fn, draws, path, config, params=None) -> None:
     noise, step_noise = draws.sample(grid_fn.shape, grid_fn.n_steps)
     if config.num_samples_to_generate > 0:
         samples = grid_fn(noise, step_noise, params)
+        if getattr(config, "architecture", "unet") == "dit":
+            samples = samples[..., :3]  # latents without a VAE: their first three channels
         if is_main_process():
             save_image_grid(samples, path, nrow=config.samples_grid_size,
                             figsize=config.samples_figure_size)
@@ -91,7 +115,8 @@ def generate_sample_grid(model, config, diffusion_params, draws, path) -> None:
 
 
 def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
-    """Train the teacher (size_factor=1.0) on ``config.device``.
+    """Train the teacher on ``config.device``: the U-Net at size factor
+    1.0, or, with ``config.architecture="dit"``, DiT-XL/2.
 
     ``draws`` is a factory ``(seed, device) -> draw source`` (default
     :class:`..state.TorchDraws`), which initialises the model and supplies
@@ -101,7 +126,14 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     device = resolve_device(config.device)
     source = (draws or TorchDraws)(seed, device)
     diffusion_params = get_diffusion_params(config.timesteps, config)
-    model = source.init_unet(config, 1.0)
+    dit = getattr(config, "architecture", "unet") == "dit"
+    if dit and tuple(config.mesh_shape) != (1, 1):
+        require_unet(config, "the mesh lane")
+    model = source.init_model(config)
+    grid_labels = None
+    if dit:
+        n = config.num_samples_to_generate
+        grid_labels = sample_labels([seed + i for i in range(n)], model.num_classes, device)
     state = create_train_state(model, config, source, use_ema=config.use_ema)
     mesh = mesh_from_config(config)
     if mesh is not None:
@@ -110,16 +142,21 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
     ema_rate = config.ema_rate if config.use_ema else None
     use_scan = epoch_scan_enabled(config, mesh)
     train_step = epoch_fn = dataset_dev = None
-    if use_scan:
-        epoch_fn = make_teacher_epoch_fn(diffusion_params, config.timesteps, ema_rate=ema_rate)
+    if dit:
+        tables = dit_schedule(config.timesteps, config.beta_start, config.beta_end)
+        make_epoch, make_step = make_dit_teacher_epoch_fn, make_dit_teacher_train_step
     else:
-        train_step = make_teacher_train_step(diffusion_params, config.timesteps,
-                                             ema_rate=ema_rate)
-    grid_fn = make_grid_fn(model, config, diffusion_params)
+        tables, make_epoch, make_step = diffusion_params, make_teacher_epoch_fn, \
+            make_teacher_train_step
+    if use_scan:
+        epoch_fn = make_epoch(tables, config.timesteps, ema_rate=ema_rate)
+    else:
+        train_step = make_step(tables, config.timesteps, ema_rate=ema_rate)
+    grid_fn = make_grid_fn(model, config, diffusion_params, labels=grid_labels)
 
     loader = get_data_loader(config, seed=seed)
     if use_scan:
-        dataset_dev = upload_dataset(loader, device)
+        dataset_dev = upload_dataset(loader, device, labels=dit)
     print(f"[teacher] dataset={config.dataset} size={config.image_size} "
           f"batches/epoch={len(loader)} epochs={config.epochs}")
     metrics_log = MetricsLogger(os.path.join(config.results_dir, "teacher_metrics.jsonl"))
@@ -140,6 +177,7 @@ def train_teacher(config, seed: int = 0, log_every: int = 50, draws=None):
                 use_scan=use_scan,
                 epoch_fn=epoch_fn,
                 dataset_dev=dataset_dev,
+                labels=dit,
             )
             dt = time.time() - t0
             print(f"[teacher] epoch {epoch + 1}/{config.epochs} "

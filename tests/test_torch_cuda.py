@@ -742,8 +742,9 @@ def test_captured_chain_replays_the_eager_chain(cuda):
             assert not plain
         (graph,) = sweep.graphs.graphs.values()
         # A replay's launches of each counted wrapper: the CFG update's 9, and
-        # none of the DiT's adaLN kernels in a U-Net chain.
-        assert isinstance(graph.graph, torch.cuda.CUDAGraph) and graph.launches == [9, 0, 0]
+        # none of the DiT's adaLN kernels, forward or backward, in a U-Net chain.
+        assert isinstance(graph.graph, torch.cuda.CUDAGraph) and \
+            graph.launches == [9, 0, 0, 0, 0]
         assert torch.equal(first, sweep(noises, seeds, CFG_COND_PAIRS, 3.0,
                                         step_noise=step_noise, eager=True))
         assert first.untyped_storage().data_ptr() != got.untyped_storage().data_ptr()
@@ -871,7 +872,7 @@ def test_bench_chain_maker_replays_its_eager_body(cuda):
                     assert made == 9 and torch.equal(got, want), (name, g)
                 (graph,) = chain.graphs.graphs.values()
                 assert isinstance(graph.graph, torch.cuda.CUDAGraph) and \
-                    graph.launches == [9, 0, 0]  # the CFG update's; no adaLN kernel
+                    graph.launches == [9, 0, 0, 0, 0]  # the CFG update's; no adaLN kernel
             assert not plain
         a, b = (call("guided", chains["guided"][0], g) for g in (2.0, 4.5))
         assert not torch.equal(a, b)  # each replay read w where it was set
@@ -1192,11 +1193,14 @@ def test_adaln_kernel_matches_its_plain_composition(cuda, gated, width, b, n, lo
 
 
 def _bad_adaln_calls(cuda):
-    from distillation_trajectories_torch.ops.adaln import gate_add_ln_modulate, ln_modulate
+    from distillation_trajectories_torch.ops.adaln import (
+        gate_add_ln_modulate,
+        gate_add_ln_modulate_backward,
+        ln_modulate,
+    )
 
     x, y, gate, shift, scale = _adaln_operands(cuda, 384, 2, 16, torch.bfloat16)
     wide = _adaln_operands(cuda, 2064, 2, 16, torch.bfloat16)
-    leaf = x.clone().requires_grad_()
     col_strided = torch.randn((384, 2), device=cuda).bfloat16().t()
     return {
         "x not contiguous": lambda: ln_modulate(x.transpose(0, 1).contiguous().transpose(0, 1),
@@ -1211,25 +1215,32 @@ def _bad_adaln_calls(cuda):
         "y on the CPU": lambda: gate_add_ln_modulate(x, y.cpu(), gate, shift, scale),
         "y not of gate's dtype": lambda: gate_add_ln_modulate(x, y.float(), gate, shift, scale),
         "gate on the CPU": lambda: gate_add_ln_modulate(x, y, gate.cpu(), shift, scale),
-        "autograd records": lambda: ln_modulate(leaf, shift, scale),
+        "backward dh shape": lambda: gate_add_ln_modulate_backward(
+            x, y, gate, shift, scale, y[:, :8]),
+        "backward dx' bf16": lambda: gate_add_ln_modulate_backward(
+            x, y, gate, shift, scale, y, x.bfloat16()),
     }
 
 
 BAD_ADALN_CALLS = ["x not contiguous", "x bf16", "x 2-D", "width over 2048", "shift shape",
                    "scale column stride", "scale float16", "y shape", "y on the CPU",
-                   "y not of gate's dtype", "gate on the CPU", "autograd records"]
+                   "y not of gate's dtype", "gate on the CPU", "backward dh shape",
+                   "backward dx' bf16"]
 
 
 @pytest.mark.parametrize("call", BAD_ADALN_CALLS)
 def test_adaln_wrappers_raise_on_what_the_kernel_does_not_take(cuda, call):
     """On the card a wrapper launches its kernel or raises: no fallback to
-    the plain composition for any operand the kernel does not take."""
-    from distillation_trajectories_torch.ops.adaln import gate_add_ln_modulate, ln_modulate
+    the plain composition for any operand the kernel does not take, the
+    backward's included."""
+    from distillation_trajectories_torch.ops import adaln
 
-    before = ln_modulate.launches + gate_add_ln_modulate.launches
+    counted = (adaln.ln_modulate, adaln.gate_add_ln_modulate, adaln.ln_modulate_backward,
+               adaln.gate_add_ln_modulate_backward)
+    before = [c.launches for c in counted]
     with pytest.raises(ValueError):
         _bad_adaln_calls(cuda)[call]()
-    assert ln_modulate.launches + gate_add_ln_modulate.launches == before
+    assert [c.launches for c in counted] == before
 
 
 # Relative L2 of a DiT-S/2 forward (bf16 autocast) fused against plain.  The
@@ -1248,7 +1259,8 @@ def test_dit_forward_runs_the_fused_kernels_and_matches_the_plain_one(cuda):
     ``DIT_FUSED_VS_PLAIN`` relative L2 of the same forward through the
     plain compositions (the model's adaLN calls patched to them), which
     launches neither kernel; both lie as close to the float32 model.  A
-    forward on the card that autograd would record raises."""
+    forward that autograd records runs the same kernels to the same output
+    and its backward launches the backward kernels, as many."""
     from unittest import mock
 
     from distillation_trajectories_torch.models import dit
@@ -1283,9 +1295,19 @@ def test_dit_forward_runs_the_fused_kernels_and_matches_the_plain_one(cuda):
     assert after == (before[0] + 1, before[1] + 2 * sizes["depth"])
     assert launches() == after
     assert [s.attrs["adaln"] for s in rec.spans if s.name == "dit.forward"] == ["fused"]
-    with pytest.raises(ValueError, match="no backward"):
-        model(x, t, ones, ones, labels)
-    assert launches() == after
+    from distillation_trajectories_torch.ops.adaln import (
+        gate_add_ln_modulate_backward,
+        ln_modulate_backward,
+    )
+
+    backward = ln_modulate_backward.launches, gate_add_ln_modulate_backward.launches
+    recorded = model(x, t, ones, ones, labels)
+    assert torch.equal(recorded.detach(), fused)
+    assert launches() == (after[0] + 1, after[1] + 2 * sizes["depth"])
+    recorded.float().square().mean().backward()
+    assert (ln_modulate_backward.launches - backward[0],
+            gate_add_ln_modulate_backward.launches - backward[1]) == (1, 2 * sizes["depth"])
+    after = launches()
     model.dtype = torch.float32
     with torch.no_grad():
         exact = model(x, t, ones, ones, labels)

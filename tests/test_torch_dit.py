@@ -5,7 +5,8 @@ its forward against the plain reference (``h100_bench/reference/dit.py``), the
 DiT teacher and two DiT students against the reference chain and metric
 suite, the labels' draw, the factory and the published sizes, the U-Net
 sweep unchanged bit for bit, every path built for the U-Net refusing a
-DiT, and the adaLN passes: their plain versions bit-equal to the published
+DiT (the teacher's trainer takes one, ``test_torch_dit_train.py``, but not
+on the mesh lane), and the adaLN passes: their plain versions bit-equal to the published
 block's composition, the trunk's seams through them, and their module
 importing no Triton."""
 
@@ -174,7 +175,7 @@ def test_dit_sweep_matches_the_reference_chain_and_metric_suite(tmp_path):
     forwards = [s for s in rec.spans if s.name == "dit.forward"]
     assert forwards and forwards[0].attrs == {
         "variant": teacher.variant, "batch": S, "tokens": 16, "heads": 4, "head_dim": 16,
-        "backends": ("flash", "cudnn", "efficient"), "adaln": "plain"}
+        "backends": ("flash", "cudnn", "efficient"), "adaln": "plain", "grad": False}
 
     seeds = [base + i for i in range(S)]
     noises = D.seeded_normal([(s, 0) for s in seeds], (8, 8, 4), "cpu")
@@ -290,7 +291,7 @@ def _refusals(tmp_path):
     from distillation_trajectories_torch.editing.core import editing_device
     from distillation_trajectories_torch.metrics.fid import make_sample_fn
     from distillation_trajectories_torch.models.quantized import make_quantized_eval_fn
-    from distillation_trajectories_torch.parallel.mesh import shard_params
+    from distillation_trajectories_torch.parallel.mesh import shard_params, shard_train_state
     from distillation_trajectories_torch.parallel.spatial import make_spatial_forward
     from distillation_trajectories_torch.training.progressive import progressive_distill
     from distillation_trajectories_torch.training.state import (
@@ -311,10 +312,12 @@ def _refusals(tmp_path):
     dit = DiT(input_size=8, in_channels=4, variant="DiT-S/2", **TEACHER)
     unet = make_unet(Config(base_dir=str(tmp_path), device="cpu"), 0.1)
     return {
-        "train_teacher": lambda: train_teacher(dit_cfg),
+        "train_teacher": lambda: train_teacher(Config(architecture="dit", mesh_shape=(2, 1),
+                                                      **kw)),
         "train_students": lambda: train_students(dit_cfg, [0.1]),
         "make_unet": lambda: make_unet(dit_cfg),
-        "trainer_state": lambda: create_train_state(dit, cfg, TorchDraws(0, "cpu")),
+        "trainer_state": lambda: shard_train_state(create_train_state(dit, cfg,
+                                                                      TorchDraws(0, "cpu")), None),
         "distill": lambda: distill_diffusion_model(dit, cfg),
         "progressive": lambda: progressive_distill(cfg, dit),
         "manager": lambda: TrajectoryManager(dit, unet, cfg),

@@ -48,6 +48,9 @@ class Recorded:
     def init_unet(self, config, size_factor):
         return model_from(config, size_factor, self._next("init_unet")).train()
 
+    def init_model(self, config):
+        return self.init_unet(config, 1.0)
+
     def teacher_step(self, images, timesteps):
         return self._next("teacher_step")
 
@@ -73,6 +76,9 @@ class Recording:
         model = self.source.init_unet(config, size_factor)
         self._keep("init_unet", {k: v.clone() for k, v in model.state_dict().items()})
         return model
+
+    def init_model(self, config):
+        return self.init_unet(config, 1.0)
 
     def teacher_step(self, images, timesteps):
         return self._keep("teacher_step", self.source.teacher_step(images, timesteps))

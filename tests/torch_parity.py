@@ -266,6 +266,9 @@ class JaxDraws:
         jmodel = jax_make_unet(self.jcfg, size_factor=size_factor)
         return port_model(config, size_factor, jax_init_unet(jmodel, self.jcfg, self._next()))
 
+    def init_model(self, config):
+        return self.init_unet(config, 1.0)
+
     def teacher_step(self, images, timesteps):
         return teacher_draws(self._next(), tuple(images.shape), timesteps)
 
